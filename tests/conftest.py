@@ -9,6 +9,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
