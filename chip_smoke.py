@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's decision loop once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card.
 
 Run from the repository root, with no arguments:
 
@@ -9,13 +9,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      versions; the card must be compute capability 9.0 (Hopper).
   2. build   — every CUDA kernel compiled from the repository's sources.
   3. kernels — each kernel against its plain PyTorch version on the card,
-     at the decision path's shapes and at a fleet shape, with times from
-     CUDA events (median of single launches).
+     at its path's shapes and at larger ones, with device times from the
+     profiler (CUDA event pairs where the trace holds no device time).
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
      policy: 4 batches (128 windows) with every kernel launch counted.
   5. fused   — the same system in ``fused`` mode for 32 windows, equal bit
      for bit to the first 32 windows of a fresh ``scan`` run.
+  6. harmonize_system — the harmonize op entry point on the K windows of
+     one batch the scan system assembled, held against its plain version
+     and against ``core.harmonize.harmonize_segment(agg="mean")``.
+  7. lm      — the LM side-car's serving path at qwen3-0.6b's full width
+     (28 layers, d_model 1024, vocab 151936, bfloat16, seeded random
+     weights): ``LM.prefill`` on 4 x 2048 tokens with one flash-attention
+     launch per layer counted, decode against prefill, and a
+     ``ServeEngine`` run at ``launch/serve.py``'s defaults.
 The line before the last holds one JSON object with every kernel's
 numbers; the last line is ``{"ok": true, "device": {...}}``. Without a
 card the script exits non-zero and prints no result.
@@ -36,8 +44,19 @@ import torch
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bfloat16 tensor cores, dense
 E, K, BATCHES, CAPACITY = 256, 32, 4, 4096
 N_TICKS, TICK_S, MAX_SAMPLES, HIDDEN = 8, 60.0, 32, 16
+# the LM side-car: prefill batch and prompt length, the decode-vs-prefill
+# tail, and launch/serve.py's defaults
+LM_ARCH, LM_B, LM_S, LM_TAIL = "qwen3-0.6b", 4, 2048, 8
+SERVE = dict(slots=4, max_seq=128, requests=8, prompt_len=8, new_tokens=16)
+# decode against prefill in bfloat16 over 28 layers: the two sides round
+# at other places (the flash kernel keeps p in float32, decode rounds it to
+# bfloat16; the products differ in shape and order), and the logits
+# themselves are rounded to bfloat16 (an ulp is 2^-5 at |logit| in [4, 8)).
+# Bound: 0.25, eight such ulps; see PERF.md
+LM_DECODE_BOUND = 0.25
 
 
 def check(cond, msg):
@@ -77,28 +96,34 @@ def _device_us(events):
                for e in events if e.device_type == DeviceType.CUDA)
 
 
-def device_ms(fn, reps=20, warmup=3):
+def device_ms(fn, reps=20, warmup=3, tries=3):
     """Device time of one call: the card's busy time (every kernel the call
     launched, gaps between them excluded), from the profiler's CUPTI trace,
-    averaged over ``reps`` calls. None when the trace holds no device
-    activity (the caller then reports event times)."""
+    averaged over ``reps`` calls. A trace now and then holds no device
+    activity at all; then it is taken again, up to ``tries`` times, and
+    None is returned if every one came back empty (the caller then reports
+    event times)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = _device_us(prof.key_averages())
-    return total / reps / 1e3 if total > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = _device_us(prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    return None
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, ops_rate=FP32_OPS_PER_S):
     """Least time the card could take: the larger of bytes over the HBM
-    rate and float32 operations over the non-tensor-core float32 rate."""
+    rate and operations over the peak rate of their type (float32 outside
+    the tensor cores by default)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -208,6 +233,128 @@ def kernel_cases(dev, g):
             compare=rg_cmp,
             # read a, b, h0, write hs and h_last; a multiply and an add
             bytes=n * 12 + b_ * w_ * 8, ops=2 * n, library=lib))
+    return cases + harmonize_cases(dev, g) + flash_cases(dev, g)
+
+
+def harmonize_cases(dev, g):
+    """The decision loop's window (E=256, S=8, M=32, T=8) and a fleet
+    window (4096 envs x 8 streams, 64 ticks, 128 samples)."""
+    from repro_torch.kernels.harmonize import ops as hz_ops
+    from repro_torch.kernels.harmonize.ref import harmonize_ref
+
+    cases = []
+    for label, (e, s, m, t) in (("path", (E, 8, MAX_SAMPLES, N_TICKS)),
+                                ("fleet", (4096, 8, 128, 64))):
+        R = e * s
+        # timestamps from half a tick before the window to one after it
+        ts = (torch.rand((e, s, m), generator=g, device=dev) * (t + 1.5)
+              - 0.5) * TICK_S
+        v = torch.randn((e, s, m), generator=g, device=dev)
+        ok = torch.rand((e, s, m), generator=g, device=dev) < 0.8
+        ws = (torch.rand((e,), generator=g, device=dev) - 0.5) * TICK_S
+
+        def plain(v=v, ts=ts, ok=ok, ws=ws, R=R, m=m, t=t, s=s):
+            return harmonize_ref(v.reshape(R, m), ts.reshape(R, m),
+                                 ok.reshape(R, m), ws.repeat_interleave(s),
+                                 TICK_S, t)
+
+        def kernel(v=v, ts=ts, ok=ok, ws=ws, t=t):
+            return hz_ops.harmonize(v, ts, ok, ws, tick_s=TICK_S, n_ticks=t)
+
+        def cmp(kernel=kernel, plain=plain, R=R, t=t):
+            (out, obs), (ref, ref_obs) = kernel(), plain()
+            out, obs = out.reshape(R, t), obs.reshape(R, t)
+            check(torch.equal(obs, ref_obs), "harmonize: observed differs")
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+            return (out - ref).abs().max().item()
+
+        cases.append(dict(
+            name="harmonize", shape=label, dims=dict(R=R, M=m, T=t),
+            kernel=kernel, plain=plain, compare=cmp,
+            # read values, timestamps, valid and t0, write means + observed;
+            # per sample a subtract, divide and ceil for the bucket and two
+            # adds into it, per tick one divide
+            bytes=R * m * 9 + e * 4 + R * t * 5, ops=5 * R * m + R * t,
+            library=None))
+    return cases
+
+
+def flash_cases(dev, g):
+    """qwen3-0.6b's prefill attention (B=4, 16 q / 8 kv heads, head dim
+    128, S=2048) in bfloat16 and float32, a ragged S, a window and a
+    softcap. Tolerances: float32 max abs err 2e-3 (tests/test_kernels.py);
+    bfloat16 one ulp of the plain output, |out - ref| <= 2^-7 |ref| + 1e-5
+    per element, since both compute in float32 and round the output once
+    (late rows attend to ~2048 keys and their outputs are ~0.04, so an
+    absolute bound would have to be far smaller than 5e-2 to see a dropped
+    tile). The softcap case scales q by 8 so that scores reach tens and the
+    cap of 50 (gemma2's) changes the output; the script checks that it
+    does."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, H, HKV, D = LM_B, 16, 8, 128
+    cases = []
+    for label, dtype, S, window, softcap in (
+            ("path", torch.bfloat16, LM_S, 0, 0.0),
+            ("path_f32", torch.float32, LM_S, 0, 0.0),
+            ("ragged", torch.bfloat16, 1000, 0, 0.0),
+            ("window", torch.bfloat16, LM_S, 512, 0.0),
+            ("softcap", torch.bfloat16, LM_S, 0, 50.0)):
+        q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
+                   .to(dtype) for h in (H, HKV, HKV))
+        if softcap:
+            q = q * 8
+        kw = dict(window=window, softcap=softcap)
+        info = {}
+
+        def cmp(q=q, k=k, v=v, kw=kw, dtype=dtype, label=label, info=info):
+            out = fa_ops.flash_attention(q, k, v, **kw)
+            ref = attention_ref(q, k, v, **kw).float()
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            check(out.dtype == q.dtype, f"flash_attention {label}: dtype")
+            if dtype == torch.bfloat16:
+                ratio = (diff / (2.0 ** -7 * ref.abs() + 1e-5)).max().item()
+                info.update(tol="2^-7 |ref| + 1e-5", err_over_tol=ratio,
+                            ref_mean_abs=ref.abs().mean().item())
+                check(ratio <= 1.0, f"flash_attention {label}: error "
+                      f"{ratio} x the one-ulp bound (max abs {err})")
+            else:
+                info.update(tol=2e-3, err_over_tol=err / 2e-3)
+                check(err <= 2e-3, f"flash_attention {label}: max abs err "
+                      f"{err} > 2e-3")
+            if kw["softcap"]:
+                uncapped = attention_ref(q, k, v, window=kw["window"])
+                effect = (uncapped.float() - ref).abs().max().item()
+                info["softcap_effect"] = effect
+                check(effect > 0.1, f"flash_attention {label}: the softcap "
+                      f"moves the output by only {effect}")
+            return err
+
+        lib = None
+        if not window and not softcap:
+            lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+        w = window or S
+        pairs = sum(min(i + 1, w) for i in range(S))   # (q, k) pairs scored
+        cases.append(dict(
+            name="flash_attention", shape=label,
+            dims=dict(B=B, S=S, H=H, Hkv=HKV, D=D, dtype=str(dtype)[6:],
+                      window=window, softcap=softcap),
+            kernel=lambda q=q, k=k, v=v, kw=kw: fa_ops.flash_attention(
+                q, k, v, **kw),
+            plain=lambda q=q, k=k, v=v, kw=kw: attention_ref(q, k, v, **kw),
+            compare=cmp, info=info,
+            # read q, k, v, write out; QK^T and PV, 2 flops per MAC each
+            bytes=2 * B * S * (H + HKV) * D * q.element_size(),
+            ops=4 * B * H * D * pairs,
+            ops_rate=(BF16_OPS_PER_S if dtype == torch.bfloat16
+                      else FP32_OPS_PER_S),
+            library=lib))
     return cases
 
 
@@ -218,6 +365,11 @@ KERNEL_META = {
                    "src/repro/kernels/window_agg/kernel.py:59"),
     "rglru_scan": ("src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:35"),
+    "harmonize": ("src/repro_torch/kernels/harmonize/csrc/harmonize.cu",
+                  "src/repro/kernels/harmonize/kernel.py:47"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:71"),
 }
 
 
@@ -226,7 +378,9 @@ def phase_kernels(dev):
     at_path = {}
     for case in kernel_cases(dev, g):
         err = case["compare"]()
-        reps = 20 if case["shape"] == "sequence" else 50
+        long_ = case["shape"] == "sequence" or case["name"] == \
+            "flash_attention"
+        reps = 20 if long_ else 50
         calls = {k: call_ms(case[k], reps=reps) for k in
                  ("kernel", "plain", "library") if case[k] is not None}
         dev_ms = {k: device_ms(case[k]) for k in calls}
@@ -234,10 +388,12 @@ def phase_kernels(dev):
                                   for v in dev_ms.values()) else "events"
         t = dev_ms if timer == "profiler" else calls
         ms, plain_ms, lib_ms = t["kernel"], t["plain"], t.get("library")
-        bound_ms, bound_by = bound(case["bytes"], case["ops"])
+        bound_ms, bound_by = bound(case["bytes"], case["ops"],
+                                   case.get("ops_rate", FP32_OPS_PER_S))
         us = lambda x: None if x is None else x * 1e3
         emit(dict(kernel=case["name"], shape=case["shape"], **case["dims"],
-                  parity="ok", max_abs_err=err, timer=timer, us=us(ms),
+                  parity="ok", max_abs_err=err, **case.get("info", {}),
+                  timer=timer, us=us(ms),
                   plain_us=us(plain_ms), library_us=us(lib_ms),
                   bound_us=us(bound_ms), bound_by=bound_by,
                   call_us=us(calls["kernel"]),
@@ -323,8 +479,18 @@ def phase_scan(dev, tmp):
             return out
         return run
 
+    captured = {}
+
+    def keep_batch(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            captured["raw"] = out[0]
+            return out
+        return run
+
     system.pump_receivers = timed("pump", system.pump_receivers)
-    system.assemble_windows = timed("assemble", system.assemble_windows)
+    system.assemble_windows = timed("assemble",
+                                    keep_batch(system.assemble_windows))
     system._dispatch_scan = timed("device", system._dispatch_scan, True)
     system.predictor.on_windows = timed("decide",
                                         system.predictor.on_windows, True)
@@ -374,7 +540,7 @@ def phase_scan(dev, tmp):
     profile_batch(system)
     system.db.close()
     system.stop()
-    return launches
+    return launches, captured["raw"]
 
 
 def profile_batch(system):
@@ -446,6 +612,207 @@ def phase_fused(dev, tmp):
         s.stop()
 
 
+def phase_harmonize(raw):
+    """The harmonize op entry point on each of the K windows of one batch
+    the scan system assembled (window-relative: every window starts at 0),
+    held against its plain version and against the pipeline's own
+    ``harmonize_segment(agg="mean")``. Returns the launches counted."""
+    from repro_torch.core.frame import RawWindow
+    from repro_torch.core.harmonize import harmonize_segment, tick_grid
+    from repro_torch.kernels.harmonize import ops as hz_ops
+    from repro_torch.kernels.harmonize.ref import harmonize_ref
+
+    k, e, s, m = raw.values.shape
+    R = e * s
+    ws = torch.zeros((e,), dtype=torch.float32, device=raw.values.device)
+    hz_ops.LAUNCHES = 0
+    torch.cuda.synchronize()
+    outs = [hz_ops.harmonize(raw.values[j], raw.timestamps[j], raw.valid[j],
+                             ws, tick_s=TICK_S, n_ticks=N_TICKS)
+            for j in range(k)]
+    torch.cuda.synchronize()
+    launches = hz_ops.LAUNCHES
+    check(launches == k, f"harmonize: {launches} launches, expected {k}")
+    err_plain = err_seg = 0.0
+    observed = 0
+    grid = tick_grid(ws, TICK_S, N_TICKS)
+    for j, (out, obs) in enumerate(outs):
+        ref, ref_obs = harmonize_ref(
+            raw.values[j].reshape(R, m), raw.timestamps[j].reshape(R, m),
+            raw.valid[j].reshape(R, m), ws.repeat_interleave(s), TICK_S,
+            N_TICKS)
+        seg, seg_obs = harmonize_segment(
+            RawWindow(raw.values[j], raw.timestamps[j], raw.valid[j]), grid,
+            TICK_S, "mean")
+        check(torch.equal(obs.reshape(R, N_TICKS), ref_obs),
+              f"harmonize window {j}: observed differs from plain")
+        check(torch.equal(obs, seg_obs),
+              f"harmonize window {j}: observed differs from harmonize_segment")
+        torch.testing.assert_close(out.reshape(R, N_TICKS), ref, rtol=1e-4,
+                                   atol=1e-5)
+        torch.testing.assert_close(out, seg, rtol=1e-4, atol=1e-5)
+        err_plain = max(err_plain, (out.reshape(R, N_TICKS) - ref).abs()
+                        .max().item())
+        err_seg = max(err_seg, (out - seg).abs().max().item())
+        observed += int(obs.sum())
+    observed_frac = observed / (k * R * N_TICKS)
+    emit({"phase": "harmonize_system", "windows": k, "envs": e,
+          "streams": s, "max_samples": m, "ticks": N_TICKS,
+          "launches": launches, "max_abs_err_vs_plain": err_plain,
+          "max_abs_err_vs_segment": err_seg,
+          "observed_frac": observed_frac})
+    # samples outside every tick (e.g. timestamps not window-relative)
+    # would leave all three versions at zeros and equal; the sources here
+    # fill ~63% of (row, tick) cells
+    check(observed_frac >= 0.3,
+          f"harmonize: only {observed_frac:.3f} of (row, tick) cells "
+          f"observed")
+    return launches
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_lm(dev):
+    """qwen3-0.6b at full width: prefill, decode against prefill, and the
+    serving engine. Returns the flash-attention launches of one prefill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.vocab_size, cfg.dtype)
+          == (28, 1024, 16, 8, 128, 151936, "bfloat16"),
+          f"{LM_ARCH}: not the full-width config")
+    model, init_ms = _sync_ms(lambda: LM(cfg, device=dev, seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == model.param_count(), "lm: parameter count differs")
+    emit({"phase": "lm_init", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params": n_params, "param_bytes": model.param_bytes(),
+          "init_ms": init_ms})
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (LM_B, LM_S), generator=g,
+                         device=dev, dtype=torch.int32)
+    model.prefill({"tokens": toks[:, :256]})   # warm-up: library handles
+    fa_ops.LAUNCHES = 0
+    (full, _), first_ms = _sync_ms(lambda: model.prefill({"tokens": toks}))
+    launches = fa_ops.LAUNCHES
+    check(launches == cfg.n_layers,
+          f"lm: {launches} flash_attention launches in one prefill, "
+          f"expected {cfg.n_layers}")
+    check(full.shape == (LM_B, cfg.vocab_size) and full.dtype ==
+          torch.float32 and bool(torch.isfinite(full).all()),
+          "lm: prefill logits not finite float32 (B, V)")
+    walls = [_sync_ms(lambda: model.prefill({"tokens": toks}))[1]
+             for _ in range(3)]
+    prefill_ms = statistics.median(walls)
+    emit({"phase": "lm_prefill", "batch": LM_B, "seq": LM_S,
+          "flash_attention_launches": launches, "first_wall_ms": first_ms,
+          "wall_ms": prefill_ms, "wall_ms_runs": walls,
+          "tokens_per_s": LM_B * LM_S / (prefill_ms / 1e3)})
+
+    # decode against prefill: prefill S - 8 tokens with room for the rest,
+    # decode the last 8, compare with the full prefill's last logits
+    _, cache = model.prefill({"tokens": toks[:, :LM_S - LM_TAIL]},
+                             max_seq=LM_S + 1)
+    step_ms = []
+    for t in range(LM_S - LM_TAIL, LM_S):
+        (logits, cache), ms = _sync_ms(lambda: model.decode_step(
+            {"tokens": toks[:, t:t + 1]}, cache))
+        step_ms.append(ms)
+    check(bool((cache["lengths"] == LM_S).all()), "lm: decode lengths")
+    diff = (logits - full).abs().max().item()
+    top2 = full.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    agree = logits.argmax(-1) == full.argmax(-1)
+    emit({"phase": "lm_decode_vs_prefill", "prefill_tokens": LM_S - LM_TAIL,
+          "decode_steps": LM_TAIL, "cache_len": LM_S + 1,
+          "max_abs_diff": diff, "bound": LM_DECODE_BOUND,
+          "argmax_agree": int(agree.sum()), "rows": LM_B,
+          "top2_gap_min": gap.min().item(),
+          "decode_ms_per_step": statistics.median(step_ms)})
+    check(bool(torch.isfinite(logits).all()), "lm: decode logits not finite")
+    check(diff <= LM_DECODE_BOUND,
+          f"lm: decode vs prefill max abs diff {diff} > {LM_DECODE_BOUND}")
+    check(bool((agree | (gap <= LM_DECODE_BOUND)).all()),
+          "lm: decode and prefill disagree on a clear argmax")
+    del cache
+
+    engine = ServeEngine(model, SERVE["slots"], SERVE["max_seq"])
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(
+                1, cfg.vocab_size, (SERVE["prompt_len"],)).astype(np.int32),
+                    max_new_tokens=SERVE["new_tokens"])
+            for i in range(SERVE["requests"])]
+    steps = []
+    step = engine._step_masked
+
+    def timed_step(tokens, mask):
+        out, ms = _sync_ms(lambda: step(tokens, mask))
+        steps.append(ms)
+        return out
+    engine._step_masked = timed_step
+    _, wall_ms = _sync_ms(lambda: engine.run_until_drained(reqs))
+    n_tok = sum(len(r.tokens) for r in reqs)
+    check(all(r.done and r.finish_reason == "length" and
+              len(r.tokens) == SERVE["new_tokens"] for r in reqs),
+          "serve: a request did not complete")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+          "serve: token out of range")
+    check(engine.stats["admitted"] == engine.stats["retired"] ==
+          SERVE["requests"] and engine.stats["timeouts"] == 0,
+          f"serve: stats {engine.stats}")
+    emit({"phase": "lm_serve", **SERVE, "completed": len(reqs),
+          "tokens": n_tok, "wall_s": wall_ms / 1e3,
+          "tokens_per_s": n_tok / (wall_ms / 1e3),
+          "engine_ticks": engine.stats["ticks"],
+          "decode_steps": len(steps),
+          "ms_per_decode_step": statistics.median(steps),
+          "stats": engine.stats})
+    del engine
+
+    # last, so that no timing above runs after a profiler session: where
+    # one prefill's and one serving decode step's device time goes
+    cache = model.init_cache(SERVE["slots"], SERVE["max_seq"])
+    tok = torch.ones((SERVE["slots"], 1), dtype=torch.int32, device=dev)
+    for name, fn in (("prefill", lambda: model.prefill({"tokens": toks})),
+                     ("decode_step", lambda: model.decode_step(
+                         {"tokens": tok}, cache))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = _sync_ms(fn)
+        devs = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        top = sorted(devs, key=lambda e: -e.self_device_time_total)[:6]
+        busy = _device_us(devs) / 1e3
+        emit({"phase": f"lm_profile_{name}", "wall_ms": wall,
+              "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+              "device_kernels": sum(e.count for e in devs),
+              "flash_attention_device_ms": sum(
+                  e.self_device_time_total for e in devs
+                  if "flash_attention" in e.key) / 1e3,
+              "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                                for e in top}})
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -475,15 +842,23 @@ def main() -> int:
 
     at_path = phase_kernels(dev)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        launches = phase_scan(dev, tmp)
+        launches, raw = phase_scan(dev, tmp)
         phase_fused(dev, tmp)
+    launches["harmonize"] = phase_harmonize(raw)
+    del raw
+    launches["flash_attention"] = phase_lm(dev)
 
-    emit({"kernels": [
-        dict(name=name, route="cuda", parity="ok",
-             source=KERNEL_META[name][0],
-             replaces=KERNEL_META[name][1], launches=launches[name],
-             **at_path[name]) for name in ("locf", "window_agg",
-                                          "rglru_scan")]})
+    def entry(name):
+        t = at_path[name]
+        us = {f"{k[:-3]}_us": (None if t[k] is None else t[k] * 1e3)
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        us["us"] = us.pop("_us")
+        return dict(name=name, route="cuda", parity="ok",
+                    source=KERNEL_META[name][0],
+                    replaces=KERNEL_META[name][1], launches=launches[name],
+                    **t, **us)
+
+    emit({"kernels": [entry(name) for name in KERNEL_META]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,9 +5,14 @@ Everything arrives as numpy arrays (the reference's leaves converted with
   * :func:`policy_params_from_numpy` — a policy builder's params, for the
     port builders' ``params=``;
   * :func:`pipeline_state_from_numpy` — a ``PipelineState``;
-  * :func:`replay_from_numpy` — a ``ReplayBuffer``.
-Dtypes are kept as the reference has them: float32 values and int32
-counters (``tick_index``, ``tick_idx``, ``version``, ``cursor``).
+  * :func:`replay_from_numpy` — a ``ReplayBuffer``;
+  * :func:`lm_params_from_numpy` / :func:`lm_cache_from_numpy` — an LM's
+    param tree (for ``LM(params=)``) and its decode cache, with the
+    reference's stacked pattern groups and ``tail`` layers split into the
+    port's per-layer list.
+Dtypes are kept as the reference has them: float32 or bfloat16 values and
+int32 counters (``tick_index``, ``tick_idx``, ``version``, ``cursor``,
+``lengths``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ def _t(x, device):
     if a.dtype == np.float64:
         raise TypeError("float64 leaf: the reference's device leaves are "
                         "float32")
+    if a.dtype.name == "bfloat16":   # numpy holds it as ml_dtypes' type
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -54,3 +62,42 @@ def pipeline_state_from_numpy(state, device="cpu") -> PipelineState:
 def replay_from_numpy(buf, device="cpu") -> rp.ReplayBuffer:
     """A reference ``ReplayBuffer`` with numpy leaves -> the port's."""
     return rp.ReplayBuffer(*(_t(x, device) for x in buf))
+
+
+def _per_layer(tree, cfg, leaf):
+    """The reference's {"groups": stacked slots, "tail": tail slots} ->
+    a list in model order (layer g * len(pattern) + i is group g's slot i;
+    the tail follows)."""
+    n_pat = len(cfg.layer_pattern)
+    layers = []
+    for g in range(cfg.n_groups):
+        for i in range(n_pat):
+            slot = tree["groups"][f"slot{i}"]
+            layers.append(_map(slot, lambda x: leaf(np.asarray(x)[g])))
+    n_tail = cfg.n_layers - cfg.n_groups * n_pat
+    for i in range(n_tail):
+        layers.append(_map(tree["tail"][f"tail{i}"], leaf))
+    return layers
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(params, cfg, device="cpu") -> dict:
+    """A reference ``LM``'s params (numpy leaves) -> the port layout
+    ``{"embed": {...}, "layers": [{"attn": {...}, "ffn": {...}}, ...]}``
+    for ``repro_torch.models.LM(cfg, params=...)``."""
+    leaf = lambda x: _t(x, device)
+    return {"embed": _map(params["embed"], leaf),
+            "layers": _per_layer(params, cfg, leaf)}
+
+
+def lm_cache_from_numpy(cache, cfg, device="cpu") -> dict:
+    """A reference decode cache (numpy leaves) -> the port's
+    ``{"lengths": (B,) int32, "layers": [{"k", "v"}, ...]}``."""
+    leaf = lambda x: _t(x, device)
+    return {"lengths": _t(np.asarray(cache["lengths"], np.int32), device),
+            "layers": _per_layer(cache, cfg, leaf)}

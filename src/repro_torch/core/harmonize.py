@@ -20,6 +20,15 @@ BIG = 3.4e38
 _DENSE_MT_MAX = 8192
 
 
+def exact_div(x, c: float):
+    """``x / c`` rounded once, as IEEE division (and the reference) rounds
+    it. On CUDA, PyTorch divides by a Python scalar as ``x * (1 / c)``,
+    which is off by an ulp often enough to move ``ceil`` across an integer:
+    180 * f32(1/60) rounds to 3.0000002, so a sample on a tick boundary
+    would land a bucket late. A 0-d device tensor divides exactly."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def tick_grid(window_start, tick_s: float, n_ticks: int):
     """Tick timestamps (end-of-bucket convention). window_start: (E,)."""
     steps = 1.0 + torch.arange(n_ticks, dtype=torch.float32,
@@ -31,7 +40,7 @@ def bucketize(raw: RawWindow, tick_ts, tick_s: float):
     """Bucket index per raw sample. Returns (idx (E,S,M), in_range (E,S,M))."""
     t0 = tick_ts[:, 0] - tick_s  # window start
     rel = raw.timestamps - t0[:, None, None]
-    idx = torch.ceil(rel / tick_s).to(torch.int32) - 1
+    idx = torch.ceil(exact_div(rel, tick_s)).to(torch.int32) - 1
     T = tick_ts.shape[1]
     ok = raw.valid & (idx >= 0) & (idx < T)
     return idx.clamp(0, T - 1), ok

@@ -9,11 +9,26 @@ have no CPU mode; their plain versions are held against the JAX package by
 Tolerances: exact for selection (LOCF, min/max/last), counts, masks and
 the recurrence (the kernel writes no FMA, the plain version has none);
 rtol = atol = 1e-5 for window mean/var/sum, which add in another order.
+Harmonize: ``observed`` exact, means within atol 1e-5 / rtol 1e-4 (both
+add the same values, the plain version in torch's reduction order).
+Flash attention: max abs error 2e-3 in float32 (``tests/test_kernels.py``'s
+bound): the kernel sums its products with FMAs in tile order and the plain
+version through a matrix product. In bfloat16 one bfloat16 ulp of the
+plain output, |out - ref| <= 2^-7 |ref| + 1e-5: both compute in float32
+and round the output once, so they differ by at most one rounding step
+(an absolute bound would be as large as the outputs of late rows, which
+attend to many keys and so are small). Softcap cases scale q by 8, so that
+scores reach tens and the cap changes the output far beyond the bound.
 """
 import numpy as np
 import pytest
 import torch
+from numpy.testing import assert_allclose
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.harmonize import ops as hz_ops
+from repro_torch.kernels.harmonize.ref import harmonize_ref
 from repro_torch.kernels.locf import ops as locf_ops
 from repro_torch.kernels.locf.ref import locf_ref
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
@@ -70,3 +85,93 @@ def test_kernels_match_plain_versions_on_card(card, rng):
     assert torch.equal(hs, ref_hs) and torch.equal(h, ref_h)
     assert (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES) == \
         tuple(n + 1 for n in before)
+
+
+# B, S, H, Hkv, D, window, softcap: ragged S, GQA/MQA/MHA, every head dim
+# the kernel is built for, a window and a softcap
+FA_CASES = [(2, 100, 4, 2, 64, 0, 0.0), (1, 128, 4, 4, 32, 48, 0.0),
+            (1, 96, 2, 1, 128, 0, 50.0), (1, 70, 2, 1, 256, 0, 0.0),
+            (2, 33, 4, 2, 16, 8, 30.0), (1, 300, 16, 8, 128, 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.bfloat16, "one ulp")])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,softcap", FA_CASES)
+def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
+                                               H, Hkv, D, window, softcap):
+    C = lambda scale, *shape: torch.from_numpy(
+        rng.normal(0, scale, shape).astype(np.float32)).to(card, dtype)
+    q = C(8 if softcap else 1, B, S, H, D)
+    k, v = C(1, B, S, Hkv, D), C(1, B, S, Hkv, D)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    ref = attention_ref(q, k, v, window=window, softcap=softcap)
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        bound = 2.0 ** -7 * ref.float().abs() + 1e-5
+        assert (err <= bound).all(), (err / bound).max().item()
+    else:
+        assert err.max().item() <= tol, err.max().item()
+    if softcap:
+        uncapped = attention_ref(q, k, v, window=window)
+        assert (uncapped.float() - ref.float()).abs().max().item() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S,M,T", [(256, 8, 32, 8), (3, 5, 17, 13),
+                                     (1, 1, 1, 1)])
+def test_harmonize_matches_plain_on_card(card, rng, E, S, M, T):
+    ts = rng.uniform(-100, (T + 2) * 30, (E, S, M)).astype(np.float32)
+    vals = rng.normal(0, 5, (E, S, M)).astype(np.float32)
+    valid = rng.rand(E, S, M) > 0.3
+    vals[0, 0][~valid[0, 0]] = np.nan   # invalid NaN samples propagate
+    ws = rng.uniform(-50, 50, (E,)).astype(np.float32)
+    C = lambda x: torch.from_numpy(np.array(x)).to(card)
+    before = hz_ops.LAUNCHES
+    out, obs = hz_ops.harmonize(C(vals), C(ts), C(valid), C(ws), tick_s=30.0,
+                                n_ticks=T)
+    torch.cuda.synchronize()
+    assert hz_ops.LAUNCHES == before + 1
+    R = E * S
+    t0 = C(np.repeat(ws, S))
+    ref, ref_obs = harmonize_ref(C(vals).reshape(R, M), C(ts).reshape(R, M),
+                                 C(valid).reshape(R, M), t0, 30.0, T)
+    assert torch.equal(obs.reshape(R, T), ref_obs)
+    torch.testing.assert_close(out.reshape(R, T), ref, rtol=1e-4, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_bucketing_divides_exactly_on_card(card):
+    """Samples on tick boundaries (k * 60 s) and one float32 ulp either
+    side bucket as IEEE division puts them, in the kernel, its plain
+    version and the pipeline's harmonize_segment alike. A Python-scalar
+    division on CUDA (a reciprocal multiply) puts 180 / 60 at 3.0000002."""
+    from repro_torch.core.frame import RawWindow
+    from repro_torch.core.harmonize import harmonize_segment, tick_grid
+    T, tick = 8, 60.0
+    b = np.arange(0, T + 2, dtype=np.float32) * np.float32(tick)
+    ts = np.concatenate([b, np.nextafter(b, np.float32(-1e9)),
+                         np.nextafter(b, np.float32(1e9))])
+    M = ts.size
+    vals = np.arange(M, dtype=np.float32)
+    idx = np.ceil(ts / np.float32(tick)).astype(np.int64) - 1
+    want_obs = np.zeros(T, bool)
+    want_obs[idx[(idx >= 0) & (idx < T)]] = True
+    C = lambda x: torch.from_numpy(np.array(x)).to(card)
+    v, t = C(vals[None, None]), C(ts[None, None])
+    ok = torch.ones((1, 1, M), dtype=torch.bool, device=card)
+    ws = torch.zeros((1,), device=card)
+    out, obs = hz_ops.harmonize(v, t, ok, ws, tick_s=tick, n_ticks=T)
+    ref, ref_obs = harmonize_ref(v[0], t[0], ok[0], ws, tick, T)
+    seg, seg_obs = harmonize_segment(RawWindow(v, t, ok),
+                                     tick_grid(ws, tick, T), tick, "mean")
+    want = [vals[idx == j].mean() if want_obs[j] else 0.0 for j in range(T)]
+    for o, m in ((out[0, 0], obs[0, 0]), (ref[0], ref_obs[0]),
+                 (seg[0, 0], seg_obs[0, 0])):
+        assert (m.cpu().numpy() == want_obs).all()
+        assert_allclose(o.cpu().numpy(), want, rtol=1e-6)

@@ -1,4 +1,4 @@
-"""The port's three kernels against the JAX package's.
+"""The port's five kernels against the JAX package's.
 
 On the CPU each port wrapper runs its plain PyTorch version; it is held
 against the JAX oracle (``ref.py``) and, for locf and window_agg, the
@@ -10,7 +10,14 @@ themselves are held against their plain versions on the card by
 Tolerances: bool outputs, counts, min/max/last and LOCF values where
 ``has`` is True are pure selection or exact integer counts and must match
 exactly; float sums (window mean/var/sum, the recurrence) use rtol = atol =
-1e-5, because XLA and torch add in different orders.
+1e-5, because XLA and torch add in different orders. harmonize:
+``observed`` exact, means rtol 1e-4 / atol 1e-5 (``tests/test_kernels.py``'s
+bound). flash_attention: 2e-3 in float32, the bound ``tests/test_kernels.py``
+holds the Pallas kernel to; in bfloat16 one bfloat16 ulp of the reference
+output, |got - want| <= 2^-7 |want| + 1e-5: both sides compute in float32
+(p too) and round the output once, so their bfloat16 outputs differ by at
+most one rounding step. Softcap cases scale q by 8, so that scores reach
+tens and a cap of 50 changes the output far beyond the tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,9 +25,14 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash_attention
+from repro.kernels.harmonize.ops import harmonize as jax_harmonize
 from repro.kernels.locf.ops import locf as jax_locf
 from repro.kernels.rglru_scan.ops import rglru_scan as jax_rglru_scan
 from repro.kernels.window_agg.ops import window_agg as jax_window_agg
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.harmonize import ops as hz_ops
 from repro_torch.kernels.locf import ops as locf_ops
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.window_agg import ops as wagg_ops
@@ -113,13 +125,90 @@ def test_rglru_scan_matches_jax_oracle(B, T, W, rng):
     assert torch.equal(got_hs[:, -1], got_h)
 
 
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 128, 2, 1, 32),    # MQA
+    (2, 256, 4, 2, 32),    # GQA
+    (1, 128, 4, 4, 64),    # MHA
+    (2, 100, 4, 2, 16),    # ragged S: one 100-row Pallas block
+])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 0.0), (0, 50.0)])
+def test_flash_attention_matches_jax(B, S, H, Hkv, D, window, softcap, rng):
+    q = rng.normal(0, 8 if softcap else 1, (B, S, H, D)).astype(np.float32)
+    k = rng.normal(0, 1, (B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(0, 1, (B, S, Hkv, D)).astype(np.float32)
+    blk = 64 if S % 64 == 0 else S
+    want = jax_flash_attention(q, k, v, window=window, softcap=softcap,
+                               use_pallas=True, q_blk=blk, kv_blk=blk)
+    got = fa_ops.flash_attention(T_(q), T_(k), T_(v), window=window,
+                                 softcap=softcap)
+    assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3, atol=2e-3)
+    if softcap:
+        uncapped = fa_ops.flash_attention(T_(q), T_(k), T_(v), window=window)
+        assert np.abs(uncapped.numpy() - np.asarray(want)).max() > 0.1
+
+
+def _bf16_case(rng, S, softcap):
+    B, H, Hkv, D = 1, 2, 1, 32
+    x = [rng.normal(0, 8 if softcap and h == H else 1,
+                    (B, S, h, D)).astype(np.float32) for h in (H, Hkv, Hkv)]
+    blk = 64 if S % 64 == 0 else S
+    want = jax_flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in x),
+                               softcap=softcap, use_pallas=True, q_blk=blk,
+                               kv_blk=blk)
+    got = fa_ops.flash_attention(*(T_(a).to(torch.bfloat16) for a in x),
+                                 softcap=softcap)
+    assert got.dtype == torch.bfloat16
+    assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                    rtol=2.0 ** -7, atol=1e-5)
+
+
+def test_flash_attention_bf16_matches_jax(rng):
+    _bf16_case(rng, 128, 0.0)
+
+
+def test_flash_attention_bf16_softcap_matches_jax(rng):
+    """Ragged S = 100 with q scaled by 8 under a cap of 50."""
+    _bf16_case(rng, 100, 50.0)
+
+
+def _harmonize_case(seed):
+    """The draw of ``tests/test_kernels.py::test_harmonize_property``."""
+    rng = np.random.RandomState(seed)
+    E, S = rng.randint(1, 4), rng.randint(1, 5)
+    M, T = rng.randint(1, 48), rng.randint(1, 24)
+    ts = rng.uniform(-100, (T + 2) * 30, (E, S, M)).astype(np.float32)
+    vals = rng.normal(0, 5, (E, S, M)).astype(np.float32)
+    valid = rng.rand(E, S, M) > 0.5
+    ws = rng.uniform(-50, 50, (E,)).astype(np.float32)
+    return vals, ts, valid, ws, T
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 7, 42, 1234, 65535])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_harmonize_matches_jax(seed, use_pallas):
+    vals, ts, valid, ws, T = _harmonize_case(seed)
+    want, want_obs = map(np.asarray, jax_harmonize(
+        vals, ts, valid, ws, tick_s=30.0, n_ticks=T, use_pallas=use_pallas))
+    got, got_obs = hz_ops.harmonize(T_(vals), T_(ts), T_(valid), T_(ws),
+                                    tick_s=30.0, n_ticks=T)
+    assert got_obs.dtype == torch.bool
+    assert (got_obs.numpy() == want_obs).all()
+    assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
 def test_cpu_path_counts_no_launch(rng):
-    before = (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES)
+    before = (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES,
+              hz_ops.LAUNCHES, fa_ops.LAUNCHES)
     v, o, iv, ih = _locf_inputs(rng, 2, 2, 4)
     locf_ops.locf(T_(v), T_(o), T_(iv), T_(ih))
     v, m, mu, var = _wagg_inputs(rng, 2, 2, 4)
     wagg_ops.window_agg(T_(v), T_(m), T_(mu), T_(var))
     a = torch.ones((2, 1, 3))
     rglru_ops.rglru_scan(a, a, torch.zeros((2, 3)))
-    assert (locf_ops.LAUNCHES, wagg_ops.LAUNCHES,
-            rglru_ops.LAUNCHES) == before
+    hz_ops.harmonize(torch.zeros((1, 2, 3)), torch.zeros((1, 2, 3)),
+                     torch.ones((1, 2, 3), dtype=torch.bool),
+                     torch.zeros((1,)), tick_s=1.0, n_ticks=2)
+    q, kv = torch.zeros((1, 4, 2, 16)), torch.zeros((1, 4, 1, 16))
+    fa_ops.flash_attention(q, kv, kv)
+    assert (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES,
+            hz_ops.LAUNCHES, fa_ops.LAUNCHES) == before

@@ -33,6 +33,8 @@ from repro.runtime.system import SourceSpec as JaxSource
 from repro_torch import convert
 from repro_torch.core import PipelineConfig
 from repro_torch.core.reward import energy_reward_spec
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.harmonize import ops as hz_ops
 from repro_torch.kernels.locf import ops as locf_ops
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.window_agg import ops as wagg_ops
@@ -153,7 +155,11 @@ def test_host_ingest_assembles_identical_batches(fastpath, workers, ingest,
 def test_port_imports_neither_jax_nor_repro():
     # mind that "repro_torch" itself starts with "repro"
     code = ("import sys; import repro_torch, repro_torch.convert, "
-            "repro_torch.runtime.system; "
+            "repro_torch.runtime.system, repro_torch.models, "
+            "repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.configs.registry, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.harmonize.ops; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; "
@@ -212,3 +218,8 @@ def test_ops_raise_on_unsupported_dtype():
     with pytest.raises(TypeError):   # an int mask is not a bool mask
         locf_ops.locf(f64.float(), b.int(), c64.float(),
                       torch.zeros((2, 2), dtype=torch.bool))
+    with pytest.raises(TypeError):
+        hz_ops.harmonize(f64, f64, b, torch.zeros((2,), dtype=torch.float64),
+                         tick_s=1.0, n_ticks=4)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(f64[None], f64[None], f64[None])
