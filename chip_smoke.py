@@ -118,6 +118,28 @@ def device_ms(fn, reps=20, warmup=3, tries=3):
     return None
 
 
+def traced_kernels(fn, reps=10, tries=3):
+    """Names of the device kernels that ``reps`` calls of ``fn`` ran, from
+    the profiler's trace (not from the wrappers' counters). A trace of a
+    single call came back empty on the card; an empty trace is taken
+    again, as in ``device_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA})
+        if names:
+            break
+    return names
+
+
 def bound(bytes_moved, ops, ops_rate=FP32_OPS_PER_S):
     """Least time the card could take: the larger of bytes over the HBM
     rate and operations over the peak rate of their type (float32 outside
@@ -279,11 +301,24 @@ def harmonize_cases(dev, g):
     return cases
 
 
+# the source file of each flash-attention kernel, and the name its device
+# kernel carries in a profiler trace
+FA_KERNELS = {
+    "wgmma": ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_sm90.cu", "flash_attention_sm90_kernel"),
+    "scalar": ("src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu", "flash_attention_kernel"),
+}
+
+
 def flash_cases(dev, g):
     """qwen3-0.6b's prefill attention (B=4, 16 q / 8 kv heads, head dim
     128, S=2048) in bfloat16 and float32, a ragged S, a window and a
-    softcap. Tolerances: float32 max abs err 2e-3 (tests/test_kernels.py);
-    bfloat16 one ulp of the plain output, |out - ref| <= 2^-7 |ref| + 1e-5
+    softcap; and gemma2-2b's (8 q / 4 kv heads, head dim 256, its 4096
+    window and attention cap of 50). Each case names the kernel it must
+    run (``ops.impl_for``), checked through ``LAUNCHES_BY_IMPL`` and the
+    kernel names in a profiler trace. Tolerances: float32 max abs err
+    2e-3 (tests/test_kernels.py); bfloat16 one ulp of the plain output, |out - ref| <= 2^-7 |ref| + 1e-5
     per element, since both compute in float32 and round the output once
     (late rows attend to ~2048 keys and their outputs are ~0.04, so an
     absolute bound would have to be far smaller than 5e-2 to see a dropped
@@ -295,14 +330,22 @@ def flash_cases(dev, g):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    B, H, HKV, D = LM_B, 16, 8, 128
+    B = LM_B
     cases = []
-    for label, dtype, S, window, softcap in (
-            ("path", torch.bfloat16, LM_S, 0, 0.0),
-            ("path_f32", torch.float32, LM_S, 0, 0.0),
-            ("ragged", torch.bfloat16, 1000, 0, 0.0),
-            ("window", torch.bfloat16, LM_S, 512, 0.0),
-            ("softcap", torch.bfloat16, LM_S, 0, 50.0)):
+    for label, dtype, S, window, softcap, (H, HKV, D), impl in (
+            ("path", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 128), "wgmma"),
+            ("path_f32", torch.float32, LM_S, 0, 0.0, (16, 8, 128),
+             "scalar"),
+            ("ragged", torch.bfloat16, 1000, 0, 0.0, (16, 8, 128), "wgmma"),
+            ("window", torch.bfloat16, LM_S, 512, 0.0, (16, 8, 128),
+             "wgmma"),
+            ("softcap", torch.bfloat16, LM_S, 0, 50.0, (16, 8, 128),
+             "wgmma"),
+            ("gemma_d256", torch.bfloat16, LM_S, 4096, 50.0, (8, 4, 256),
+             "wgmma")):
+        check(fa_ops.impl_for(dtype, D) == impl,
+              f"flash_attention {label}: impl_for gives "
+              f"{fa_ops.impl_for(dtype, D)}, expected {impl}")
         q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
                    .to(dtype) for h in (H, HKV, HKV))
         if softcap:
@@ -310,8 +353,23 @@ def flash_cases(dev, g):
         kw = dict(window=window, softcap=softcap)
         info = {}
 
-        def cmp(q=q, k=k, v=v, kw=kw, dtype=dtype, label=label, info=info):
+        def cmp(q=q, k=k, v=v, kw=kw, dtype=dtype, label=label, info=info,
+                impl=impl):
+            by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
             out = fa_ops.flash_attention(q, k, v, **kw)
+            by_impl[impl] += 1
+            check(fa_ops.LAUNCHES_BY_IMPL == by_impl,
+                  f"flash_attention {label}: launches by impl "
+                  f"{fa_ops.LAUNCHES_BY_IMPL}, expected {by_impl}")
+            names = traced_kernels(lambda: fa_ops.flash_attention(q, k, v,
+                                                                  **kw))
+            want = FA_KERNELS[impl][1]
+            ran = [n for n in names if "flash_attention" in n]
+            check(len(ran) == 1 and want in ran[0] and
+                  (impl == "wgmma") == ("sm90" in ran[0]),
+                  f"flash_attention {label}: trace shows {ran}, expected "
+                  f"{want}")
+            info.update(impl=impl, traced_kernel=ran[0])
             ref = attention_ref(q, k, v, **kw).float()
             diff = (out.float() - ref).abs()
             err = diff.max().item()
@@ -367,9 +425,8 @@ KERNEL_META = {
                    "src/repro/kernels/rglru_scan/kernel.py:35"),
     "harmonize": ("src/repro_torch/kernels/harmonize/csrc/harmonize.cu",
                   "src/repro/kernels/harmonize/kernel.py:47"),
-    "flash_attention": (
-        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:71"),
+    "flash_attention": (FA_KERNELS["wgmma"][0],
+                        "src/repro/kernels/flash_attention/kernel.py:71"),
 }
 
 
@@ -709,11 +766,16 @@ def phase_lm(dev):
                          device=dev, dtype=torch.int32)
     model.prefill({"tokens": toks[:, :256]})   # warm-up: library handles
     fa_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
     (full, _), first_ms = _sync_ms(lambda: model.prefill({"tokens": toks}))
     launches = fa_ops.LAUNCHES
+    by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
     check(launches == cfg.n_layers,
           f"lm: {launches} flash_attention launches in one prefill, "
           f"expected {cfg.n_layers}")
+    check(by_impl == {"wgmma": cfg.n_layers, "scalar": 0},
+          f"lm: flash_attention launches by impl {by_impl}, expected all "
+          f"{cfg.n_layers} on wgmma")
     check(full.shape == (LM_B, cfg.vocab_size) and full.dtype ==
           torch.float32 and bool(torch.isfinite(full).all()),
           "lm: prefill logits not finite float32 (B, V)")
@@ -721,7 +783,9 @@ def phase_lm(dev):
              for _ in range(3)]
     prefill_ms = statistics.median(walls)
     emit({"phase": "lm_prefill", "batch": LM_B, "seq": LM_S,
-          "flash_attention_launches": launches, "first_wall_ms": first_ms,
+          "flash_attention_launches": launches,
+          "flash_attention_launches_by_impl": by_impl,
+          "first_wall_ms": first_ms,
           "wall_ms": prefill_ms, "wall_ms_runs": walls,
           "tokens_per_s": LM_B * LM_S / (prefill_ms / 1e3)})
 
@@ -800,7 +864,15 @@ def phase_lm(dev):
                 if e.device_type == DeviceType.CUDA]
         top = sorted(devs, key=lambda e: -e.self_device_time_total)[:6]
         busy = _device_us(devs) / 1e3
+        fa_names = [e.key for e in devs if "flash_attention" in e.key]
+        if name == "prefill":
+            check(len(fa_names) == 1 and FA_KERNELS["wgmma"][1] in
+                  fa_names[0] and sum(e.count for e in devs if e.key in
+                                      fa_names) == cfg.n_layers,
+                  f"lm: the prefill trace shows flash kernels {fa_names}, "
+                  f"expected {cfg.n_layers} launches of the wgmma kernel")
         emit({"phase": f"lm_profile_{name}", "wall_ms": wall,
+              "flash_attention_kernels": fa_names,
               "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
               "device_kernels": sum(e.count for e in devs),
               "flash_attention_device_ms": sum(
@@ -853,7 +925,8 @@ def main() -> int:
         us = {f"{k[:-3]}_us": (None if t[k] is None else t[k] * 1e3)
               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         us["us"] = us.pop("_us")
-        return dict(name=name, route="cuda", parity="ok",
+        extra = {"impl": "wgmma"} if name == "flash_attention" else {}
+        return dict(name=name, route="cuda", parity="ok", **extra,
                     source=KERNEL_META[name][0],
                     replaces=KERNEL_META[name][1], launches=launches[name],
                     **t, **us)

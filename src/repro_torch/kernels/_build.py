@@ -44,6 +44,9 @@ SIGNATURES = {
     # q, k, v, out, B, S, H, Hkv, D, window, softcap, scale, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, ctypes.c_float, _I, _P],
+    # q, k, v, out, B, S, H, Hkv, D, window, softcap, scale, stream (bf16)
+    "flash_attention_sm90_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    ctypes.c_float, ctypes.c_float, _P],
     # values, timestamps, valid, window_start, out, observed, E, S, M, T,
     # tick_s, stream
     "harmonize_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

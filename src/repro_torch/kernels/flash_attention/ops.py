@@ -1,7 +1,19 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernels.
 
-A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises. ``LAUNCHES`` counts kernel launches.
+Two CUDA kernels compute the same function; which one runs is a static
+choice by (dtype, head dim), made by :func:`impl_for` and never by a
+failure: a build or launch error of either raises.
+
+- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bfloat16 at head dims
+  64, 128 and 256, on the tensor cores (TMA-fed ``wgmma``, p split into
+  bf16 hi and lo halves for the PV product).
+- ``"scalar"`` (``csrc/flash_attention.cu``): float32 at every head dim,
+  and bfloat16 at head dims 16 and 32, whose 32- and 64-byte rows are
+  narrower than the 128-byte swizzled boxes the wgmma kernel reads. It
+  runs on the float32 FMA units.
+
+A CPU tensor takes the plain version in ``ref.py``. ``LAUNCHES`` counts
+kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel.
 """
 from __future__ import annotations
 
@@ -13,8 +25,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES = 0
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
+LAUNCHES_BY_IMPL = {"wgmma": 0, "scalar": 0}
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the scalar kernel's template instances
+WGMMA_HEAD_DIMS = (64, 128, 256)     # the wgmma kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def impl_for(dtype, D: int) -> str:
+    """The kernel that computes attention for this dtype and head dim:
+    ``"wgmma"`` or ``"scalar"``."""
+    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "scalar"
 
 
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
@@ -51,9 +73,15 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     if out.numel() == 0:
         return out
     lib = _build.library()
-    _build.check(lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        Hkv, D, int(window), float(softcap), scale, _DTYPES[q.dtype],
-        _build.stream_ptr(dev)), "flash_attention")
+    impl = impl_for(q.dtype, D)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, Hkv, D, int(window), float(softcap), scale)
+    stream = _build.stream_ptr(dev)
+    if impl == "wgmma":
+        code = lib.flash_attention_sm90_launch(*args, stream)
+    else:
+        code = lib.flash_attention_launch(*args, _DTYPES[q.dtype], stream)
+    _build.check(code, f"flash_attention ({impl})")
     LAUNCHES += 1
+    LAUNCHES_BY_IMPL[impl] += 1
     return out

@@ -27,6 +27,9 @@ def rglru_scan(a, b, h0):
         return rglru_scan_ref(a, b, h0)
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {dev}")
+    if B * T * W >= 2 ** 31:
+        raise ValueError(f"rglru_scan: B*T*W = {B * T * W} elements; the "
+                         "kernel indexes in 32 bits (< 2^31)")
     lib = _build.library()
     hs = torch.empty_like(a)
     h_last = torch.empty_like(h0)

@@ -11,12 +11,14 @@ the recurrence (the kernel writes no FMA, the plain version has none);
 rtol = atol = 1e-5 for window mean/var/sum, which add in another order.
 Harmonize: ``observed`` exact, means within atol 1e-5 / rtol 1e-4 (both
 add the same values, the plain version in torch's reduction order).
-Flash attention: max abs error 2e-3 in float32 (``tests/test_kernels.py``'s
+Flash attention (each case also asserts which kernel ran, through
+``LAUNCHES_BY_IMPL``): max abs error 2e-3 in float32 (``tests/test_kernels.py``'s
 bound): the kernel sums its products with FMAs in tile order and the plain
 version through a matrix product. In bfloat16 one bfloat16 ulp of the
 plain output, |out - ref| <= 2^-7 |ref| + 1e-5: both compute in float32
-and round the output once, so they differ by at most one rounding step
-(an absolute bound would be as large as the outputs of late rows, which
+and round the output once (the wgmma kernel feeds PV with p split into
+two bf16 halves, ~16 bits of p), so they differ by at most one rounding
+step (an absolute bound would be as large as the outputs of late rows, which
 attend to many keys and so are small). Softcap cases scale q by 8, so that
 scores reach tens and the cap changes the output far beyond the bound.
 """
@@ -88,10 +90,16 @@ def test_kernels_match_plain_versions_on_card(card, rng):
 
 
 # B, S, H, Hkv, D, window, softcap: ragged S, GQA/MQA/MHA, every head dim
-# the kernel is built for, a window and a softcap
+# the kernels are built for, a window and a softcap; then S at, one below
+# and one above the wgmma kernel's 128-row blocks, a long S, a window edge
+# that cuts a key tile (100), and head dims 64 and 256 on longer rows
 FA_CASES = [(2, 100, 4, 2, 64, 0, 0.0), (1, 128, 4, 4, 32, 48, 0.0),
             (1, 96, 2, 1, 128, 0, 50.0), (1, 70, 2, 1, 256, 0, 0.0),
-            (2, 33, 4, 2, 16, 8, 30.0), (1, 300, 16, 8, 128, 0, 0.0)]
+            (2, 33, 4, 2, 16, 8, 30.0), (1, 300, 16, 8, 128, 0, 0.0),
+            (1, 64, 2, 1, 128, 0, 0.0), (1, 127, 4, 2, 128, 0, 0.0),
+            (2, 129, 4, 2, 128, 0, 0.0), (1, 1000, 4, 2, 128, 0, 0.0),
+            (1, 2048, 4, 2, 128, 0, 0.0), (1, 500, 4, 2, 128, 100, 0.0),
+            (1, 600, 4, 2, 64, 100, 50.0), (1, 520, 4, 2, 256, 100, 50.0)]
 
 
 @pytest.mark.cuda
@@ -105,9 +113,13 @@ def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
     q = C(8 if softcap else 1, B, S, H, D)
     k, v = C(1, B, S, Hkv, D), C(1, B, S, Hkv, D)
     before = fa_ops.LAUNCHES
+    impl = fa_ops.impl_for(dtype, D)
+    by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
     out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES == before + 1
+    by_impl[impl] += 1
+    assert fa_ops.LAUNCHES_BY_IMPL == by_impl, (impl, by_impl)
     ref = attention_ref(q, k, v, window=window, softcap=softcap)
     assert out.dtype == dtype and out.shape == q.shape
     err = (out.float() - ref.float()).abs()
@@ -119,6 +131,21 @@ def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
     if softcap:
         uncapped = attention_ref(q, k, v, window=window)
         assert (uncapped.float() - ref.float()).abs().max().item() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4096])
+@pytest.mark.parametrize("T", [1, 1000])
+@pytest.mark.parametrize("W", [16, 13])
+def test_rglru_scan_bit_equal_on_card(card, rng, B, T, W):
+    """W = 16 takes the kernel's float4 path, W = 13 its scalar one; T =
+    1000 is not a multiple of the steps loaded ahead; B = 1 and 4096 rows."""
+    C = lambda x: torch.from_numpy(x.astype(np.float32)).to(card)
+    a = C(rng.uniform(0.5, 1.0, (B, T, W)))
+    b, h0 = C(rng.normal(0, 1, (B, T, W))), C(rng.normal(0, 1, (B, W)))
+    hs, h = rglru_ops.rglru_scan(a, b, h0)
+    ref_hs, ref_h = rglru_scan_ref(a, b, h0)
+    assert torch.equal(hs, ref_hs) and torch.equal(h, ref_h)
 
 
 @pytest.mark.cuda

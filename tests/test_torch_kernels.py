@@ -171,6 +171,76 @@ def test_flash_attention_bf16_softcap_matches_jax(rng):
     _bf16_case(rng, 100, 50.0)
 
 
+def _wgmma_rounding(q, k, v, *, window=0, softcap=0.0, split=True):
+    """The bf16 wgmma kernel's arithmetic (``flash_attention_sm90.cu``), all
+    at once rather than tile by tile: float32 scores from bf16 q and k (a
+    product of two bf16 values is exact in float32), the scale applied to
+    the scores, p in float32 and l summed from it; for PV, p split into
+    P_hi = bf16(p) and P_lo = bf16(p - P_hi), each multiplied by v
+    (``split=False``: p rounded once to bf16, the usual choice)."""
+    from repro_torch.kernels.flash_attention.ref import (DENOM_FLOOR,
+                                                         MAX_FLOOR, NEG_INF)
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.float().reshape(B, S, Hkv, H // Hkv, D),
+                     k.float()) / np.sqrt(D).astype(np.float32)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    mask = (i >= j) & ((i - j < window) if window else True)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True).clamp(min=MAX_FLOOR))
+    l = p.sum(-1, keepdim=True).clamp(min=DENOM_FLOOR)
+    hi = p.to(torch.bfloat16).float()
+    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
+    out = sum(torch.einsum("bhgqk,bkhd->bhgqd", x, v.float())
+              for x in parts) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(torch.bfloat16)
+
+
+WGMMA_CASES = [("path", 0, 0.0), ("softcap", 0, 50.0), ("window", 128, 0.0)]
+
+
+def _wgmma_rounding_over_bound(rng, window, softcap, split):
+    """The largest |emulation - attention_ref| over the one-ulp bound
+    2^-7 |ref| + 1e-5, at B = 1, 2 q heads over 1 kv head, S = 512,
+    D = 128, bf16 inputs."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    C = lambda sd, h: torch.from_numpy(rng.normal(
+        0, sd, (1, 512, h, 128)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = C(8 if softcap else 1, 2), C(1, 1), C(1, 1)
+    kw = dict(window=window, softcap=softcap)
+    ref = attention_ref(q, k, v, **kw).float()
+    got = _wgmma_rounding(q, k, v, split=split, **kw).float()
+    return ((got - ref).abs() / (2.0 ** -7 * ref.abs() + 1e-5)).max().item()
+
+
+@pytest.mark.parametrize("label,window,softcap", WGMMA_CASES)
+def test_wgmma_split_p_holds_one_ulp_bound(label, window, softcap, rng):
+    """p split into bf16 hi and lo for PV stays within one bf16 ulp of the
+    float32-p reference (the bound chip_smoke.py holds the kernel to)."""
+    assert _wgmma_rounding_over_bound(rng, window, softcap, True) <= 1.0
+
+
+@pytest.mark.parametrize("label,window,softcap", WGMMA_CASES)
+def test_wgmma_single_bf16_p_breaks_one_ulp_bound(label, window, softcap,
+                                                  rng):
+    """Why the kernel splits p: rounded once to bf16, p moves outputs near
+    zero by many times the bound."""
+    assert _wgmma_rounding_over_bound(rng, window, softcap, False) > 10.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fa_ops.HEAD_DIMS)
+def test_flash_attention_impl_for(dtype, D):
+    """The static kernel choice: bf16 at head dims 64, 128 and 256 on the
+    wgmma kernel; float32, and bf16 at 16 and 32, on the scalar one."""
+    want = "wgmma" if dtype == torch.bfloat16 and D >= 64 else "scalar"
+    assert fa_ops.impl_for(dtype, D) == want
+    assert want in fa_ops.LAUNCHES_BY_IMPL
+
+
 def _harmonize_case(seed):
     """The draw of ``tests/test_kernels.py::test_harmonize_property``."""
     rng = np.random.RandomState(seed)
