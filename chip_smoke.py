@@ -11,9 +11,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   3. kernels — each kernel against its plain PyTorch version on the card,
      at its path's shapes and at larger ones, with device times from the
      profiler (CUDA event pairs where the trace holds no device time).
+     Kernels with several instances (flash_attention; locf and
+     window_agg: ``row`` at T <= 16, ``warp`` above) name the instance
+     each case ran, from the launch counts and the profiler's trace.
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
-     policy: 4 batches (128 windows) with every kernel launch counted.
+     policy: 4 batches (128 windows) with every kernel launch counted
+     (locf and window_agg all on their ``row`` instance).
   5. fused   — the same system in ``fused`` mode for 32 windows, equal bit
      for bit to the first 32 windows of a fresh ``scan`` run.
   6. harmonize_system — the harmonize op entry point on the K windows of
@@ -150,6 +154,26 @@ def bound(bytes_moved, ops, ops_rate=FP32_OPS_PER_S):
 
 
 # -------------------------------------------------------------- kernels
+def check_instance(ops, name, label, call, impl, info, want=None):
+    """Run ``call`` once: it must launch instance ``impl`` of kernel
+    ``name`` (one more in ``ops.LAUNCHES_BY_IMPL``, nothing else), and a
+    profiler trace of it must show one device kernel of that name, the
+    instance's (``want``, by default ``<name>_<impl>_kernel``). Records
+    both in ``info``; returns the output."""
+    by_impl = dict(ops.LAUNCHES_BY_IMPL)
+    out = call()
+    by_impl[impl] += 1
+    check(ops.LAUNCHES_BY_IMPL == by_impl,
+          f"{name} {label}: launches by impl {ops.LAUNCHES_BY_IMPL}, "
+          f"expected {by_impl}")
+    want = want or f"{name}_{impl}_kernel"
+    ran = [n for n in traced_kernels(call) if name in n]
+    check(len(ran) == 1 and want in ran[0],
+          f"{name} {label}: trace shows {ran}, expected {want}")
+    info.update(impl=impl, traced_kernel=ran[0])
+    return out
+
+
 def kernel_cases(dev, g):
     """(name, shape label, kernel call, plain call, compare, bytes, ops,
     library call or None) at the path's shapes and a fleet shape."""
@@ -168,15 +192,20 @@ def kernel_cases(dev, g):
 
     cases = []
     # E*S rows x T ticks: the path (E=256, S=8, n_ticks=8) and a fleet
-    # (4096 envs x 8 streams, 64 ticks)
-    for label, (e, s, t) in (("path", (E, 8, N_TICKS)),
-                             ("fleet", (4096, 8, 64))):
+    # (4096 envs x 8 streams, 64 ticks); locf and window_agg run their row
+    # instance on the first and their warp instance on the second
+    for label, (e, s, t), impl in (("path", (E, 8, N_TICKS), "row"),
+                                   ("fleet", (4096, 8, 64), "warp")):
         R = e * s
         v, o, iv, ih = rnd(e, s, t), mask(0.6, e, s, t), rnd(e, s), \
             mask(0.5, e, s)
+        info = {}
 
-        def locf_cmp(v=v, o=o, iv=iv, ih=ih, R=R, t=t):
-            out, has = locf_ops.locf(v, o, iv, ih)
+        def locf_cmp(v=v, o=o, iv=iv, ih=ih, R=R, t=t, label=label,
+                     impl=impl, info=info):
+            out, has = check_instance(
+                locf_ops, "locf", label,
+                lambda: locf_ops.locf(v, o, iv, ih), impl, info)
             ref_v, ref_h = locf_ref(v.reshape(R, t), o.reshape(R, t),
                                     iv.reshape(R), ih.reshape(R))
             out, has = out.reshape(R, t), has.reshape(R, t)
@@ -192,16 +221,21 @@ def kernel_cases(dev, g):
             plain=lambda v=v, o=o, iv=iv, ih=ih, R=R, t=t: locf_ref(
                 v.reshape(R, t), o.reshape(R, t), iv.reshape(R),
                 ih.reshape(R)),
-            compare=locf_cmp,
+            compare=locf_cmp, info=info,
             # read values + observed + carry, write filled + has
             bytes=R * t * 5 + R * 5 + R * t * 5, ops=0, library=None))
 
         w = 5.0 + 2.0 * rnd(e, s, t)
         m = mask(0.7, e, s, t)
         mu, var = 5.0 + rnd(e, s), 1.0 + rnd(e, s).abs()
+        info = {}
 
-        def wagg_cmp(w=w, m=m, mu=mu, var=var, R=R, t=t):
-            stats, spikes = wagg_ops.window_agg(w, m, mu, var, k_sigma=1.5)
+        def wagg_cmp(w=w, m=m, mu=mu, var=var, R=R, t=t, label=label,
+                     impl=impl, info=info):
+            stats, spikes = check_instance(
+                wagg_ops, "window_agg", label,
+                lambda: wagg_ops.window_agg(w, m, mu, var, k_sigma=1.5),
+                impl, info)
             ref_s, ref_sp = window_agg_ref(w.reshape(R, t), m.reshape(R, t),
                                            mu.reshape(R), var.reshape(R),
                                            1.5)
@@ -223,7 +257,7 @@ def kernel_cases(dev, g):
             plain=lambda w=w, m=m, mu=mu, var=var, R=R, t=t: window_agg_ref(
                 w.reshape(R, t), m.reshape(R, t), mu.reshape(R),
                 var.reshape(R), 1.5),
-            compare=wagg_cmp,
+            compare=wagg_cmp, info=info,
             # read values + mask + (mean, var), write 8 stats + spikes;
             # ~11 float32 operations per element over the two passes
             bytes=R * t * 5 + R * 8 + R * 8 * 4 + R * t,
@@ -355,21 +389,10 @@ def flash_cases(dev, g):
 
         def cmp(q=q, k=k, v=v, kw=kw, dtype=dtype, label=label, info=info,
                 impl=impl):
-            by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
-            out = fa_ops.flash_attention(q, k, v, **kw)
-            by_impl[impl] += 1
-            check(fa_ops.LAUNCHES_BY_IMPL == by_impl,
-                  f"flash_attention {label}: launches by impl "
-                  f"{fa_ops.LAUNCHES_BY_IMPL}, expected {by_impl}")
-            names = traced_kernels(lambda: fa_ops.flash_attention(q, k, v,
-                                                                  **kw))
-            want = FA_KERNELS[impl][1]
-            ran = [n for n in names if "flash_attention" in n]
-            check(len(ran) == 1 and want in ran[0] and
-                  (impl == "wgmma") == ("sm90" in ran[0]),
-                  f"flash_attention {label}: trace shows {ran}, expected "
-                  f"{want}")
-            info.update(impl=impl, traced_kernel=ran[0])
+            out = check_instance(
+                fa_ops, "flash_attention", label,
+                lambda: fa_ops.flash_attention(q, k, v, **kw), impl, info,
+                want=FA_KERNELS[impl][1])
             ref = attention_ref(q, k, v, **kw).float()
             diff = (out.float() - ref).abs()
             err = diff.max().item()
@@ -457,9 +480,11 @@ def phase_kernels(dev):
                   plain_call_us=us(calls["plain"]),
                   library_call_us=us(calls.get("library"))))
         if case["shape"] == "path":
+            impl = case.get("info", {}).get("impl")
             at_path[case["name"]] = dict(
-                max_abs_err=err, timer=timer, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                **({"impl": impl} if impl else {}), max_abs_err=err,
+                timer=timer, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
     return at_path
 
 
@@ -552,6 +577,8 @@ def phase_scan(dev, tmp):
     system.predictor.on_windows = timed("decide",
                                         system.predictor.on_windows, True)
     locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
+    for ops in (locf_ops, wagg_ops):
+        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = system.run_windows(K * BATCHES)
@@ -559,11 +586,17 @@ def phase_scan(dev, tmp):
     wall = time.perf_counter() - t0
     launches = {"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
                 "rglru_scan": rglru_ops.LAUNCHES}
+    by_impl = {"locf": dict(locf_ops.LAUNCHES_BY_IMPL),
+               "window_agg": dict(wagg_ops.LAUNCHES_BY_IMPL)}
     n = K * BATCHES
     check(len(results) == n, f"scan: {len(results)} results, expected {n}")
     check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": n},
           f"scan: kernel launches {launches}, expected locf {n}, "
           f"window_agg {2 * n}, rglru_scan {n}")
+    check(by_impl == {"locf": {"row": n, "warp": 0},
+                      "window_agg": {"row": 2 * n, "warp": 0}},
+          f"scan: launches by instance {by_impl}, expected every locf and "
+          f"window_agg launch on the row instance")
     st = system.state
     for name, x in (("features", system.predictor._prev["obs"]),
                     ("actions", system.predictor._prev["actions"]),
@@ -591,7 +624,7 @@ def phase_scan(dev, tmp):
           "host_assembly_ms_per_batch": spent["assemble"] * 1e3 / BATCHES,
           "device_ms_per_batch": spent["device"] * 1e3 / BATCHES,
           "decide_ms_per_batch": spent["decide"] * 1e3 / BATCHES,
-          "launches": launches,
+          "launches": launches, "launches_by_impl": by_impl,
           "observed_frac": float(np.mean([r["observed_frac"]
                                           for r in results]))})
     profile_batch(system)
@@ -925,8 +958,7 @@ def main() -> int:
         us = {f"{k[:-3]}_us": (None if t[k] is None else t[k] * 1e3)
               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         us["us"] = us.pop("_us")
-        extra = {"impl": "wgmma"} if name == "flash_attention" else {}
-        return dict(name=name, route="cuda", parity="ok", **extra,
+        return dict(name=name, route="cuda", parity="ok",
                     source=KERNEL_META[name][0],
                     replaces=KERNEL_META[name][1], launches=launches[name],
                     **t, **us)

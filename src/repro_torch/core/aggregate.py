@@ -27,8 +27,6 @@ def window_agg(values, mask, agg: str, *, use_kernel: bool = False):
     instead of a per-agg reduction; empty windows are fixed up to this
     module's conventions (min/max saturate, the rest are 0).
     """
-    w = mask.to(torch.float32)
-    n = w.sum(-1)
     if use_kernel and (agg == "std" or agg in _KERNEL_COLS):
         from repro_torch.kernels.window_agg.ops import window_agg as kernel
         zeros = torch.zeros(values.shape[:2], dtype=torch.float32,
@@ -38,12 +36,16 @@ def window_agg(values, mask, agg: str, *, use_kernel: bool = False):
         if agg == "std":
             return stats[..., 1].sqrt()
         out = stats[..., _KERNEL_COLS[agg]]
-        # the kernel zeroes empty-window min/max; this module saturates
+        # the kernel zeroes empty-window min/max; this module saturates.
+        # Its count column is exact, so it says which windows are empty
+        n = stats[..., _KERNEL_COLS["count"]]
         if agg == "min":
             return torch.where(n > 0, out, BIG)
         if agg == "max":
             return torch.where(n > 0, out, -BIG)
         return out
+    w = mask.to(torch.float32)
+    n = w.sum(-1)
     if agg == "last":
         T = values.shape[-1]
         idx = torch.where(mask, torch.arange(T, device=values.device), -1)

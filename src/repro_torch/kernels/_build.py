@@ -3,8 +3,9 @@
 All ``kernels/*/csrc/*.cu`` sources compile in ONE ``nvcc`` call into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds), under ``build/kernels/`` at the repository root. The
-library is built at first use and rebuilt when any source is newer than
-it; it is loaded with ``ctypes``. A failed build raises with ``nvcc``'s
+library is built at first use and rebuilt when a source or a
+``kernels/*.cuh`` header they include is newer than it; it is loaded with
+``ctypes``. A failed build raises with ``nvcc``'s
 stderr. Nothing here runs at import time.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
@@ -34,11 +35,13 @@ _I = ctypes.c_int
 # C signature of every entry point: argtypes, declared once so ctypes never
 # passes a pointer or the stream as a 32-bit int
 SIGNATURES = {
-    # values, observed, init_value, init_has, out, has, R, T, stream
-    "locf_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # values, mask, mean, var, stats, spikes, R, T, k_sigma, stream
+    # values, observed, init_value, init_has, out, has, R, T, impl, vec,
+    # stream
+    "locf_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # values, mask, mean, var, stats, spikes, R, T, k_sigma, impl, vec,
+    # stream
     "window_agg_launch": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float,
-                          _P],
+                          _I, _I, _P],
     # a, b, h0, hs, h_last, B, T, W, stream
     "rglru_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, B, S, H, Hkv, D, window, softcap, scale, dtype, stream
@@ -78,7 +81,8 @@ def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources())
+    return any(s.stat().st_mtime > built
+               for s in (*sources(), *_PKG.glob("*.cuh")))
 
 
 def build(verbose: bool = False) -> float:

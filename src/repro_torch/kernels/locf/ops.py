@@ -1,7 +1,10 @@
 """Wrapper of the LOCF kernel (``csrc/locf.cu``).
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises. ``LAUNCHES`` counts kernel launches.
+one of the kernel's two instances, chosen by :func:`impl_for` (``"row"``
+for T <= 16, ``"warp"`` above; see ``kernels/rows.py``), or raises.
+``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_IMPL`` the same per
+instance.
 """
 from __future__ import annotations
 
@@ -9,8 +12,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.locf.ref import locf_ref
+from repro_torch.kernels.rows import IMPLS, aligned, impl_for
 
 LAUNCHES = 0
+LAUNCHES_BY_IMPL = {"row": 0, "warp": 0}
 
 
 def locf(values, observed, init_value, init_has):
@@ -31,12 +36,17 @@ def locf(values, observed, init_value, init_has):
         return out.reshape(E, S, T), has.reshape(E, S, T)
     if dev.type != "cuda":
         raise ValueError(f"locf: no kernel for device {dev}")
+    if R * T >= 2 ** 31:
+        raise ValueError(f"locf: R*T = {R * T} elements; the kernel "
+                         "indexes in 32 bits (< 2^31)")
     lib = _build.library()
     out = torch.empty_like(values)
     has = torch.empty_like(observed)
+    impl, vec = impl_for(T, aligned(values, observed, out, has))
     _build.check(lib.locf_launch(
         values.data_ptr(), observed.data_ptr(), init_value.data_ptr(),
         init_has.data_ptr(), out.data_ptr(), has.data_ptr(), R, T,
-        _build.stream_ptr(dev)), "locf")
+        IMPLS[impl], int(vec), _build.stream_ptr(dev)), f"locf ({impl})")
     LAUNCHES += 1
+    LAUNCHES_BY_IMPL[impl] += 1
     return out, has

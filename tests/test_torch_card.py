@@ -9,6 +9,11 @@ have no CPU mode; their plain versions are held against the JAX package by
 Tolerances: exact for selection (LOCF, min/max/last), counts, masks and
 the recurrence (the kernel writes no FMA, the plain version has none);
 rtol = atol = 1e-5 for window mean/var/sum, which add in another order.
+locf and window_agg run each of their instances (``row`` at T <= 16,
+``warp`` above; asserted through ``LAUNCHES_BY_IMPL``), aligned and at an
+offset of one element; the row instance of window_agg adds in the
+sequential order, so its mean/var/sum equal a sequential float32 loop bit
+for bit.
 Harmonize: ``observed`` exact, means within atol 1e-5 / rtol 1e-4 (both
 add the same values, the plain version in torch's reduction order).
 Flash attention (each case also asserts which kernel ran, through
@@ -35,6 +40,7 @@ from repro_torch.kernels.locf import ops as locf_ops
 from repro_torch.kernels.locf.ref import locf_ref
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rows import aligned
 from repro_torch.kernels.window_agg import ops as wagg_ops
 from repro_torch.kernels.window_agg.ref import window_agg_ref
 
@@ -87,6 +93,112 @@ def test_kernels_match_plain_versions_on_card(card, rng):
     assert torch.equal(hs, ref_hs) and torch.equal(h, ref_h)
     assert (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES) == \
         tuple(n + 1 for n in before)
+
+
+# T: each row instance's edges (1, 16), odd and even T below 16, the
+# path's 8; the warp instance at 17 (one chunk, mostly idle lanes), 32, the
+# fleet's 64, 100 and 257 (partial chunks, odd T), and 2000 (more chunks
+# than the window_agg kernel holds in registers)
+ROW_TICKS = [1, 7, 8, 13, 16, 17, 32, 64, 100, 257, 2000]
+
+
+def _rows(card, rng, T, offset, p):
+    """(E, S) = (37, 3) rows, 111 of them (not a multiple of any block): each
+    (E, S, T) input a contiguous view at storage offset ``offset``, so
+    offset 1 leaves the data unaligned and takes the scalar loads. Row 0 has
+    every tick flagged, row 1 none; the rest are flagged with chance p."""
+    def C(x):
+        flat = torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(card)
+        buf = torch.empty(flat.numel() + offset, dtype=flat.dtype,
+                          device=card)
+        buf[offset:] = flat
+        return buf[offset:].view(x.shape)
+    v = rng.normal(5, 2, (37, 3, T)).astype(np.float32)
+    f = rng.rand(37, 3, T) < p
+    f[0, 0], f[0, 1] = True, False
+    return C, C(v), C(f)
+
+
+def _expect_impl(ops, T, tensors, offset):
+    """The instance and load width this launch must take, and the
+    per-instance launch counts before it."""
+    impl, vec = ops.impl_for(T, aligned(*tensors))
+    assert impl == ("row" if T <= 16 else "warp")
+    assert vec == (offset == 0 and T % (4 if impl == "row" else 2) == 0)
+    return impl, dict(ops.LAUNCHES_BY_IMPL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("T", ROW_TICKS)
+def test_locf_instances_on_card(card, rng, T, offset):
+    """Both locf instances, bit-equal to the plain version where has is
+    True (and where it is False: the carry-in value), with a carry-in-only
+    row (nothing observed, init_has True) and an empty one."""
+    C, v, o = _rows(card, rng, T, offset, 0.3)
+    ih = rng.rand(37, 3) < 0.5
+    ih[0, 1], ih[1, 0] = True, False
+    o[1, 0] = False                       # empty, no carry: has stays False
+    iv, ih = C(rng.normal(0, 1, (37, 3)).astype(np.float32)), C(ih)
+    impl, by_impl = _expect_impl(locf_ops, T, (v, o), offset)
+    out, has = locf_ops.locf(v, o, iv, ih)
+    torch.cuda.synchronize()
+    by_impl[impl] += 1
+    assert locf_ops.LAUNCHES_BY_IMPL == by_impl
+    ref_v, ref_h = locf_ref(v.reshape(111, T), o.reshape(111, T),
+                            iv.reshape(111), ih.reshape(111))
+    out, has = out.reshape(111, T), has.reshape(111, T)
+    assert torch.equal(has, ref_h)
+    assert torch.equal(out, ref_v)
+    assert has[1].all() and not has[3].any() and has[0].all()
+
+
+def _sequential_stats(v, m):
+    """mean, var, sum of each row as a sequential float32 loop over its
+    ticks, one torch op at a time (so nothing is fused into an FMA)."""
+    R, T = v.shape
+    n = torch.zeros(R, device=v.device)
+    s = torch.zeros(R, device=v.device)
+    for t in range(T):
+        s = torch.where(m[:, t], s + v[:, t], s)
+        n = torch.where(m[:, t], n + 1, n)
+    mean = s / n.clamp(min=1)
+    ss = torch.zeros(R, device=v.device)
+    for t in range(T):
+        d = v[:, t] - mean
+        ss = torch.where(m[:, t], ss + d * d, ss)
+    return torch.stack([mean, ss / n.clamp(min=1), s], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("T", ROW_TICKS)
+def test_window_agg_instances_on_card(card, rng, T, offset):
+    """Both window_agg instances against the plain version: count, min,
+    max, last, n_spikes and spikes equal, mean, var and sum within rtol =
+    atol = 1e-5; rows all masked and all empty. The row instance (T <= 16)
+    keeps the sequential order, so its mean, var and sum are bit-equal to a
+    sequential float32 loop."""
+    C, v, m = _rows(card, rng, T, offset, 0.7)
+    mu = C(rng.normal(5, 1, (37, 3)).astype(np.float32))
+    var = C((np.abs(rng.normal(1, 0.3, (37, 3))) + 0.05).astype(np.float32))
+    impl, by_impl = _expect_impl(wagg_ops, T, (v, m, mu, var), offset)
+    stats, spikes = wagg_ops.window_agg(v, m, mu, var, k_sigma=1.5)
+    torch.cuda.synchronize()
+    by_impl[impl] += 1
+    assert wagg_ops.LAUNCHES_BY_IMPL == by_impl
+    v, m = v.reshape(111, T), m.reshape(111, T)
+    ref_s, ref_sp = window_agg_ref(v, m, mu.reshape(111), var.reshape(111),
+                                   1.5)
+    stats = stats.reshape(111, 8)
+    exact = [2, 3, 4, 5, 7]
+    assert torch.equal(spikes.reshape(111, T), ref_sp)
+    assert torch.equal(stats[:, exact], ref_s[:, exact])
+    torch.testing.assert_close(stats[:, [0, 1, 6]], ref_s[:, [0, 1, 6]],
+                               rtol=1e-5, atol=1e-5)
+    assert stats[0, 5] == T and (stats[1] == 0).all()
+    if impl == "row":
+        assert torch.equal(stats[:, [0, 1, 6]], _sequential_stats(v, m))
 
 
 # B, S, H, Hkv, D, window, softcap: ragged S, GQA/MQA/MHA, every head dim

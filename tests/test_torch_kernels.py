@@ -5,7 +5,10 @@ against the JAX oracle (``ref.py``) and, for locf and window_agg, the
 Pallas kernel in interpret mode. rglru_scan is held against its oracle
 only: its Pallas path is red under the installed JAX. The CUDA kernels
 themselves are held against their plain versions on the card by
-``test_torch_card.py``.
+``test_torch_card.py``. What the card's instances of locf and window_agg
+do in another order than the plain versions is emulated here in numpy and
+held against the JAX oracle: the warp instance's lane-then-butterfly
+summation and its lane scan of LOCF.
 
 Tolerances: bool outputs, counts, min/max/last and LOCF values where
 ``has`` is True are pure selection or exact integer counts and must match
@@ -110,6 +113,143 @@ def test_window_agg_matches_jax(E, S, T, use_pallas, rng):
     assert np.array_equal(got_s[..., exact], want_s[..., exact])
     assert_allclose(got_s[..., [0, 1, 6]], want_s[..., [0, 1, 6]], **TOL)
     assert (got_s[0, 0] == 0).all()
+
+
+@pytest.mark.parametrize("T,aligned,want", [
+    (1, True, ("row", False)), (8, True, ("row", True)),
+    (16, True, ("row", True)), (8, False, ("row", False)),
+    (17, True, ("warp", False)), (64, True, ("warp", True)),
+    (257, True, ("warp", False)), (64, False, ("warp", False))])
+def test_row_kernels_impl_for(T, aligned, want):
+    """The static instance choice of locf and window_agg: one thread per
+    row up to 16 ticks, one warp per row above; vector pieces only where
+    the pointers are aligned and T is a multiple of the piece (4 ticks for
+    the row instance, 2 for the warp)."""
+    assert locf_ops.impl_for(T, aligned) == want
+    assert wagg_ops.impl_for(T, aligned) == want
+    assert want[0] in locf_ops.LAUNCHES_BY_IMPL
+    assert want[0] in wagg_ops.LAUNCHES_BY_IMPL
+
+
+def _warp_lanes(x, T):
+    """(R, T) -> (R, chunks, 32 lanes, 2): the warp instances' layout, lane
+    l owning ticks 2l and 2l + 1 of each chunk of 64, zero past T."""
+    R = x.shape[0]
+    chunks = -(-T // 64)
+    x = np.pad(x, ((0, 0), (0, chunks * 64 - T)))
+    return x.reshape(R, chunks, 32, 2)
+
+
+def _warp_window_sums(v, m):
+    """mean, var and sum as ``window_agg.cu``'s warp instance adds them, in
+    float32: each lane sums its masked ticks in tick order, chunk after
+    chunk, then the lanes are summed by the __shfl_xor_sync butterfly
+    (offsets 16, 8, 4, 2, 1; lane l adds lane l ^ off); the squared
+    deviations from the mean likewise."""
+    T = v.shape[1]
+    v, m = _warp_lanes(v, T), _warp_lanes(m, T)
+    lanes = np.arange(32)
+
+    def total(x):
+        acc = np.zeros((x.shape[0], 32), np.float32)
+        for c in range(x.shape[1]):
+            for j in range(2):
+                acc = np.where(m[:, c, :, j], acc + x[:, c, :, j], acc)
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lanes ^ off]
+        assert (acc == acc[:, :1]).all()   # every lane holds the same bits
+        return acc[:, 0]
+
+    n = np.maximum(m.sum((1, 2, 3)).astype(np.float32), np.float32(1))
+    s = total(v)
+    mean = s / n
+    d = v - mean[:, None, None, None]
+    return mean, total(d * d) / n, s
+
+
+@pytest.mark.parametrize("E,S,T", [(16, 8, 64), (4, 4, 1000)])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_window_agg_warp_order_matches_jax(E, S, T, use_pallas, rng):
+    """The warp instance's summation order, at the fleet's statistics
+    (values ~ N(5, 2), 70% of ticks masked, T = 64) and at T = 1000 (16
+    chunks), stays within rtol = atol = 1e-5 of the JAX oracle; its exact
+    columns and spikes are order-free and equal."""
+    v = rng.normal(5, 2, (E, S, T)).astype(np.float32)
+    m = rng.rand(E, S, T) < 0.7
+    m[0, 0] = False
+    mu = rng.normal(5, 1, (E, S)).astype(np.float32)
+    var = (np.abs(rng.normal(1, 0.3, (E, S))) + 0.05).astype(np.float32)
+    want_s, want_sp = map(np.asarray, jax_window_agg(
+        v, m, mu, var, k_sigma=1.5, use_pallas=use_pallas))
+    R = E * S
+    want_s, want_sp = want_s.reshape(R, 8), want_sp.reshape(R, T)
+    v, m = v.reshape(R, T), m.reshape(R, T)
+    mean, var_, s = _warp_window_sums(v, m)
+    assert_allclose(np.stack([mean, var_, s], -1), want_s[:, [0, 1, 6]],
+                    **TOL)
+    # count, min, max, last, n_spikes and spikes, as the lanes combine them
+    spikes = m & (np.abs(v - mu.reshape(R, 1))
+                  / np.sqrt(var.reshape(R, 1)) > 1.5)
+    idx = np.where(m, np.arange(T), -1).max(-1)
+    any_ = idx >= 0
+    exact = np.stack([
+        np.where(any_, np.where(m, v, np.inf).min(-1), 0),
+        np.where(any_, np.where(m, v, -np.inf).max(-1), 0),
+        np.where(any_, v[np.arange(R), idx], 0), m.sum(-1),
+        spikes.sum(-1)], -1).astype(np.float32)
+    assert np.array_equal(exact, want_s[:, [2, 3, 4, 5, 7]])
+    assert np.array_equal(spikes, want_sp) and spikes.any()
+
+
+def _warp_locf(v, o, iv, ih):
+    """``locf.cu``'s warp instance in numpy: per chunk of 64 ticks, each lane
+    combines its two ticks, five __shfl_up_sync steps scan the lanes under
+    combine(l, r) = r.has ? r : l, and the carry (the carry-in, then the
+    chunks before) enters ahead of lane 0."""
+    R, T = v.shape
+    v, o = _warp_lanes(v, T), _warp_lanes(o, T)
+    lanes = np.arange(32)
+    before = np.maximum(lanes - 1, 0)
+    cv, ch = iv.copy(), ih.copy()
+    out, has = np.empty_like(v), np.empty_like(o)
+    for c in range(v.shape[1]):
+        x, f = v[:, c], o[:, c]
+        sv, sh = np.where(f[..., 1], x[..., 1], x[..., 0]), f.any(-1)
+        for d in (1, 2, 4, 8, 16):
+            take = (lanes >= d) & ~sh
+            up = np.maximum(lanes - d, 0)
+            sv, sh = np.where(take, sv[:, up], sv), np.where(take, sh[:, up],
+                                                             sh)
+        carry = (lanes == 0) | ~sh[:, before]
+        pv = np.where(carry, cv[:, None], sv[:, before])
+        ph = np.where(carry, ch[:, None], sh[:, before])
+        out[:, c, :, 0] = np.where(f[..., 0], x[..., 0], pv)
+        has[:, c, :, 0] = f[..., 0] | ph
+        out[:, c, :, 1] = np.where(f[..., 1], x[..., 1], out[:, c, :, 0])
+        has[:, c, :, 1] = f[..., 1] | has[:, c, :, 0]
+        cv = np.where(sh[:, 31], sv[:, 31], cv)
+        ch = ch | sh[:, 31]
+    return out.reshape(R, -1)[:, :T], has.reshape(R, -1)[:, :T]
+
+
+@pytest.mark.parametrize("E,S,T", [(16, 8, 64), (3, 5, 100), (2, 3, 1000)])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_locf_warp_scan_matches_jax(E, S, T, use_pallas, rng):
+    """The warp instance's lane scan carries the same observation forward
+    as the JAX locf: has equal, values bit-equal where has is True (and the
+    carry-in value where it is False, as the plain version returns it)."""
+    v, o, iv, ih = _locf_inputs(rng, E, S, T)
+    o &= rng.rand(E, S, T) < 0.1     # gaps that span lanes and chunks
+    want_v, want_h = map(np.asarray,
+                         jax_locf(v, o, iv, ih, use_pallas=use_pallas))
+    R = E * S
+    got_v, got_h = _warp_locf(v.reshape(R, T), o.reshape(R, T),
+                              iv.reshape(R), ih.reshape(R))
+    want_v, want_h = want_v.reshape(R, T), want_h.reshape(R, T)
+    assert (got_h == want_h).all() and not got_h.all()
+    assert np.array_equal(got_v[got_h], want_v[want_h])
+    plain_v, _ = locf_ops.locf(T_(v), T_(o), T_(iv), T_(ih))
+    assert np.array_equal(got_v, plain_v.numpy().reshape(R, T))
 
 
 @pytest.mark.parametrize("B,T,W", [(4, 1, 16), (3, 12, 16), (2, 5, 7)])
