@@ -11,9 +11,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   3. kernels — each kernel against its plain PyTorch version on the card,
      at its path's shapes and at larger ones, with device times from the
      profiler (CUDA event pairs where the trace holds no device time).
-     Kernels with several instances (flash_attention; locf and
-     window_agg: ``row`` at T <= 16, ``warp`` above) name the instance
-     each case ran, from the launch counts and the profiler's trace.
+     Kernels with instances (flash_attention; locf and window_agg:
+     ``row`` at T <= 16, ``warp`` above; harmonize: ``warp``) name the
+     instance each case ran, from the launch counts and the profiler's
+     trace.
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
      policy: 4 batches (128 windows) with every kernel launch counted
@@ -22,7 +23,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      for bit to the first 32 windows of a fresh ``scan`` run.
   6. harmonize_system — the harmonize op entry point on the K windows of
      one batch the scan system assembled, held against its plain version
-     and against ``core.harmonize.harmonize_segment(agg="mean")``.
+     and against ``core.harmonize.harmonize_segment(agg="mean")``, and bit
+     for bit against a sequential float32 loop; its instance (``warp``)
+     from ``LAUNCHES_BY_IMPL`` and the profiler's trace, and the batch's
+     device time.
   7. lm      — the LM side-car's serving path at qwen3-0.6b's full width
      (28 layers, d_model 1024, vocab 151936, bfloat16, seeded random
      weights): ``LM.prefill`` on 4 x 2048 tokens with one flash-attention
@@ -292,9 +296,40 @@ def kernel_cases(dev, g):
     return cases + harmonize_cases(dev, g) + flash_cases(dev, g)
 
 
+def sequential_harmonize(v, ts, ok, t0, tick_s, T):
+    """(R, M) rows -> (means, observed) as a sequential float32 loop over
+    the samples, one torch op at a time (nothing fused into an FMA):
+    ``total = total + h * v``, ``count = count + h``. The harmonize kernel
+    adds in this order, so its means equal these bit for bit."""
+    from repro_torch.core.harmonize import exact_div
+    R, M = v.shape
+    idx = torch.ceil(exact_div(ts - t0[:, None], tick_s)).to(torch.int32) - 1
+    hit = ok & (idx >= 0) & (idx < T)
+    ticks = torch.arange(T, dtype=torch.int32, device=v.device)
+    total = torch.zeros((R, T), device=v.device)
+    count = torch.zeros((R, T), device=v.device)
+    for m in range(M):
+        h = ((idx[:, m, None] == ticks) & hit[:, m, None]).to(torch.float32)
+        total = total + h * v[:, m, None]
+        count = count + h
+    observed = count > 0
+    return torch.where(observed, total / count.clamp(min=1.0), 0.0), observed
+
+
+def bits_equal(a, b):
+    """Equal bit for bit, NaN positions included."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
+
+
 def harmonize_cases(dev, g):
     """The decision loop's window (E=256, S=8, M=32, T=8) and a fleet
-    window (4096 envs x 8 streams, 64 ticks, 128 samples)."""
+    window (4096 envs x 8 streams, 64 ticks, 128 samples). Each runs the
+    kernel's ``warp`` instance with staged float4 loads (``impl_for``),
+    checked through ``LAUNCHES_BY_IMPL`` and the profiler's kernel name;
+    its means must equal a sequential float32 loop bit for bit."""
     from repro_torch.kernels.harmonize import ops as hz_ops
     from repro_torch.kernels.harmonize.ref import harmonize_ref
 
@@ -317,16 +352,32 @@ def harmonize_cases(dev, g):
         def kernel(v=v, ts=ts, ok=ok, ws=ws, t=t):
             return hz_ops.harmonize(v, ts, ok, ws, tick_s=TICK_S, n_ticks=t)
 
-        def cmp(kernel=kernel, plain=plain, R=R, t=t):
-            (out, obs), (ref, ref_obs) = kernel(), plain()
+        info = {}
+
+        def cmp(kernel=kernel, plain=plain, R=R, m=m, t=t, label=label,
+                info=info, args=(v, ts, ok, ws, s)):
+            from repro_torch.kernels.rows import aligned
+            impl, vec = hz_ops.impl_for(m, aligned(*args[:3]))
+            check((impl, vec) == ("warp", True),
+                  f"harmonize {label}: impl_for gives {(impl, vec)}")
+            out, obs = check_instance(hz_ops, "harmonize", label, kernel,
+                                      impl, info)
+            ref, ref_obs = plain()
             out, obs = out.reshape(R, t), obs.reshape(R, t)
             check(torch.equal(obs, ref_obs), "harmonize: observed differs")
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+            v, ts, ok, ws, s = args
+            seq, _ = sequential_harmonize(v.reshape(R, m), ts.reshape(R, m),
+                                          ok.reshape(R, m),
+                                          ws.repeat_interleave(s), TICK_S, t)
+            check(bits_equal(out, seq),
+                  f"harmonize {label}: differs from the sequential loop")
+            info.update(vec=vec, bit_equal_sequential=True)
             return (out - ref).abs().max().item()
 
         cases.append(dict(
             name="harmonize", shape=label, dims=dict(R=R, M=m, T=t),
-            kernel=kernel, plain=plain, compare=cmp,
+            kernel=kernel, plain=plain, compare=cmp, info=info,
             # read values, timestamps, valid and t0, write means + observed;
             # per sample a subtract, divide and ceil for the bucket and two
             # adds into it, per tick one divide
@@ -711,18 +762,34 @@ def phase_harmonize(raw):
     from repro_torch.core.harmonize import harmonize_segment, tick_grid
     from repro_torch.kernels.harmonize import ops as hz_ops
     from repro_torch.kernels.harmonize.ref import harmonize_ref
+    from repro_torch.kernels.rows import aligned
 
     k, e, s, m = raw.values.shape
     R = e * s
     ws = torch.zeros((e,), dtype=torch.float32, device=raw.values.device)
+
+    def window(j):
+        return hz_ops.harmonize(raw.values[j], raw.timestamps[j],
+                                raw.valid[j], ws, tick_s=TICK_S,
+                                n_ticks=N_TICKS)
+
+    impl, vec = hz_ops.impl_for(m, aligned(raw.values[0], raw.timestamps[0],
+                                           raw.valid[0]))
     hz_ops.LAUNCHES = 0
+    hz_ops.LAUNCHES_BY_IMPL.update(warp=0)
     torch.cuda.synchronize()
-    outs = [hz_ops.harmonize(raw.values[j], raw.timestamps[j], raw.valid[j],
-                             ws, tick_s=TICK_S, n_ticks=N_TICKS)
-            for j in range(k)]
+    outs = [window(j) for j in range(k)]
     torch.cuda.synchronize()
     launches = hz_ops.LAUNCHES
+    by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
     check(launches == k, f"harmonize: {launches} launches, expected {k}")
+    check(by_impl == {impl: k},
+          f"harmonize: launches by instance {by_impl}, expected {impl} {k}")
+    traced = [n for n in traced_kernels(lambda: window(0))
+              if "harmonize" in n]
+    check(len(traced) == 1 and f"harmonize_{impl}_kernel" in traced[0],
+          f"harmonize: trace shows {traced}, expected harmonize_{impl}_kernel")
+    batch_ms = device_ms(lambda: [window(j) for j in range(k)], reps=5)
     err_plain = err_seg = 0.0
     observed = 0
     grid = tick_grid(ws, TICK_S, N_TICKS)
@@ -740,6 +807,12 @@ def phase_harmonize(raw):
               f"harmonize window {j}: observed differs from harmonize_segment")
         torch.testing.assert_close(out.reshape(R, N_TICKS), ref, rtol=1e-4,
                                    atol=1e-5)
+        seq, _ = sequential_harmonize(
+            raw.values[j].reshape(R, m), raw.timestamps[j].reshape(R, m),
+            raw.valid[j].reshape(R, m), ws.repeat_interleave(s), TICK_S,
+            N_TICKS)
+        check(bits_equal(out.reshape(R, N_TICKS), seq),
+              f"harmonize window {j}: differs from the sequential loop")
         torch.testing.assert_close(out, seg, rtol=1e-4, atol=1e-5)
         err_plain = max(err_plain, (out.reshape(R, N_TICKS) - ref).abs()
                         .max().item())
@@ -748,7 +821,11 @@ def phase_harmonize(raw):
     observed_frac = observed / (k * R * N_TICKS)
     emit({"phase": "harmonize_system", "windows": k, "envs": e,
           "streams": s, "max_samples": m, "ticks": N_TICKS,
-          "launches": launches, "max_abs_err_vs_plain": err_plain,
+          "launches": launches, "launches_by_impl": by_impl,
+          "impl": impl, "vec": vec, "traced_kernel": traced[0],
+          "device_us_per_batch": (None if batch_ms is None
+                                  else batch_ms * 1e3),
+          "bit_equal_sequential": True, "max_abs_err_vs_plain": err_plain,
           "max_abs_err_vs_segment": err_seg,
           "observed_frac": observed_frac})
     # samples outside every tick (e.g. timestamps not window-relative)

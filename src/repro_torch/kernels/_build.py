@@ -51,9 +51,9 @@ SIGNATURES = {
     "flash_attention_sm90_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     ctypes.c_float, ctypes.c_float, _P],
     # values, timestamps, valid, window_start, out, observed, E, S, M, T,
-    # tick_s, stream
+    # tick_s, vec, stream
     "harmonize_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         ctypes.c_float, _P],
+                         ctypes.c_float, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -37,7 +37,7 @@ def _scale(logits, low, high):
 
 def linear_builder(n_features: int, n_actions: int, n_envs: int = None,
                    seed: int = 0, low=-1.0, high=1.0, *, params=None,
-                   device="cpu") -> ModelAdapter:
+                   device=None) -> ModelAdapter:
     """The deployed linear policy (``runtime.predictor.linear_policy``)."""
     del n_envs  # stateless and env-count independent
     return linear_policy(n_features, n_actions, seed=seed, low=low,
@@ -102,9 +102,10 @@ class RGLRUPolicy(nn.Module):
 def rglru_builder(n_features: int, n_actions: int, n_envs: int = None,
                   hidden: int = 16, seed: int = 0, low=-1.0, high=1.0,
                   use_kernel: bool = False, *, params=None,
-                  device="cpu") -> ModelAdapter:
+                  device=None) -> ModelAdapter:
     """The recurrent RG-LRU policy as an :class:`RGLRUPolicy` module."""
     del n_envs  # the carry is built by init_carry at the system's env count
+    device = resolve_device(device)
     module = RGLRUPolicy(n_features, n_actions, hidden=hidden, seed=seed,
                          low=low, high=high, use_kernel=use_kernel)
     if params is not None:

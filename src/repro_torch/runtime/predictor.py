@@ -99,14 +99,17 @@ def policy_call2(model):
 
 def linear_policy(n_features: int, n_actions: int, seed: int = 0,
                   low=-1.0, high=1.0, *, params=None,
-                  device="cpu") -> ModelAdapter:
+                  device=None) -> ModelAdapter:
     """A small deterministic policy standing in for the deployed RL model.
+
+    ``device=None`` means the CUDA card (``resolve_device``).
 
     ``params={"w": (F, A)}`` loads given weights (e.g. the reference's,
     through ``convert.policy_params_from_numpy``); without it the weights
     are drawn from ``torch.Generator().manual_seed(seed)`` — different
     numbers from the reference's JAX generator at the same seed.
     """
+    device = resolve_device(device)
     if params is None:
         g = torch.Generator().manual_seed(seed)
         w = torch.randn((n_features, n_actions), generator=g) \

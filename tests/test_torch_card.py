@@ -15,7 +15,11 @@ offset of one element; the row instance of window_agg adds in the
 sequential order, so its mean/var/sum equal a sequential float32 loop bit
 for bit.
 Harmonize: ``observed`` exact, means within atol 1e-5 / rtol 1e-4 (both
-add the same values, the plain version in torch's reduction order).
+add the same values, the plain version in torch's reduction order). The
+kernel's instance (``warp``; asserted through ``LAUNCHES_BY_IMPL``) adds in
+M order, so its means are bit-equal to a sequential float32 loop, NaN
+positions included, aligned and at an offset of one element, with NaN and
++-inf in invalid, out-of-range and hitting samples.
 Flash attention (each case also asserts which kernel ran, through
 ``LAUNCHES_BY_IMPL``): max abs error 2e-3 in float32 (``tests/test_kernels.py``'s
 bound): the kernel sums its products with FMAs in tile order and the plain
@@ -32,6 +36,7 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
+from repro_torch.core.harmonize import exact_div
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.harmonize import ops as hz_ops
@@ -314,3 +319,117 @@ def test_bucketing_divides_exactly_on_card(card):
                  (seg[0, 0], seg_obs[0, 0])):
         assert (m.cpu().numpy() == want_obs).all()
         assert_allclose(o.cpu().numpy(), want, rtol=1e-6)
+
+
+def _sequential_harmonize(v, ts, ok, t0, tick_s, T):
+    """(R, M) rows -> (means, observed) as a sequential float32 loop over
+    the samples, one torch op at a time (nothing fused into an FMA):
+    ``total = total + h * v``, ``count = count + h``."""
+    R, M = v.shape
+    idx = torch.ceil(exact_div(ts - t0[:, None], tick_s)).to(torch.int32) - 1
+    hit = ok & (idx >= 0) & (idx < T)
+    ticks = torch.arange(T, dtype=torch.int32, device=v.device)
+    total = torch.zeros((R, T), device=v.device)
+    count = torch.zeros((R, T), device=v.device)
+    for m in range(M):
+        h = ((idx[:, m, None] == ticks) & hit[:, m, None]).to(torch.float32)
+        total = total + h * v[:, m, None]
+        count = count + h
+    observed = count > 0
+    return torch.where(observed, total / count.clamp(min=1.0), 0.0), observed
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, NaN positions included (any NaN's payload)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
+
+
+def _nonfinite_rows(vals, ts, valid, ws, S, tick):
+    """Rows 0-6 get NaN or +-inf values: in an invalid sample (0), a valid
+    sample before the window (1), a sample that hits tick 0 (2: -inf, 3:
+    NaN), +inf and -inf both hitting tick 0 (4), an invalid inf beside a
+    hitting NaN (5), and a hitting +inf the only non-finite value of its
+    row (6: tick 0 stays +inf, every other observed tick is NaN)."""
+    M = vals.shape[-1]
+    last = M - 1
+    for row, m, value, ok, dt in (
+            (0, 0, np.nan, False, 0.5), (1, 0, np.inf, True, -1.5),
+            (2, 0, -np.inf, True, 0.5), (3, 0, np.nan, True, 0.5),
+            (4, 0, np.inf, True, 0.5), (4, last, -np.inf, True, 0.5),
+            (5, 0, np.inf, False, 0.5), (5, last, np.nan, True, 0.5),
+            (6, 0, np.inf, True, 0.5)):
+        e, s = divmod(row, S)
+        vals[e, s, m], valid[e, s, m] = value, ok
+        ts[e, s, m] = ws[e] + np.float32(dt * tick)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("M", [1, 17, 32, 128, 300])
+@pytest.mark.parametrize("T", [1, 7, 8, 16, 17, 64, 100, 2000])
+def test_harmonize_bit_equal_sequential_on_card(card, rng, T, M, offset):
+    """The warp instance against a sequential float32 loop on the card, bit
+    for bit with NaN positions, and ``observed`` against the plain version;
+    (E, S) = (37, 3) rows, each input a contiguous view at storage offset
+    ``offset`` (1: unaligned, so scalar loads), samples from a tick before
+    the window to two after it, non-finite values as ``_nonfinite_rows``
+    places them. T = 2000 takes more than 48 KB of shared memory a block,
+    which the launch opts into."""
+    E, S, tick = 37, 3, 30.0
+    ts = rng.uniform(-tick, (T + 2) * tick, (E, S, M)).astype(np.float32)
+    vals = rng.normal(0, 5, (E, S, M)).astype(np.float32)
+    valid = rng.rand(E, S, M) > 0.3
+    ws = rng.uniform(-50, 50, (E,)).astype(np.float32)
+    ts += ws[:, None, None]
+    _nonfinite_rows(vals, ts, valid, ws, S, tick)
+
+    def C(x):
+        flat = torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(card)
+        buf = torch.empty(flat.numel() + offset, dtype=flat.dtype,
+                          device=card)
+        buf[offset:] = flat
+        return buf[offset:].view(x.shape)
+    v, t, ok, w = C(vals), C(ts), C(valid), C(ws)
+    impl, vec = hz_ops.impl_for(M, aligned(v, t, ok))
+    assert (impl, vec) == ("warp", offset == 0 and M % 4 == 0)
+    by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
+    out, obs = hz_ops.harmonize(v, t, ok, w, tick_s=tick, n_ticks=T)
+    torch.cuda.synchronize()
+    by_impl[impl] += 1
+    assert hz_ops.LAUNCHES_BY_IMPL == by_impl
+    R = E * S
+    t0 = w.repeat_interleave(S)
+    args = (v.reshape(R, M), t.reshape(R, M), ok.reshape(R, M), t0, tick, T)
+    seq, seq_obs = _sequential_harmonize(*args)
+    ref, ref_obs = harmonize_ref(*args)
+    out, obs = out.reshape(R, T), obs.reshape(R, T)
+    assert torch.equal(obs, ref_obs) and torch.equal(obs, seq_obs)
+    assert _bits_equal(out, seq)
+    # the non-finite rows did reach the output
+    assert torch.isnan(out[:6]).any() and torch.isinf(out[6, 0])
+
+
+@pytest.mark.cuda
+def test_harmonize_tick_limit_on_card(card, rng):
+    """``MAX_T`` ticks fit one warp's shared memory (a block of one warp)
+    and stay bit-equal to the sequential loop; one more is refused before
+    any launch."""
+    T, M, tick = hz_ops.MAX_T, 17, 0.5
+    C = lambda x: torch.from_numpy(x).to(card)
+    ts = C(rng.uniform(-1, T * tick, (2, 3, M)).astype(np.float32))
+    v = C(rng.normal(0, 5, (2, 3, M)).astype(np.float32))
+    ok = C(rng.rand(2, 3, M) > 0.3)
+    ws = torch.zeros((2,), device=card)
+    out, obs = hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=T)
+    seq, seq_obs = _sequential_harmonize(
+        v.reshape(6, M), ts.reshape(6, M), ok.reshape(6, M),
+        ws.repeat_interleave(3), tick, T)
+    assert torch.equal(obs.reshape(6, T), seq_obs) and seq_obs.any()
+    assert _bits_equal(out.reshape(6, T), seq)
+    before = hz_ops.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=T + 1)
+    assert hz_ops.LAUNCHES == before

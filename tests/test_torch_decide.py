@@ -22,7 +22,8 @@ from repro_torch import convert
 from repro_torch.core import replay as rp
 from repro_torch.core import reward as rw
 from repro_torch.runtime import policies as pol
-from repro_torch.runtime.predictor import ActionSpace, Predictor
+from repro_torch.runtime.predictor import (ActionSpace, Predictor,
+                                            linear_policy)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 T_ = lambda x: torch.from_numpy(np.array(x))  # a writable private copy
@@ -145,6 +146,24 @@ def test_unported_policy_raises():
         pol.build_policy("rwkv6", F, A, E, device="cpu")
     with pytest.raises(KeyError):
         pol.build_policy("nope", F, A, E, device="cpu")
+
+
+@pytest.mark.parametrize("build", [
+    pytest.param(lambda **kw: linear_policy(F, A, **kw), id="linear_policy"),
+    pytest.param(lambda **kw: pol.linear_builder(F, A, **kw),
+                 id="linear_builder"),
+    pytest.param(lambda **kw: pol.rglru_builder(F, A, **kw),
+                 id="rglru_builder")])
+def test_policy_builders_default_to_the_card(build):
+    """Like every entry point of the port, the policy builders take
+    ``device=None`` as the CUDA card: without one they raise rather than
+    land on the CPU; ``device="cpu"`` asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    model = build(device="cpu")
+    assert all(p.device.type == "cpu" for p in model.params.values())
 
 
 SPACE = (np.array([-1.0, -0.5]), np.array([1.0, 0.5]))

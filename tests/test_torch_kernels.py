@@ -406,9 +406,180 @@ def test_harmonize_matches_jax(seed, use_pallas):
     assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
+def _harmonize_draw(rng, E, S, M, T, nonfinite):
+    """Samples as ``_harmonize_case`` draws them; with ``nonfinite``, NaN,
+    +inf or -inf in about one sample in eight (invalid ones, valid ones
+    outside the window, ones that hit a tick), and row (0, 0) holding one
+    +inf that hits tick 0 and nothing else non-finite (tick 0 stays +inf,
+    its other observed ticks turn NaN)."""
+    ts = rng.uniform(-100, (T + 2) * 30, (E, S, M)).astype(np.float32)
+    vals = rng.normal(0, 5, (E, S, M)).astype(np.float32)
+    valid = rng.rand(E, S, M) > 0.5
+    ws = rng.uniform(-50, 50, (E,)).astype(np.float32)
+    if nonfinite:
+        pick = rng.rand(E, S, M) < 0.125
+        vals[pick] = rng.choice([np.nan, np.inf, -np.inf], pick.sum())
+        vals[0, 0] = rng.normal(0, 5, M)
+        vals[0, 0, 0], valid[0, 0, 0] = np.inf, True
+        ts[0, 0, 0] = ws[0] + np.float32(15.0)
+    return vals, ts, valid, ws
+
+
+def _harmonize_cases(seed, nonfinite):
+    """A ``_harmonize_case``-sized draw and one of 130 samples a row (five
+    32-sample chunks, the last partial) into 20 ticks."""
+    rng = np.random.RandomState(seed)
+    E, S = rng.randint(1, 4), rng.randint(1, 5)
+    M, T = rng.randint(1, 48), rng.randint(1, 24)
+    yield (*_harmonize_draw(rng, E, S, M, T, nonfinite), T)
+    yield (*_harmonize_draw(rng, 2, 3, 130, 20, nonfinite), 20)
+
+
+def _jax_harmonize(vals, ts, valid, ws, T, use_pallas):
+    return map(np.asarray, jax_harmonize(vals, ts, valid, ws, tick_s=30.0,
+                                         n_ticks=T, use_pallas=use_pallas))
+
+
+@pytest.mark.parametrize("M,aligned,want", [
+    (1, True, ("warp", False)), (3, True, ("warp", False)),
+    (4, True, ("warp", True)), (32, True, ("warp", True)),
+    (33, True, ("warp", False)), (128, True, ("warp", True)),
+    (300, True, ("warp", True)), (32, False, ("warp", False)),
+    (128, False, ("warp", False))])
+def test_harmonize_impl_for(M, aligned, want):
+    """harmonize's one instance serves every shape; it stages float4 loads
+    only where the pointers are 16-byte aligned and M % 4 == 0."""
+    assert hz_ops.impl_for(M, aligned) == want
+    assert want[0] in hz_ops.LAUNCHES_BY_IMPL
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 7, 42, 1234, 65535])
+def test_harmonize_nonfinite_matches_jax_oracle(seed):
+    """Non-finite values in invalid, out-of-range and hitting samples: the
+    port against the oracle (``use_pallas=False``), NaN and inf where it
+    has them, ``observed`` exact, means at 1e-4 / 1e-5."""
+    nans = 0
+    for vals, ts, valid, ws, T in _harmonize_cases(seed, nonfinite=True):
+        want, want_obs = _jax_harmonize(vals, ts, valid, ws, T, False)
+        got, got_obs = hz_ops.harmonize(T_(vals), T_(ts), T_(valid),
+                                        T_(ws), tick_s=30.0, n_ticks=T)
+        assert (got_obs.numpy() == want_obs).all()
+        assert np.isinf(want[0, 0, 0])
+        nans += np.isnan(want).sum()
+        assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5,
+                        equal_nan=True)
+    assert nans > 0
+
+
+def test_harmonize_nonfinite_miss_follows_the_oracle():
+    """One row, values [1, NaN, 2, inf] at [10, 10, 40, 400] s, valid [1,
+    0, 1, 1], 30 s ticks, T = 3: samples 1 (invalid) and 3 (after the
+    window) miss both observed ticks. The hit weight is multiplied into
+    the value, so 0 * NaN and 0 * inf make both totals NaN: the oracle
+    (``use_pallas=False``) and the port give [NaN, NaN, 0]. The Pallas
+    kernel in interpret mode gives [1, 2, 0]: XLA rewrites its 0/1 product
+    into a select, which drops the non-finite misses. So the Pallas path
+    is not the comparison for non-finite values; the oracle is."""
+    vals = np.array([[[1.0, np.nan, 2.0, np.inf]]], np.float32)
+    ts = np.array([[[10.0, 10.0, 40.0, 400.0]]], np.float32)
+    valid = np.array([[[True, False, True, True]]])
+    ws = np.zeros((1,), np.float32)
+    want = np.array([np.nan, np.nan, 0.0], np.float32)
+    oracle, oracle_obs = _jax_harmonize(vals, ts, valid, ws, 3, False)
+    pallas, pallas_obs = _jax_harmonize(vals, ts, valid, ws, 3, True)
+    got, got_obs = hz_ops.harmonize(T_(vals), T_(ts), T_(valid), T_(ws),
+                                    tick_s=30.0, n_ticks=3)
+    np.testing.assert_array_equal(oracle[0, 0], want)
+    np.testing.assert_array_equal(got.numpy()[0, 0], want)
+    np.testing.assert_array_equal(pallas[0, 0], [1.0, 2.0, 0.0])
+    for obs in (oracle_obs, pallas_obs, got_obs.numpy()):
+        assert obs[0, 0].tolist() == [True, True, False]
+
+
+def _bucket_keys(ts, valid, t0, T):
+    """Each sample's tick as the kernel computes it (float32 subtract, IEEE
+    divide, ceil, minus 1), or -1 where it hits none."""
+    idx = np.ceil((ts - t0[:, None]) / np.float32(30.0)).astype(np.int64) - 1
+    return np.where(valid & (idx >= 0) & (idx < T), idx, -1)
+
+
+def _tick_means(total, count):
+    observed = count > 0
+    return (np.where(observed, total / np.maximum(count, np.float32(1)),
+                     np.float32(0)).astype(np.float32), observed)
+
+
+def _sequential_harmonize(v, keys, T):
+    """``total = total + h * v``, ``count = count + h`` over m in float32."""
+    ticks = np.arange(T)
+    total = np.zeros((v.shape[0], T), np.float32)
+    count = np.zeros_like(total)
+    for m in range(v.shape[1]):
+        h = (keys[:, m, None] == ticks).astype(np.float32)
+        total = total + h * v[:, m, None]
+        count = count + h
+    return _tick_means(total, count)
+
+
+def _warp_harmonize(v, keys, T):
+    """The warp instance's order: per 32-sample chunk, each bucket's lanes
+    added in lane order onto the tick's running total; then a tick's total
+    is NaN where the row has a non-finite value that does not hit it (the
+    row's non-finite values' keys are not all that tick)."""
+    R, M = v.shape
+    total = np.zeros((R, T), np.float32)
+    count = np.zeros_like(total)
+    for r in range(R):
+        for c0 in range(0, M, 32):
+            k, x = keys[r, c0:c0 + 32], v[r, c0:c0 + 32]
+            for key in np.unique(k[k >= 0]):
+                s = total[r, key]
+                for j in np.flatnonzero(k == key):
+                    s = np.float32(s + x[j])
+                total[r, key] = s
+                count[r, key] += np.float32((k == key).sum())
+        nf_keys = keys[r, ~np.isfinite(v[r])]
+        if nf_keys.size:
+            spared = nf_keys[0] if nf_keys.min() == nf_keys.max() else -1
+            total[r, np.arange(T) != spared] = np.nan
+    return _tick_means(total, count)
+
+
+def _bits_equal(a, b):
+    nan = np.isnan(a)
+    return (nan == np.isnan(b)).all() and np.array_equal(
+        np.where(nan, 0, a).view(np.int32), np.where(nan, 0, b).view(np.int32))
+
+
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 7, 42, 1234, 65535])
+def test_harmonize_warp_order_matches_jax(seed, nonfinite):
+    """The card's warp instance emulated in numpy float32: bit-equal to the
+    sequential loop over the samples (it keeps M order), and held against
+    the Pallas kernel in interpret mode on finite inputs and against the
+    oracle on non-finite ones (the Pallas path drops non-finite misses) at
+    1e-4 / 1e-5, ``observed`` exact."""
+    with np.errstate(invalid="ignore"):
+        for vals, ts, valid, ws, T in _harmonize_cases(seed, nonfinite):
+            E, S, M = vals.shape
+            R = E * S
+            keys = _bucket_keys(ts.reshape(R, M), valid.reshape(R, M),
+                                np.repeat(ws, S), T)
+            got, got_obs = _warp_harmonize(vals.reshape(R, M), keys, T)
+            seq, seq_obs = _sequential_harmonize(vals.reshape(R, M), keys,
+                                                 T)
+            assert _bits_equal(got, seq) and (got_obs == seq_obs).all()
+            want, want_obs = _jax_harmonize(vals, ts, valid, ws, T,
+                                            use_pallas=not nonfinite)
+            assert (got_obs == want_obs.reshape(R, T)).all()
+            assert_allclose(got, want.reshape(R, T), rtol=1e-4, atol=1e-5,
+                            equal_nan=True)
+
+
 def test_cpu_path_counts_no_launch(rng):
     before = (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES,
               hz_ops.LAUNCHES, fa_ops.LAUNCHES)
+    by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
     v, o, iv, ih = _locf_inputs(rng, 2, 2, 4)
     locf_ops.locf(T_(v), T_(o), T_(iv), T_(ih))
     v, m, mu, var = _wagg_inputs(rng, 2, 2, 4)
@@ -422,3 +593,4 @@ def test_cpu_path_counts_no_launch(rng):
     fa_ops.flash_attention(q, kv, kv)
     assert (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES,
             hz_ops.LAUNCHES, fa_ops.LAUNCHES) == before
+    assert hz_ops.LAUNCHES_BY_IMPL == by_impl
