@@ -17,10 +17,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      trace.
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
-     policy: 4 batches (128 windows) with every kernel launch counted
-     (locf and window_agg all on their ``row`` instance).
+     policy: 4 batches (128 windows) timed, with every kernel launch
+     counted (locf and window_agg all on their ``row`` instance), then one
+     batch untimed with the bytes fetched to the host counted. Every batch
+     mode is timed by the same host-clock instrument (``instrument``).
   5. fused   — the same system in ``fused`` mode for 32 windows, equal bit
      for bit to the first 32 windows of a fresh ``scan`` run.
+  5a. fused_decide — the system in ``scan_fused_decide`` mode over the
+     scan phase's windows (the decision step inside the pipeline's K loop,
+     one ring write per batch): every window's result but ``latency_s``,
+     the replay export, the forwarder sinks and the DB rows equal the scan
+     phase's bit for bit; its launches counted as in phase 4; host bytes
+     fetched per batch and one profiled batch beside the scan phase's.
+  5b. async  — ``scan_async`` against the scan phase and
+     ``scan_fused_decide_async`` against phase 5a, with the same checks;
+     windows/s beside the synchronous twin's, and the pump time that
+     overlapped the Manager's launch and consume.
+  5c. loop_order — the four batch modes once more in reverse order
+     (fresh systems, the same windows and checks), so each mode's
+     windows/s is read early and late in the process.
   6. harmonize_system — the harmonize op entry point on the K windows of
      one batch the scan system assembled, held against its plain version
      and against ``core.harmonize.harmonize_segment(agg="mean")``, and bit
@@ -74,6 +89,37 @@ def check(cond, msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class count_fetches:
+    """Counts the bytes read from the card to the host while open: every
+    ``Tensor.cpu()`` of a CUDA tensor and every Python scalar read of one
+    (``int``, ``float``, ``bool``, ``.item()``). Patches ``torch.Tensor``
+    for the duration; restores it on exit."""
+    METHODS = ("cpu", "item", "__int__", "__float__", "__bool__")
+
+    def __enter__(self):
+        self.bytes = 0
+        self.calls = 0
+        self._saved = {m: getattr(torch.Tensor, m) for m in self.METHODS}
+
+        def wrap(orig, scalar):
+            def run(t, *args, **kwargs):
+                if t.is_cuda:
+                    self.calls += 1
+                    self.bytes += t.element_size() * (1 if scalar
+                                                      else t.numel())
+                return orig(t, *args, **kwargs)
+            return run
+
+        for m, orig in self._saved.items():
+            setattr(torch.Tensor, m, wrap(orig, m != "cpu"))
+        return self
+
+    def __exit__(self, *exc):
+        for m, orig in self._saved.items():
+            setattr(torch.Tensor, m, orig)
+        return False
 
 
 # --------------------------------------------------------------- timing
@@ -594,24 +640,131 @@ def make_system(mode, dev, db_dir):
     return system
 
 
-def phase_scan(dev, tmp):
+# the decision loop's batch modes, and the twin each must equal bit for bit
+LOOP_TWIN = {"scan": "scan", "scan_fused_decide": "scan",
+             "scan_async": "scan",
+             "scan_fused_decide_async": "scan_fused_decide"}
+
+
+def instrument(system):
+    """Host-clock intervals of the loop's parts, taken the same way in every
+    mode: the receivers' poll (``pump``), the drain and close into staging
+    (``assemble``; in the async modes both run on the pump thread) and the
+    Manager's launch + consume with the sinks (``manager``: the consume's
+    first fetch waits for the batch, so it covers the batch's device
+    work). Returns the dict of interval lists that ``drive_loop`` reads."""
+    spans = {"pump": [], "assemble": [], "manager": []}
+    system.pump_receivers = interval(system.pump_receivers, spans["pump"])
+    system.assemble_windows = interval(system.assemble_windows,
+                                       spans["assemble"])
+    system._dispatch_batch = interval(system._dispatch_batch,
+                                      spans["manager"])
+    system._consume_batch = interval(system._consume_batch, spans["manager"])
+    return spans
+
+
+def interval(fn, into, sync=False):
+    """``fn`` that appends its (start, end) on the host clock to ``into``;
+    with ``sync``, the end waits for the card."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            return out
+        finally:
+            into.append((t0, time.perf_counter()))
+    return run
+
+
+def _overlap_s(a, b):
+    """Total time in which an interval of ``a`` and one of ``b`` overlap."""
+    return sum(max(0.0, min(x1, y1) - max(x0, y0))
+               for x0, x1 in a for y0, y1 in b)
+
+
+def drive_loop(system, label, spans):
+    """The decision loop's main path: ``K * BATCHES`` windows through
+    ``system.run_windows``, timed, with every kernel count set to 0 just
+    before and read just after. Checks locf n, window_agg 2n and rglru_scan
+    n launches, all locf and window_agg launches on the ``row`` instance.
+    Then one more batch, untimed, under ``count_fetches`` for the bytes
+    fetched to the host (the patched ``Tensor`` methods stay out of the
+    timed run). Returns the run's reading: every window's result (timed and
+    counted batches), windows/s, launches, and per batch the ms of each
+    interval list in ``spans`` (timed batches only), the pump and assembly
+    time that overlapped the Manager's, and the host bytes."""
     from repro_torch.kernels.locf import ops as locf_ops
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.kernels.window_agg import ops as wagg_ops
 
+    n = K * BATCHES
+    locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
+    for ops in (locf_ops, wagg_ops):
+        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
+    for v in spans.values():
+        v.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = system.run_windows(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
+                "rglru_scan": rglru_ops.LAUNCHES}
+    by_impl = {"locf": dict(locf_ops.LAUNCHES_BY_IMPL),
+               "window_agg": dict(wagg_ops.LAUNCHES_BY_IMPL)}
+    ms = {f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / BATCHES
+          for k, v in spans.items()}
+    ms["pump_overlapping_manager_ms_per_batch"] = _overlap_s(
+        spans["pump"] + spans["assemble"], spans["manager"]) * 1e3 / BATCHES
+    check(len(results) == n,
+          f"{label}: {len(results)} results, expected {n}")
+    check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": n},
+          f"{label}: kernel launches {launches}, expected locf {n}, "
+          f"window_agg {2 * n}, rglru_scan {n}")
+    check(by_impl == {"locf": {"row": n, "warp": 0},
+                      "window_agg": {"row": 2 * n, "warp": 0}},
+          f"{label}: launches by instance {by_impl}, expected every locf "
+          f"and window_agg launch on the row instance")
+    with count_fetches() as fetched:
+        results = results + system.run_windows(K)
+        torch.cuda.synchronize()
+    return {"results": results, "windows_per_s": n / wall, "wall_s": wall,
+            "launches": launches, "launches_by_impl": by_impl, **ms,
+            "host_bytes_per_batch": fetched.bytes}
+
+
+def loop_record(system, run):
+    """What a run of the decision loop left behind, for the bit-for-bit
+    comparison of two modes over the same windows."""
+    return {"results": [{k: v for k, v in r.items() if k != "latency_s"}
+                        for r in run["results"]],
+            "export": system.export_replay("salt"),
+            "db_rows": _db_rows(system),
+            "sinks": [list(f.sink) for f in system.forwarders.forwarders],
+            **{k: v for k, v in run.items() if k != "results"}}
+
+
+def run_mode(mode, dev, tmp, tag=""):
+    """A fresh ``mode`` system driven by ``drive_loop`` with the same
+    instrument as every other mode; returns it and its record."""
+    system = make_system(mode, dev, str(Path(tmp) / f"{mode}{tag}"))
+    spans = instrument(system)
+    run = drive_loop(system, mode + tag, spans)
+    return system, loop_record(system, run)
+
+
+def timing(rec):
+    """The timing keys of a loop record, for a phase's line."""
+    return {k: v for k, v in rec.items()
+            if k.endswith("_per_batch") or k in ("windows_per_s", "wall_s")}
+
+
+def phase_scan(dev, tmp):
     system = make_system("scan", dev, str(Path(tmp) / "scan"))
-    spent = {"pump": 0.0, "assemble": 0.0, "device": 0.0, "decide": 0.0}
-
-    def timed(name, fn, sync=False):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
-            return out
-        return run
-
+    spans = instrument(system)
+    spans["device"], spans["decide"] = [], []
     captured = {}
 
     def keep_batch(fn):
@@ -621,33 +774,15 @@ def phase_scan(dev, tmp):
             return out
         return run
 
-    system.pump_receivers = timed("pump", system.pump_receivers)
-    system.assemble_windows = timed("assemble",
-                                    keep_batch(system.assemble_windows))
-    system._dispatch_scan = timed("device", system._dispatch_scan, True)
-    system.predictor.on_windows = timed("decide",
-                                        system.predictor.on_windows, True)
-    locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
-    for ops in (locf_ops, wagg_ops):
-        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = system.run_windows(K * BATCHES)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
-                "rglru_scan": rglru_ops.LAUNCHES}
-    by_impl = {"locf": dict(locf_ops.LAUNCHES_BY_IMPL),
-               "window_agg": dict(wagg_ops.LAUNCHES_BY_IMPL)}
-    n = K * BATCHES
-    check(len(results) == n, f"scan: {len(results)} results, expected {n}")
-    check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": n},
-          f"scan: kernel launches {launches}, expected locf {n}, "
-          f"window_agg {2 * n}, rglru_scan {n}")
-    check(by_impl == {"locf": {"row": n, "warp": 0},
-                      "window_agg": {"row": 2 * n, "warp": 0}},
-          f"scan: launches by instance {by_impl}, expected every locf and "
-          f"window_agg launch on the row instance")
+    system.assemble_windows = keep_batch(system.assemble_windows)
+    # the pipeline's and the decision step's share, each up to the card's
+    # completion (scan only: the fused path has no seam between them)
+    system._dispatch_scan = interval(system._dispatch_scan, spans["device"],
+                                     sync=True)
+    system.predictor.on_windows = interval(system.predictor.on_windows,
+                                           spans["decide"], sync=True)
+    run = drive_loop(system, "scan", spans)
+    n = K * BATCHES + K
     st = system.state
     for name, x in (("features", system.predictor._prev["obs"]),
                     ("actions", system.predictor._prev["actions"]),
@@ -656,9 +791,10 @@ def phase_scan(dev, tmp):
                     ("anomaly var", st.anomaly.var),
                     ("policy state", system.predictor._model_carry["h"])):
         check(bool(torch.isfinite(x).all()), f"scan: non-finite {name}")
-    check(all(np.isfinite(r["mean_reward"]) for r in results),
+    check(all(np.isfinite(r["mean_reward"]) for r in run["results"]),
           "scan: non-finite reward")
-    exp = system.export_replay("salt")
+    ref = loop_record(system, run)
+    exp = ref["export"]
     check(all(np.isfinite(exp[k]).all() for k in ("obs", "actions",
                                                    "rewards", "next_obs")),
           "scan: non-finite replay rows")
@@ -666,28 +802,45 @@ def phase_scan(dev, tmp):
           f"scan: replay size {system.replay_size()}, expected {n - 1}")
     check(sum(f.stats["sent"] for f in system.forwarders.forwarders)
           == 2 * E * n, "scan: forwarder count")
-    records = sum(r["records"] for r in results)
+    timed = run["results"][:K * BATCHES]
+    records = sum(r["records"] for r in timed)
     emit({"phase": "scan", "envs": E, "streams": system.cfg.n_streams,
-          "windows": n, "windows_per_batch": K,
-          "windows_per_s": n / wall, "records": records,
-          "records_per_s": records / wall, "wall_s": wall,
-          "pump_ms_per_batch": spent["pump"] * 1e3 / BATCHES,
-          "host_assembly_ms_per_batch": spent["assemble"] * 1e3 / BATCHES,
-          "device_ms_per_batch": spent["device"] * 1e3 / BATCHES,
-          "decide_ms_per_batch": spent["decide"] * 1e3 / BATCHES,
-          "launches": launches, "launches_by_impl": by_impl,
+          "windows": K * BATCHES, "windows_per_batch": K,
+          "records": records, "records_per_s": records / run["wall_s"],
+          **timing(ref), "launches": run["launches"],
+          "launches_by_impl": run["launches_by_impl"],
           "observed_frac": float(np.mean([r["observed_frac"]
-                                          for r in results]))})
-    profile_batch(system)
+                                          for r in timed]))})
+    ref["profile"] = profile_batch(system, "scan_profile")
     system.db.close()
     system.stop()
-    return launches, captured["raw"]
+    return run["launches"], captured["raw"], ref
 
 
-def profile_batch(system):
-    """One more scan batch under the profiler: the card's busy time against
-    the batch's wall time, and the kernels that took the most device time.
-    Runs after the measured batches, so it touches none of their numbers."""
+def check_same_loop(label, got, ref):
+    """Every result but ``latency_s``, the replay export in every field,
+    the forwarder sinks and the DB rows must be equal bit for bit."""
+    check(len(got["results"]) == len(ref["results"]),
+          f"{label}: {len(got['results'])} results, expected "
+          f"{len(ref['results'])}")
+    for a, b in zip(got["results"], ref["results"]):
+        check(a == b, f"{label} on window {a['window']}: {a} vs {b}")
+    ea, eb = got["export"], ref["export"]
+    check(ea["env_ids"] == eb["env_ids"], f"{label}: replay ids")
+    for key in eb:
+        if key != "env_ids":
+            check(ea[key].dtype == eb[key].dtype
+                  and np.array_equal(ea[key], eb[key]),
+                  f"{label}: replay {key} differs")
+    check(got["sinks"] == ref["sinks"], f"{label}: forwarder sinks differ")
+    check(got["db_rows"] == ref["db_rows"], f"{label}: LogDB rows differ")
+
+
+def profile_batch(system, phase="scan_profile"):
+    """One more batch under the profiler: the card's busy time against the
+    batch's wall time, and the kernels that took the most device time.
+    Runs after the measured batches, so it touches none of their numbers.
+    Emits and returns the reading."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     torch.cuda.synchronize()
@@ -701,12 +854,14 @@ def profile_batch(system):
            if e.device_type == DeviceType.CUDA]
     busy_ms = _device_us(dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    emit({"phase": "scan_profile", "windows": K, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "device_kernels": sum(e.count for e in dev),
-          "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                            for e in top}})
+    out = {"phase": phase, "windows": K, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_kernels": sum(e.count for e in dev),
+           "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                             for e in top}}
+    emit(out)
+    return out
 
 
 def _db_rows(system):
@@ -751,6 +906,86 @@ def phase_fused(dev, tmp):
     for s in (fused, scan):
         s.db.close()
         s.stop()
+
+
+def phase_fused_decide(dev, tmp, ref):
+    """``scan_fused_decide`` over the scan phase's windows, equal to it bit
+    for bit; its own launches, host bytes and one profiled batch."""
+    system, got = run_mode("scan_fused_decide", dev, tmp)
+    check_same_loop("fused_decide != scan", got, ref)
+    n = K * BATCHES + K
+    check(system.replay_size() == n - 1,
+          f"fused_decide: replay size {system.replay_size()}")
+    snap = system.snapshot_decide()
+    for name, x in (("prev obs", snap.prev_obs),
+                    ("prev actions", snap.prev_actions),
+                    ("policy state", snap.carry["h"])):
+        check(bool(torch.isfinite(x).all()), f"fused_decide: non-finite "
+              f"{name}")
+    check(int(snap.tick) == n and bool(snap.have_prev),
+          f"fused_decide: carried tick {int(snap.tick)}, expected {n}")
+    emit({"phase": "fused_decide", "windows": K * BATCHES,
+          "windows_per_batch": K, **timing(got),
+          "scan_windows_per_s": ref["windows_per_s"],
+          "scan_manager_ms_per_batch": ref["manager_ms_per_batch"],
+          "scan_host_bytes_per_batch": ref["host_bytes_per_batch"],
+          "launches": got["launches"],
+          "launches_by_impl": got["launches_by_impl"],
+          "bit_identical_to_scan": True})
+    prof = profile_batch(system, "fused_decide_profile")
+    emit({"phase": "fused_decide_vs_scan_profile",
+          "device_busy_ms": [prof["device_busy_ms"],
+                             ref["profile"]["device_busy_ms"]],
+          "device_idle_share": [prof["device_idle_share"],
+                                ref["profile"]["device_idle_share"]],
+          "device_kernels": [prof["device_kernels"],
+                             ref["profile"]["device_kernels"]]})
+    system.db.close()
+    system.stop()
+    return got["launches"], got
+
+
+def phase_async(dev, tmp, refs):
+    """``scan_async`` and ``scan_fused_decide_async`` over the same windows,
+    each equal to its synchronous twin's run bit for bit; windows/s beside
+    the twin's, and the pump and assembly time that overlapped the
+    Manager's launch and consume (host-clock intervals of the two
+    threads)."""
+    for mode in ("scan_async", "scan_fused_decide_async"):
+        twin = LOOP_TWIN[mode]
+        system, got = run_mode(mode, dev, tmp)
+        check_same_loop(f"{mode} != {twin}", got, refs[twin])
+        refs[mode] = got
+        emit({"phase": f"async_{mode}", "windows": K * BATCHES,
+              **timing(got), "twin": twin,
+              "twin_windows_per_s": refs[twin]["windows_per_s"],
+              "launches": got["launches"],
+              "launches_by_impl": got["launches_by_impl"],
+              "bit_identical_to_twin": True})
+        system.db.close()
+        system.stop()
+
+
+def phase_loop_order(dev, tmp, first):
+    """The four batch modes again, fresh systems over the same windows, in
+    the reverse of the order the phases above ran them, each checked bit for
+    bit against its twin's first run. A mode's windows/s is then read once
+    early and once late in the process (host time of identical work drifts
+    within one run), and the mean of its two readings is what compares
+    modes."""
+    order = list(LOOP_TWIN)
+    out = {"phase": "loop_order", "order": [order, order[::-1]]}
+    for mode in order[::-1]:
+        system, got = run_mode(mode, dev, tmp, tag="_late")
+        check_same_loop(f"{mode} (late) != {LOOP_TWIN[mode]}", got,
+                        first[LOOP_TWIN[mode]])
+        system.db.close()
+        system.stop()
+        for key in ("windows_per_s", "pump_ms_per_batch",
+                    "assemble_ms_per_batch", "manager_ms_per_batch"):
+            pair = [first[mode][key], got[key]]
+            out.setdefault(key, {})[mode] = pair + [sum(pair) / 2]
+    emit(out)
 
 
 def phase_harmonize(raw):
@@ -1024,8 +1259,13 @@ def main() -> int:
 
     at_path = phase_kernels(dev)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        launches, raw = phase_scan(dev, tmp)
+        launches, raw, scan_ref = phase_scan(dev, tmp)
         phase_fused(dev, tmp)
+        _, fused_ref = phase_fused_decide(dev, tmp, scan_ref)
+        refs = {"scan": scan_ref, "scan_fused_decide": fused_ref}
+        phase_async(dev, tmp, refs)
+        phase_loop_order(dev, tmp, refs)
+        del scan_ref, fused_ref, refs
     launches["harmonize"] = phase_harmonize(raw)
     del raw
     launches["flash_attention"] = phase_lm(dev)

@@ -6,13 +6,14 @@ Everything arrives as numpy arrays (the reference's leaves converted with
     port builders' ``params=``;
   * :func:`pipeline_state_from_numpy` — a ``PipelineState``;
   * :func:`replay_from_numpy` — a ``ReplayBuffer``;
+  * :func:`decide_state_from_numpy` — the fused engine's ``DecideState``;
   * :func:`lm_params_from_numpy` / :func:`lm_cache_from_numpy` — an LM's
     param tree (for ``LM(params=)``) and its decode cache, with the
     reference's stacked pattern groups and ``tail`` layers split into the
     port's per-layer list.
-Dtypes are kept as the reference has them: float32 or bfloat16 values and
+Dtypes are kept as the reference has them: float32 or bfloat16 values,
 int32 counters (``tick_index``, ``tick_idx``, ``version``, ``cursor``,
-``lengths``).
+``lengths``, ``tick``) and bool flags (``valid``, ``have_prev``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core import normalize as nz
 from repro_torch.core import replay as rp
 from repro_torch.core.pipeline import PipelineState
 from repro_torch.runtime.policies import POLICIES
+from repro_torch.runtime.predictor import DecideState
 
 
 def _t(x, device):
@@ -62,6 +64,31 @@ def pipeline_state_from_numpy(state, device="cpu") -> PipelineState:
 def replay_from_numpy(buf, device="cpu") -> rp.ReplayBuffer:
     """A reference ``ReplayBuffer`` with numpy leaves -> the port's."""
     return rp.ReplayBuffer(*(_t(x, device) for x in buf))
+
+
+def decide_state_from_numpy(dstate, device="cpu") -> DecideState:
+    """A reference ``DecideState`` with numpy leaves -> the port's: prev
+    obs and actions, ``have_prev``, ``tick``, the replay ring, the policy
+    params, the versions and the recurrent model carry (a dict of per-env
+    leaves, or None). The elastic ``active``/``prev_ok`` leaves are not
+    ported and must be None."""
+    if getattr(dstate, "active", None) is not None \
+            or getattr(dstate, "prev_ok", None) is not None:
+        raise ValueError("elastic DecideState leaves are not ported yet: "
+                         "ROADMAP.md queue 1 item 10")
+    leaf = lambda x: _t(x, device)
+    return DecideState(
+        prev_obs=leaf(dstate.prev_obs),
+        prev_actions=leaf(dstate.prev_actions),
+        have_prev=leaf(np.asarray(dstate.have_prev, np.bool_)),
+        tick=leaf(np.asarray(dstate.tick, np.int32)),
+        replay=replay_from_numpy(dstate.replay, device),
+        policy=_map(dict(dstate.policy), leaf),
+        version=leaf(np.asarray(dstate.version, np.int32)),
+        prev_version=leaf(np.asarray(dstate.prev_version, np.int32)),
+        carry=None if dstate.carry is None else _map(dict(dstate.carry),
+                                                     leaf),
+    )
 
 
 def _per_layer(tree, cfg, leaf):

@@ -76,52 +76,78 @@ def _harmonize_dense(values, timestamps, idx, ok, T: int, agg: str):
 
 
 def _segment(src, seg, n_seg, reduce: str, init: float):
+    """Segment ``amin``/``amax``: exact whatever order the card's atomics
+    take. Sums go through :func:`_tick_sums` instead."""
     out = torch.full((n_seg,), init, dtype=src.dtype, device=src.device)
-    if reduce == "sum":
-        return out.index_add_(0, seg, src)
     return out.scatter_reduce_(0, seg, src, reduce=reduce, include_self=True)
+
+
+def _tick_sums(idx, ok, T: int, *cols):
+    """Per-tick sums over M of each (E, S, M) column of ``cols`` (and the
+    hit count first), in a fixed order on every device. A stable sort of
+    each row's samples by tick (out-of-range samples last) puts a tick's
+    samples side by side in M order; a segmented inclusive scan of
+    ``ceil(log2 M)`` fixed steps adds within runs of equal ticks only, so a
+    non-finite value leaves the other ticks alone; the last sample of each
+    run holds its tick's sum and is the only one to write that tick. The
+    work is O(M log M) a row whatever T. ``index_add_`` would add with
+    atomics on CUDA, in an order that changes from run to run."""
+    M = idx.shape[-1]
+    key, perm = torch.where(ok, idx, T).sort(dim=-1, stable=True)
+    x = torch.stack((ok.to(torch.float32),) + cols)           # (C, E, S, M)
+    x = x.gather(-1, perm.expand_as(x))
+    d = 1
+    while d < M:
+        same = key[..., d:] == key[..., :-d]
+        x = torch.cat((x[..., :d], torch.where(same, x[..., d:] + x[..., :-d],
+                                                x[..., d:])), -1)
+        d *= 2
+    # each run's last sample writes its tick; the rest go to column T
+    end = torch.cat((key[..., 1:] != key[..., :-1],
+                     torch.ones_like(key[..., :1], dtype=torch.bool)), -1)
+    dst = torch.where(end, key, T).expand_as(x)
+    out = x.new_zeros(x.shape[:-1] + (T + 1,)).scatter_(-1, dst, x)
+    return list(out[..., :T])
 
 
 def harmonize_segment(raw: RawWindow, tick_ts, tick_s: float,
                       agg: str = "mean"):
-    """Segment-reduction harmonization: O(M) per sample. Small windows
-    (M*T <= ``_DENSE_MT_MAX``) take the dense mask form instead.
-
-    The scatter branch adds with atomics on CUDA, in an order that changes
-    from run to run; only the dense branch is bit-reproducible there."""
+    """Segment-reduction harmonization. Small windows (M*T <=
+    ``_DENSE_MT_MAX``) take the dense mask form; larger ones sum each tick
+    through :func:`_tick_sums` (a fixed order on every device, so two calls
+    and ``run_many`` against K ticks agree bit for bit on the card too) and
+    take ``amin``/``amax`` by segment scatter, which is exact in any
+    order."""
     E, S, M = raw.values.shape
     T = tick_ts.shape[1]
     idx, ok = bucketize(raw, tick_ts, tick_s)
     if M * T <= _DENSE_MT_MAX:
         return _harmonize_dense(raw.values, raw.timestamps, idx, ok, T, agg)
-    dev = raw.values.device
-    rows = torch.arange(E * S, device=dev).reshape(E, S, 1)
-    seg = torch.where(ok, rows * T + idx, E * S * T).reshape(-1)
-    n_seg = E * S * T + 1
-    v = torch.where(ok, raw.values, 0.0).reshape(-1)
-    okf = ok.to(torch.float32).reshape(-1)
-
-    count = _segment(okf, seg, n_seg, "sum", 0.0)[:-1]
-    observed = (count > 0).reshape(E, S, T)
+    v = torch.where(ok, raw.values, 0.0)
     if agg in ("mean", "sum"):
-        total = _segment(v, seg, n_seg, "sum", 0.0)[:-1]
+        count, total = _tick_sums(idx, ok, T, v)
         out = total if agg == "sum" else total / count.clamp(min=1.0)
-    elif agg == "min":
-        out = _segment(torch.where(ok, raw.values, BIG).reshape(-1), seg,
-                       n_seg, "amin", float("inf"))[:-1]
-    elif agg == "max":
-        out = _segment(torch.where(ok, raw.values, -BIG).reshape(-1), seg,
-                       n_seg, "amax", float("-inf"))[:-1]
-    elif agg == "last":
-        ts = torch.where(ok, raw.timestamps, -BIG).reshape(-1)
-        bucket_last = _segment(ts, seg, n_seg, "amax", float("-inf"))
-        is_last = ((ts == bucket_last[seg]) & (okf > 0)).to(torch.float32)
-        den = _segment(is_last, seg, n_seg, "sum", 0.0)[:-1]
-        num = _segment(v * is_last, seg, n_seg, "sum", 0.0)[:-1]
-        out = num / den.clamp(min=1.0)
+    elif agg in ("min", "max", "last"):
+        dev = raw.values.device
+        rows = torch.arange(E * S, device=dev).reshape(E, S, 1)
+        seg = torch.where(ok, rows * T + idx, E * S * T).reshape(-1)
+        n_seg = E * S * T + 1
+        if agg == "last":
+            ts = torch.where(ok, raw.timestamps, -BIG).reshape(-1)
+            bucket_last = _segment(ts, seg, n_seg, "amax", float("-inf"))
+            is_last = ((ts == bucket_last[seg]) & ok.reshape(-1)) \
+                .to(torch.float32).reshape(E, S, M)
+            count, den, num = _tick_sums(idx, ok, T, is_last, v * is_last)
+            out = num / den.clamp(min=1.0)
+        else:
+            (count,) = _tick_sums(idx, ok, T)
+            fill, init = (BIG, "inf") if agg == "min" else (-BIG, "-inf")
+            out = _segment(torch.where(ok, raw.values, fill).reshape(-1),
+                           seg, n_seg, "a" + agg, float(init))[:-1] \
+                .reshape(E, S, T)
     else:
         raise ValueError(agg)
-    out = out.reshape(E, S, T)
+    observed = count > 0
     return torch.where(observed, out, 0.0), observed
 
 

@@ -5,6 +5,10 @@ Modes ported here:
   * ``scan``  — :func:`run_many`: K pre-batched windows through K ticks in
     one call, the state carried on the device between them. Outputs are
     exactly those of K sequential ticks (the same ops on the same shapes).
+  * ``scan_fused_decide`` — :func:`run_many_decide`: the same K ticks with
+    the Predictor's per-window decision step after each one and the K
+    replay transitions banked once after the loop; the host gets only the
+    small :class:`DecideBatch`.
 
 State is one NamedTuple carried tick to tick (gap-fill memory, anomaly
 stats, normalizer stats, the cross-window carry and the tick counter).
@@ -35,9 +39,9 @@ from repro_torch.device import resolve_device
 NOT_PORTED_MODES = {
     "modular": "ROADMAP.md queue 1 item 4 (the modular stage-by-stage mode)",
     "scan_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-    "scan_fused_decide": "ROADMAP.md queue 1 item 5 (scan_fused_decide)",
     "scan_fused_decide_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
 }
+MODES = ("fused", "scan", "scan_fused_decide")
 
 
 class PipelineState(NamedTuple):
@@ -211,30 +215,99 @@ def run_many(cfg: PipelineConfig, state: PipelineState, raws: RawWindow,
     return state, stack(feats, FeatureFrame), stack(frames, TickFrame)
 
 
-class PerceptaPipeline:
-    """User-facing handle; ``mode`` is ``fused`` or ``scan``.
+class DecideBatch(NamedTuple):
+    """Per-window outputs of the fused decision loop (leading K axis):
+    what the Manager's host side needs, and nothing bigger. The quality
+    metrics are exact per-env int32 counts over the (S, T) tick grid, so
+    the host divides them in float64 and reproduces ``np.mean`` over the
+    full frame bit for bit without fetching the (K, E, S, T) frames.
+    ``features`` is fetched only when a host sink (LogDB) needs it."""
+    actions: torch.Tensor    # (K, E, A) validated actions
+    rewards: torch.Tensor    # (K, E)
+    per_term: torch.Tensor   # (K, E, n_terms)
+    violated: torch.Tensor   # (K, E) bool
+    features: torch.Tensor   # (K, E, F)
+    observed: torch.Tensor   # (K, E) int32 counts over (S, T)
+    filled: torch.Tensor     # (K, E) int32
+    anomalous: torch.Tensor  # (K, E) int32
 
-    ``run_tick`` runs one window in either mode; :meth:`run_many` runs a
-    K-window batch. Other modes of the reference raise and name the
+
+def _counts(mask):
+    return mask.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def run_many_decide(cfg: PipelineConfig, decide, state: PipelineState,
+                    dstate, raws: RawWindow, window_starts):
+    """:func:`run_many` with the decision step after every tick.
+
+    ``decide`` is a ``(step, bank)`` pair (``runtime.predictor.DecideFns``):
+    ``step`` runs one window's policy, validation and reward, exactly the
+    per-window ops of ``Predictor.on_tick``, and returns that window's
+    replay transition; ``bank`` writes the K stacked transitions into the
+    ring once, after the loop. Only the small prev/tick/carry part of
+    ``dstate`` changes inside the loop. Returns ``(final_state,
+    final_dstate, DecideBatch)``."""
+    step, bank = decide
+    outs, trans = [], []
+    for k in range(raws.values.shape[0]):
+        raw = RawWindow(raws.values[k], raws.timestamps[k], raws.valid[k])
+        state, feats, frame = tick(cfg, state, raw, window_starts[k])
+        dstate, (actions, reward, per_term, violated), tr = step(dstate,
+                                                                 feats)
+        outs.append(DecideBatch(actions, reward, per_term, violated,
+                                feats.features, _counts(frame.observed),
+                                _counts(frame.filled),
+                                _counts(frame.anomalous)))
+        trans.append(tr)
+    stacked = tuple(torch.stack(x) for x in zip(*trans))
+    dstate = dstate._replace(replay=bank(dstate.replay, stacked))
+    return state, dstate, DecideBatch(*(torch.stack(x) for x in zip(*outs)))
+
+
+class PerceptaPipeline:
+    """User-facing handle; ``mode`` is ``fused``, ``scan`` or
+    ``scan_fused_decide``.
+
+    ``run_tick`` runs one window in any mode; :meth:`run_many` runs a
+    K-window batch, and :meth:`run_many_decide` a K-window batch with the
+    decision step (``scan_fused_decide`` only, which needs ``decide=``; the
+    decision carry is passed to each call). Other modes of the reference raise and name the
     ROADMAP item that brings them. ``device=None`` means the CUDA card.
     """
 
     def __init__(self, cfg: PipelineConfig, mode: str = "fused",
-                 device=None):
+                 device=None, decide=None):
         if mode in NOT_PORTED_MODES:
             raise ValueError(f"pipeline mode {mode!r} is not ported yet: "
                              f"{NOT_PORTED_MODES[mode]}")
-        if mode not in ("fused", "scan"):
+        if mode not in MODES:
             raise ValueError(f"unknown pipeline mode {mode!r}")
+        if mode == "scan_fused_decide" and decide is None:
+            raise ValueError("scan_fused_decide needs decide=")
         self.cfg = cfg
         self.mode = mode
         self.device = resolve_device(device)
+        self.decide = decide
 
     def init_state(self):
         return init_state(self.cfg, self.device)
 
     def run_many(self, state, raws: RawWindow, window_starts):
+        if self.mode == "scan_fused_decide":
+            raise RuntimeError("scan_fused_decide carries a decide state: "
+                               "use run_many_decide(state, dstate, ...)")
         return run_many(self.cfg, state, raws, window_starts)
+
+    def run_many_decide(self, state, dstate, raws: RawWindow,
+                        window_starts):
+        """K windows and their decisions; returns ``(new_state,
+        new_dstate, DecideBatch)``. The ring in ``dstate`` is written in
+        place."""
+        if self.mode != "scan_fused_decide":
+            raise RuntimeError(f"run_many_decide needs mode "
+                               f"'scan_fused_decide', not {self.mode!r}")
+        return run_many_decide(self.cfg, self.decide, state, dstate, raws,
+                               window_starts)
 
     def run_tick(self, state, raw: RawWindow, window_start):
         return tick(self.cfg, state, raw, window_start)

@@ -2,8 +2,9 @@
 
 A fixed-capacity ring over (obs, action, reward, next_obs, tick_idx,
 policy_version, valid), batched across environments and living on the
-device. Unlike the reference, whose buffers are immutable, :func:`add` and
-:func:`add_many` write the ring IN PLACE and return the same buffer: at
+device. Unlike the reference, whose buffers are immutable, :func:`add`,
+:func:`add_many` and :func:`add_batch` write the ring IN PLACE (cursor
+included) and return the same buffer: at
 E=256 and capacity 4096 a copy of the ring per write would move tens of MB
 for a few KB of new rows. The cursor stays a device int32 scalar, so a
 write needs no host round trip.
@@ -93,6 +94,62 @@ def add_many(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
         if mask[k]:
             add(buf, obs[k], actions[k], rewards[k], next_obs[k],
                 tick_idx[k], 0 if version is None else version[k])
+    return buf
+
+
+def add_batch(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
+              mask=None, version=None, env_mask=None) -> ReplayBuffer:
+    """Write K stacked ticks as one gather-select-scatter per leaf, in
+    place and with no host sync (``mask`` and ``version`` may be device
+    tensors; ``tick_idx``, ``mask`` and ``version`` are (K,)).
+
+    Final contents and cursor are those of K sequential guarded
+    :func:`add` calls (:func:`add_many`), bit for bit, masked rows and
+    K > capacity included. Torch has no ``mode="drop"`` scatter, and a
+    scatter with repeated indices has no defined winner on CUDA, so the
+    write goes the other way round: the last ``L = min(K, capacity)``
+    ring positions of the batch, ``total - L .. total - 1``, are L
+    distinct slots; each one written this batch (position >= cursor)
+    takes the masked row that lands there (``searchsorted`` over the
+    running count of masked rows), the others keep their old contents.
+    Every touched slot is written exactly once, and only L slots move.
+    ``env_mask`` (elastic env pools) is refused."""
+    if env_mask is not None:
+        raise ValueError("add_batch(env_mask=...): elastic env pools are "
+                         "not ported yet: ROADMAP.md queue 1 item 10")
+    K = obs.shape[0]
+    E, C = buf.obs.shape[:2]
+    dev = buf.obs.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    mask = (torch.ones((K,), dtype=torch.bool, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).to(torch.bool))
+    version = (torch.zeros((K,), **i64) if version is None
+               else torch.as_tensor(version, device=dev))
+    written = mask.to(torch.int64).cumsum(0)     # masked rows up to row j
+    cursor = buf.cursor.to(torch.int64)
+    total = cursor + written[-1]
+    L = min(K, C)
+    pos = total - L + torch.arange(L, **i64)     # the batch's last L writes
+    hit = pos >= cursor
+    src = torch.searchsorted(written, pos - cursor + 1).clamp(max=K - 1)
+    slot = torch.remainder(pos, C)
+
+    def put(b, x):
+        x = torch.as_tensor(x, device=dev).to(b.dtype)
+        x = x.reshape((K,) + x.shape[1:] + (1,) * (b.dim() - x.dim()))
+        new = x.expand((K, E) + b.shape[2:])[src].transpose(0, 1)
+        keep = hit.reshape((1, L) + (1,) * (b.dim() - 2))
+        b.index_copy_(1, slot, torch.where(keep, new, b.index_select(1,
+                                                                     slot)))
+
+    put(buf.obs, obs)
+    put(buf.actions, actions)
+    put(buf.rewards, rewards)
+    put(buf.next_obs, next_obs)
+    put(buf.tick_idx, tick_idx)
+    put(buf.version, version)
+    put(buf.valid, torch.ones((K,), dtype=torch.bool, device=dev))
+    buf.cursor.copy_(total)
     return buf
 
 

@@ -2,7 +2,7 @@
 decision model, validates actions, computes rewards and banks replay
 transitions.
 
-Two consume paths:
+Three consume paths:
 
   * :meth:`Predictor.on_tick` — one window. The per-window reference path.
   * :meth:`Predictor.on_windows` — a K-window stack: the policy and action
@@ -14,15 +14,22 @@ Two consume paths:
     ``replay.add_many`` (K sequential ring writes). Outputs are
     bit-identical to K sequential ``on_tick`` calls.
 
-The fused decide engine (``DecideState``, ``make_decide_fn``) waits for the
-``scan_fused_decide`` slice. Long-horizon time rule: the replay ring stores
-the exact int32 tick index; absolute float64 tick times are mirrored
-host-side in ``_replay_times`` and re-attached by :meth:`export_replay`.
+  * :meth:`Predictor.make_decide_fn` — the fused path
+    (``mode="scan_fused_decide"``): a per-window decision step that
+    ``core.pipeline.run_many_decide`` calls inside its K loop, with the
+    decision state (:class:`DecideState`) carried on the device, and one
+    ``replay.add_batch`` per batch after the loop. The step runs exactly
+    the per-window ops of :meth:`on_tick`, so its outputs equal both other
+    paths bit for bit.
+
+Long-horizon time rule: the replay ring stores the exact int32 tick index;
+absolute float64 tick times are mirrored host-side in ``_replay_times``
+and re-attached by :meth:`export_replay`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +47,43 @@ class ActionSpace:
     @property
     def n(self):
         return len(self.low)
+
+
+class DecideState(NamedTuple):
+    """The fused engine's decision carry, on the device.
+
+    ``tick`` is the exact int32 predictor tick index of the next window;
+    ``have_prev`` the () bool that gates the batch's first transition;
+    ``version``/``prev_version`` the policy versions of this batch's
+    actions and of ``prev_actions``. ``policy`` holds the live policy
+    params (``{}`` for closure-only models), ``carry`` the recurrent model
+    state of a stateful policy (``None`` otherwise). ``replay`` is the
+    ring: it stays out of the K loop and is written once per batch by
+    :class:`DecideFns`' ``bank``. The elastic ``active``/``prev_ok``
+    leaves of the reference are not ported (ROADMAP.md queue 1 item 10).
+    """
+    prev_obs: torch.Tensor      # (E, F)
+    prev_actions: torch.Tensor  # (E, A)
+    have_prev: torch.Tensor     # () bool
+    tick: torch.Tensor          # () int32
+    replay: rp.ReplayBuffer
+    policy: dict
+    version: torch.Tensor       # () int32
+    prev_version: torch.Tensor  # () int32
+    carry: object = None
+
+
+class DecideFns(NamedTuple):
+    """The fused engine's decision protocol (see ``make_decide_fn``).
+
+    ``step(DecideState, FeatureFrame) -> (DecideState, (actions, reward,
+    per_term, violated), transition)`` runs one window's decision math;
+    ``transition`` is the ``(prev_obs, prev_actions, reward, next_obs,
+    tick, version, have_prev)`` row the window banks. ``bank(ReplayBuffer,
+    stacked transitions) -> ReplayBuffer`` writes the K stacked rows after
+    the loop (``replay.add_batch``)."""
+    step: Callable
+    bank: Callable
 
 
 class ModelAdapter:
@@ -179,6 +223,82 @@ class Predictor:
         actions, mcarry = self._apply2(self.policy_params, features, mcarry)
         actions, violated = validate_actions(actions, self._low, self._high)
         return actions, violated, mcarry
+
+    # --- fused decision path (mode="scan_fused_decide") --------------------
+    def decide_state(self) -> DecideState:
+        """The current decision state as the fused engine's device carry.
+
+        Torch donates nothing, so the carry ALIASES this Predictor's
+        tensors: ``replay`` is ``self.replay`` itself, which
+        ``replay.add_batch`` then writes in place (ring and cursor), and
+        ``prev_obs``/``prev_actions``/``carry`` are the current tensors.
+        From here on the carry the caller threads is authoritative: this
+        Predictor's ring follows it (same storage), but its ``_prev``,
+        ``_model_carry`` and consume paths do not, so a fused system reads
+        the ring through ``PerceptaSystem.snapshot_decide`` /
+        ``export_replay`` and never calls :meth:`on_tick` or
+        :meth:`on_windows` again."""
+        i32 = dict(dtype=torch.int32, device=self.device)
+        return DecideState(
+            prev_obs=self._prev["obs"],
+            prev_actions=self._prev["actions"],
+            have_prev=torch.tensor(bool(self._prev["have"]),
+                                   device=self.device),
+            tick=torch.tensor(self.stats["ticks"], **i32),
+            replay=self.replay,
+            policy=self.policy_params,
+            version=torch.tensor(self.policy_version, **i32),
+            prev_version=torch.tensor(self._prev["version"], **i32),
+            carry=self._model_carry,
+        )
+
+    def make_decide_fn(self) -> DecideFns:
+        """Decision protocol for the fused pipeline loop (:class:`DecideFns`).
+
+        ``step`` runs exactly :meth:`on_tick`'s per-window ops (the policy
+        on the (E, F) features, ``validate_actions``, the reward against
+        the carried prev actions) and emits the window's transition at the
+        carried device ``tick``: nothing in it reads a device value on the
+        host. ``bank`` writes the K stacked transitions in one
+        ``replay.add_batch`` (guarded by the carried ``have_prev`` chain),
+        bit-identical to K guarded sequential ``add`` calls."""
+        apply2, spec = self._apply2, self.reward_spec
+        low, high = self._low, self._high
+        true = torch.ones((), dtype=torch.bool, device=self.device)
+
+        def step(carry: DecideState, feats):
+            actions, new_mcarry = apply2(carry.policy, feats.features,
+                                         carry.carry)
+            actions, violated = validate_actions(actions, low, high)
+            reward, per_term = spec.compute(feats.raw, actions,
+                                            carry.prev_actions)
+            # the transition entering this window, attributed to the
+            # version that produced its action
+            transition = (carry.prev_obs, carry.prev_actions, reward,
+                          feats.features, carry.tick, carry.prev_version,
+                          carry.have_prev)
+            new = carry._replace(prev_obs=feats.features,
+                                 prev_actions=actions, have_prev=true,
+                                 tick=carry.tick + 1,
+                                 prev_version=carry.version,
+                                 carry=new_mcarry)
+            return new, (actions, reward, per_term, violated), transition
+
+        def bank(replay, transitions):
+            obs, actions, rewards, next_obs, tick, version, mask = \
+                transitions
+            return rp.add_batch(replay, obs, actions, rewards, next_obs,
+                                tick, mask, version)
+
+        return DecideFns(step, bank)
+
+    def absorb_fused(self, tick_times, violated) -> None:
+        """Host bookkeeping after one fused batch: advance the tick and
+        violation stats and the float64 time mirror in step with the device
+        carry (``violated``: the batch's (K, E) host bools)."""
+        self._record_times(self.stats["ticks"], tick_times)
+        self.stats["ticks"] += len(tick_times)
+        self.stats["violations"] += int(np.asarray(violated).sum())
 
     def _record_times(self, base_idx: int, tick_times) -> None:
         """Mirror absolute float64 tick times into the slot-aligned host

@@ -1,5 +1,6 @@
-"""PerceptaSystem — port of ``repro.runtime.system`` for the ``fused`` and
-``scan`` Manager loops.
+"""PerceptaSystem — port of ``repro.runtime.system`` for the ``fused``,
+``scan``, ``scan_fused_decide``, ``scan_async`` and
+``scan_fused_decide_async`` Manager loops.
 
 All environments are rows of the batched device pipeline; isolation is by
 construction (per-env queues, per-env state rows, per-env model slots).
@@ -13,14 +14,44 @@ staging buffers, one ``PerceptaPipeline.run_many`` processes the batch on
 the device, and one ``Predictor.on_windows`` consumes it; host sinks see
 one result row per window, in window order, bit-identical to ``fused``.
 
+``mode="scan_fused_decide"``: the Predictor's per-window step (policy,
+``validate_actions``, reward) runs inside the pipeline's K loop
+(``PerceptaPipeline.run_many_decide``), the decision state
+(``predictor.DecideState``) is carried on the device beside the pipeline
+state, and the K replay transitions are banked once per batch. Consume
+fetches only actions, rewards, violation flags and exact per-env
+observed/filled/anomalous counts, plus the (K, E, F) features when a LogDB
+is attached; the (K, E, S, T) frames stay on the card. Results equal
+``scan``'s bit for bit. Accessor rule: the system's ``DecideState`` is
+authoritative for the decision carry (prev obs and actions, tick, model
+carry); the Predictor's own copies of those stop following it. The replay
+ring is shared: the carry's ``replay`` IS the Predictor's ring, written in
+place by each batch, and ``Predictor.absorb_fused`` keeps its float64 time
+mirror in step, so :meth:`export_replay` and :meth:`replay_size` read the
+Predictor in every mode. :meth:`snapshot_decide` clones the carry.
+
+``mode="scan_async"`` / ``"scan_fused_decide_async"``: the same loops with
+host assembly pipelined against the Manager (``runtime.prefetch``): a pump
+thread advances the clock, polls the receivers, drains and closes batch
+j+1 while the Manager runs batch j; the Manager consumes batch j-1 before
+it launches batch j. Results equal the synchronous twin's bit for bit. The
+pump's copy to the card goes on the default stream, behind the Manager's
+queued work, and from a private host copy of the staging buffers
+(``make_raw_window`` copies first, and a copy from pageable memory has
+read its source when it returns), so a staging buffer is free for reuse
+as soon as ``assemble_windows`` returns.
+On the card these modes are currently SLOWER than their synchronous twins:
+the pump and the Manager's thousands of launches a batch are both Python
+and take turns on the interpreter rather than overlapping (PERF.md §6).
+
 Device-visible time is WINDOW-RELATIVE: the Accumulator subtracts each
 window's start in float64 before the float32 cast, every dispatch receives
 ``window_start = 0``, and the seasonal phase survives through the exact
 integer ``PipelineConfig.tick0``. Absolute times stay host float64.
 
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP item:
-the other modes (async, fused-decide, sharded), ``elastic``, ``train``,
-``scan_k="auto"`` and policies outside this slice.
+the ``_sharded`` modes, ``elastic``, ``train``, ``scan_k="auto"`` and
+policies outside this slice.
 """
 from __future__ import annotations
 
@@ -39,20 +70,28 @@ from repro_torch.runtime.accumulator import Accumulator
 from repro_torch.runtime.forwarder import ForwarderHub
 from repro_torch.runtime.policies import POLICIES, PolicyConfig
 from repro_torch.runtime.predictor import Predictor
+from repro_torch.runtime.prefetch import WindowPrefetcher
 from repro_torch.runtime.queues import QueueBroker
 from repro_torch.runtime.receivers import Receiver, SimulatedDevice
 from repro_torch.runtime.records import RecordBatch, count_records
 from repro_torch.runtime.translator import Translator
 
-_MODES = ("fused", "scan")
+# Manager-loop mode -> device-pipeline mode: the async modes reuse the
+# scan engines and differ only in how the Manager overlaps host assembly
+_PIPELINE_MODE = {
+    "fused": "fused",
+    "scan": "scan",
+    "scan_async": "scan",
+    "scan_fused_decide": "scan_fused_decide",
+    "scan_fused_decide_async": "scan_fused_decide",
+}
+_ASYNC_MODES = ("scan_async", "scan_fused_decide_async")
 _NOT_PORTED_MODES = {
     "scan_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-    "scan_async": "ROADMAP.md queue 1 item 9 (async overlap)",
-    "scan_async_sharded": "ROADMAP.md queue 1 items 9 and 12",
-    "scan_fused_decide": "ROADMAP.md queue 1 item 5 (scan_fused_decide)",
-    "scan_fused_decide_sharded": "ROADMAP.md queue 1 items 5 and 12",
-    "scan_fused_decide_async": "ROADMAP.md queue 1 items 5 and 9",
-    "scan_fused_decide_async_sharded": "ROADMAP.md queue 1 items 5, 9, 12",
+    "scan_async_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
+    "scan_fused_decide_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
+    "scan_fused_decide_async_sharded":
+        "ROADMAP.md queue 1 item 12 (multi-device)",
 }
 
 
@@ -78,7 +117,7 @@ class PerceptaSystem:
         if mode in _NOT_PORTED_MODES:
             raise ValueError(f"mode {mode!r} is not ported yet: "
                              f"{_NOT_PORTED_MODES[mode]}")
-        if mode not in _MODES:
+        if mode not in _PIPELINE_MODE:
             raise ValueError(f"unknown mode {mode!r}")
         if elastic or (env_slots is not None and env_slots != len(env_ids)):
             raise ValueError("elastic env pools are not ported yet: "
@@ -117,8 +156,15 @@ class PerceptaSystem:
             pipeline_cfg, tick0=int(round(t0 / pipeline_cfg.tick_s)))
         self.cfg = pipeline_cfg
         self.mode = mode
+        pipe_mode = _PIPELINE_MODE[mode]
+        self.fused_decide = pipe_mode == "scan_fused_decide"
         if policy is not None:
             predictor.set_model(policy)
+        # fused-decide: the Predictor hands its decision state over as the
+        # device carry and only keeps host bookkeeping (absorb_fused)
+        decide = predictor.make_decide_fn() if self.fused_decide else None
+        self._dstate = predictor.decide_state() if self.fused_decide \
+            else None
         self.scan_k = max(1, int(scan_k))
         self.ingest = ingest
         self.ingest_fastpath = bool(ingest_fastpath)
@@ -133,9 +179,10 @@ class PerceptaSystem:
                 max_workers=self.ingest_workers,
                 thread_name_prefix="percepta-ingest")
         self._stage_pool: Dict[tuple, dict] = {}
-        self.pipeline = PerceptaPipeline(pipeline_cfg, mode=mode,
-                                         device=self.device)
+        self.pipeline = PerceptaPipeline(pipeline_cfg, mode=pipe_mode,
+                                         device=self.device, decide=decide)
         self.state = self.pipeline.init_state()
+        self._prefetcher: Optional[WindowPrefetcher] = None
         self.predictor = predictor
         self.forwarders = forwarders
         self.db = db
@@ -204,6 +251,8 @@ class PerceptaSystem:
     def stop(self):
         for r in self.receivers:
             r.stop()
+        if self._prefetcher is not None:
+            self._prefetcher.stop()
         if self._ingest_pool is not None:
             self._ingest_pool.shutdown(wait=True)
             self._ingest_pool = None
@@ -271,7 +320,7 @@ class PerceptaSystem:
     # --- scan operation --------------------------------------------------------
     # Rotating staging buffers: make_raw_window copies each batch out of
     # them, so reuse is safe at any depth; three keeps the reference's
-    # rotation (a later async slice holds up to three batches alive).
+    # rotation (the async modes hold up to three batches alive).
     _STAGE_DEPTH = 3
 
     def _staging_buffers(self, K: int, E: int):
@@ -350,8 +399,8 @@ class PerceptaSystem:
         """Process the next ``k`` windows with one pipeline batch."""
         bounds = [self.window_bounds(self.window_index + j) for j in range(k)]
         raw, counts = self.assemble_windows(bounds)
-        feats, frames, t_dispatch = self._dispatch_scan(raw, k)
-        return self._consume_scan(bounds, counts, feats, frames, t_dispatch)
+        return self._consume_batch(self._dispatch_batch(bounds, counts,
+                                                        raw))
 
     def _dispatch_scan(self, raw, k: int):
         """Run ONE ``run_many`` over a staged K-window batch (enqueued on
@@ -412,6 +461,82 @@ class PerceptaSystem:
             })
         return out
 
+    # --- fused-decide operation ------------------------------------------------
+    def _dispatch_decide(self, raw, k: int):
+        """Run ONE ``run_many_decide`` over a staged K-window batch: the
+        pipeline state and the decision carry stay on the device, and
+        nothing is read back here. Returns ``(outs, t_dispatch,
+        policy_version)``."""
+        ver = int(self.predictor.policy_version)
+        t_dispatch = time.time()
+        starts = torch.zeros((k, self.cfg.n_envs), dtype=torch.float32,
+                             device=self.device)
+        with torch.no_grad():
+            self.state, self._dstate, outs = self.pipeline.run_many_decide(
+                self.state, self._dstate, raw, starts)
+        return outs, t_dispatch, ver
+
+    def _consume_decide(self, bounds, counts, outs, t_dispatch,
+                        version: int) -> List[dict]:
+        """Drain the host sinks from the small fused outputs: actions,
+        rewards, violation flags and the per-env int32 counts, plus the
+        (K, E, F) features only when a LogDB needs them. The fractions
+        divide exact integer counts in float64, equal to ``np.mean`` over
+        the full (E, S, T) frame bit for bit."""
+        k = len(bounds)
+        actions_b = outs.actions.cpu().numpy()   # first fetch waits
+        batch_latency = time.time() - t_dispatch
+        rewards_b = outs.rewards.cpu().numpy()
+        obs_c = outs.observed.cpu().numpy()
+        fill_c = outs.filled.cpu().numpy()
+        anom_c = outs.anomalous.cpu().numpy()
+        feat_np = outs.features.cpu().numpy() if self.db is not None \
+            else None
+        self.predictor.absorb_fused([b[1] for b in bounds],
+                                    outs.violated.cpu().numpy())
+        denom = float(self.cfg.n_envs * self.cfg.n_streams
+                      * self.cfg.n_ticks)
+        out = []
+        for j, (t_start, t_end) in enumerate(bounds):
+            t_host0 = time.time()
+            actions, rewards = actions_b[j], rewards_b[j]
+            if self.forwarders is not None:
+                self.forwarders.dispatch_window(t_end, actions)
+            if self.db is not None:
+                self.db.append_many(self.env_ids, t_end, feat_np[j], actions,
+                                    rewards,
+                                    extra={"policy_version": version})
+            self.window_index += 1
+            latency = batch_latency / k + (time.time() - t_host0)
+            self.metrics["tick_latency_s"].append(latency)
+            self.metrics["ingest_records"].append(counts[j])
+            out.append({
+                "window": self.window_index - 1,
+                "records": counts[j],
+                "latency_s": latency,
+                "mean_reward": float(np.mean(rewards)) if rewards.size
+                               else 0.0,
+                "observed_frac": float(int(obs_c[j].sum()) / denom),
+                "filled_frac": float(int(fill_c[j].sum()) / denom),
+                "anomalous": int(anom_c[j].sum()),
+            })
+        return out
+
+    def _dispatch_batch(self, bounds, counts, raw) -> tuple:
+        """Launch one assembled batch in this mode; returns the pending
+        tuple :meth:`_consume_batch` takes."""
+        k = len(bounds)
+        if self.fused_decide:
+            outs, td, ver = self._dispatch_decide(raw, k)
+            return (bounds, counts, outs, td, ver)
+        feats, frames, td = self._dispatch_scan(raw, k)
+        return (bounds, counts, feats, frames, td)
+
+    def _consume_batch(self, pending) -> List[dict]:
+        if self.fused_decide:
+            return self._consume_decide(*pending)
+        return self._consume_scan(*pending)
+
     def _advance_clock(self, t_end: float):
         if self.manual_time:
             self._manual_t = t_end + 1e-3
@@ -424,17 +549,40 @@ class PerceptaSystem:
         """Deep copy of the pipeline state, safe to hold across windows."""
         return _clone(self.state)
 
+    def snapshot_norm(self):
+        """Deep copy of just the normalizer stats (``NormState``)."""
+        return _clone(self.state.norm)
+
+    def snapshot_decide(self):
+        """Deep copy of the fused decision carry (``DecideState``), safe to
+        hold across batches: the live carry's ring is written in place by
+        every batch."""
+        if not self.fused_decide:
+            raise ValueError(f"snapshot_decide: mode {self.mode!r} is not a "
+                             "fused-decide mode")
+        return _clone(self._dstate)
+
     def replay_size(self) -> int:
-        """Live transition count of the replay ring."""
+        """Live transition count of the replay ring, any mode (fused modes
+        share the Predictor's ring)."""
         buf = self.predictor.replay
         return min(int(buf.cursor), buf.capacity)
 
+    def policy_version(self) -> int:
+        """The policy version of the actions served (0: no online training
+        is ported)."""
+        return int(self.predictor.policy_version)
+
     def export_replay(self, salt: str) -> dict:
-        """Anonymized chronological replay export (host float64 times)."""
+        """Anonymized chronological replay export with the host mirror's
+        float64 times, any mode (fused modes share the Predictor's ring and
+        keep its mirror in step)."""
         return self.predictor.export_replay(self.env_ids, salt)
 
     def run_windows(self, n: int, pump: bool = True) -> List[dict]:
-        if self.mode == "scan":
+        if self.mode in _ASYNC_MODES:
+            return self._run_windows_async(n, pump)
+        if self.mode != "fused":
             out: List[dict] = []
             while len(out) < n:
                 k = min(self.scan_k, n - len(out))
@@ -454,6 +602,44 @@ class PerceptaSystem:
             out.append(self.run_window())
         return out
 
+    # --- pipelined (async) operation ------------------------------------------
+    def _assemble_for_prefetch(self, bounds, pump: bool):
+        """Pump-thread body: exactly the synchronous per-batch sequence
+        (clock advance -> receiver poll -> drain/close) at the same window
+        boundaries, so the async modes equal their synchronous twins."""
+        if pump:
+            self._advance_clock(bounds[-1][1])
+            self.pump_receivers()
+        return self.assemble_windows(bounds)
+
+    def _run_windows_async(self, n: int, pump: bool = True) -> List[dict]:
+        """Double-buffered Manager loop: while the Manager runs batch j,
+        the pump thread assembles batch j+1. Batch boundaries
+        (``min(scan_k, remaining)``) are the synchronous loop's, so the
+        drain epochs, and with them the results, are the same."""
+        if self._prefetcher is None:
+            self._prefetcher = WindowPrefetcher(self._assemble_for_prefetch)
+        plans, idx, left = [], self.window_index, n
+        while left > 0:
+            k = min(self.scan_k, left)
+            plans.append([self.window_bounds(idx + j) for j in range(k)])
+            idx, left = idx + k, left - k
+        for bounds in plans:
+            self._prefetcher.submit(bounds, pump=pump)
+        out: List[dict] = []
+        pending = None
+        for _ in plans:
+            batch = self._prefetcher.next_batch()
+            # consume j-1 BEFORE launching j: the scan consume's decide
+            # step queues behind whatever the card holds, and results
+            # leave in window order
+            if pending is not None:
+                out.extend(self._consume_batch(pending))
+            pending = self._dispatch_batch(batch.bounds, batch.counts,
+                                           batch.raw)
+        out.extend(self._consume_batch(pending))
+        return out
+
     def stats(self) -> dict:
         return {
             "queues": self.broker.stats(),
@@ -465,6 +651,9 @@ class PerceptaSystem:
 
 
 def _clone(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
+    """Deep copy of a tree of tensors (NamedTuples, dicts, None leaves)."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
     return type(tree)(*(_clone(x) for x in tree))

@@ -30,13 +30,24 @@ two bf16 halves, ~16 bits of p), so they differ by at most one rounding
 step (an absolute bound would be as large as the outputs of late rows, which
 attend to many keys and so are small). Softcap cases scale q by 8, so that
 scores reach tens and the cap changes the output far beyond the bound.
+Determinism of the decision loop's host-free paths, bit for bit on the
+card: ``harmonize_segment``'s scatter branch (M*T above the dense bound)
+across two calls and between ``run_many`` and K ticks; ``add_batch``
+against sequential ``add`` calls; ``run_many_decide`` against
+``run_many`` + ``Predictor.on_windows``.
 """
 import numpy as np
 import pytest
 import torch
 from numpy.testing import assert_allclose
 
+from repro_torch.core import PipelineConfig
+from repro_torch.core import harmonize as hz
+from repro_torch.core import pipeline as pl
+from repro_torch.core import replay as rp
+from repro_torch.core.frame import RawWindow, make_raw_window
 from repro_torch.core.harmonize import exact_div
+from repro_torch.core.reward import energy_reward_spec
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.harmonize import ops as hz_ops
@@ -48,6 +59,8 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.rows import aligned
 from repro_torch.kernels.window_agg import ops as wagg_ops
 from repro_torch.kernels.window_agg.ref import window_agg_ref
+from repro_torch.runtime.policies import PolicyConfig
+from repro_torch.runtime.predictor import ActionSpace, Predictor
 
 
 @pytest.fixture
@@ -433,3 +446,115 @@ def test_harmonize_tick_limit_on_card(card, rng):
     with pytest.raises(ValueError, match="shared memory"):
         hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=T + 1)
     assert hz_ops.LAUNCHES == before
+
+
+def _big_window(rng, K, E, S, M, T, tick, device):
+    """K windows of (E, S, M) samples over T ticks: some ticks hold many
+    samples, some none, a few samples fall outside the window."""
+    return make_raw_window(
+        rng.normal(5, 2, (K, E, S, M)).astype(np.float32),
+        rng.uniform(-tick, (T + 1) * tick, (K, E, S, M)).astype(np.float32),
+        rng.rand(K, E, S, M) > 0.3, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["mean", "sum", "last"])
+def test_harmonize_segment_scatter_branch_is_deterministic_on_card(
+        card, rng, agg):
+    """M*T = 16384 > ``_DENSE_MT_MAX``: the scatter branch's sums run in a
+    fixed order, so two calls agree bit for bit, and so do ``run_many`` and
+    K single ticks (atomics would reorder the adds from run to run)."""
+    E, S, M, T, K, tick = 8, 8, 128, 128, 3, 60.0
+    assert M * T > hz._DENSE_MT_MAX
+    raws = _big_window(rng, K, E, S, M, T, tick, card)
+    raw = RawWindow(raws.values[0], raws.timestamps[0], raws.valid[0])
+    grid = hz.tick_grid(torch.zeros((E,), device=card), tick, T)
+    a, a_obs = hz.harmonize_segment(raw, grid, tick, agg)
+    b, b_obs = hz.harmonize_segment(raw, grid, tick, agg)
+    assert torch.equal(a_obs, b_obs) and a_obs.any() and not a_obs.all()
+    assert _bits_equal(a, b)
+    cfg = PipelineConfig(n_envs=E, n_streams=S, n_ticks=T, tick_s=tick,
+                         max_samples=M, agg=agg, feature_agg="mean",
+                         use_kernel=True)
+    starts = torch.zeros((K, E), device=card)
+    with torch.no_grad():
+        state, feats, frames = pl.run_many(cfg, pl.init_state(cfg, card),
+                                           raws, starts)
+        one = pl.init_state(cfg, card)
+        for k in range(K):
+            w = RawWindow(raws.values[k], raws.timestamps[k], raws.valid[k])
+            one, f, fr = pl.tick(cfg, one, w, starts[k])
+            assert _bits_equal(f.features, feats.features[k])
+            assert _bits_equal(fr.values, frames.values[k])
+            assert torch.equal(fr.observed, frames.observed[k])
+    for x, y in zip(state.norm, one.norm):
+        assert _bits_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,C", [(3, 8), (8, 8), (11, 4), (21, 4)])
+def test_add_batch_bit_equal_sequential_adds_on_card(card, rng, K, C):
+    """One write per leaf on the card == K guarded sequential ``add`` calls,
+    row 0 masked, K > capacity included, and a second batch mid-ring."""
+    E, F, A = 5, 4, 2
+    C_ = lambda x: torch.from_numpy(np.array(x)).to(card)
+    seq, got = rp.init(E, C, F, A, card), rp.init(E, C, F, A, card)
+    for b in range(2):
+        obs, nxt = (C_(rng.normal(0, 1, (K, E, F)).astype(np.float32))
+                    for _ in range(2))
+        act = C_(rng.normal(0, 1, (K, E, A)).astype(np.float32))
+        rew = C_(rng.normal(0, 1, (K, E)).astype(np.float32))
+        idx = C_(np.arange(b * K, (b + 1) * K, dtype=np.int32))
+        ver = C_((np.arange(K) % 3).astype(np.int32))
+        mask = rng.rand(K) > 0.3
+        mask[0] = bool(b)
+        for j in range(K):
+            if mask[j]:
+                rp.add(seq, obs[j], act[j], rew[j], nxt[j], idx[j], ver[j])
+        rp.add_batch(got, obs, act, rew, nxt, idx, C_(mask), ver)
+    for s_, g in zip(seq, got):
+        assert g.device == s_.device and torch.equal(g, s_)
+
+
+@pytest.mark.cuda
+def test_run_many_decide_bit_equal_two_launch_path_on_card(card, rng):
+    """The fused loop == ``run_many`` + ``on_windows`` on the card, bit for
+    bit, over two batches with the rglru kernel and the pipeline kernels."""
+    E, S, M, T, K = 16, 3, 32, 8, 6
+    cfg = PipelineConfig(n_envs=E, n_streams=S, n_ticks=T, tick_s=60.0,
+                         max_samples=M, gap_strategy="locf",
+                         feature_agg="mean", use_kernel=True)
+
+    def predictor():
+        return Predictor(PolicyConfig("rglru", {"hidden": 16,
+                                                "use_kernel": True}),
+                         energy_reward_spec(1, 0, 2),
+                         ActionSpace(np.array([-1.0, -1.0]),
+                                     np.array([1.0, 1.0])),
+                         E, cfg.n_features, replay_capacity=8, device=card)
+
+    ref, fus = predictor(), predictor()
+    pipe = pl.PerceptaPipeline(cfg, mode="scan", device=card)
+    fpipe = pl.PerceptaPipeline(cfg, mode="scan_fused_decide", device=card,
+                                decide=fus.make_decide_fn())
+    state, fstate, dstate = pipe.init_state(), fpipe.init_state(), \
+        fus.decide_state()
+    starts = torch.zeros((K, E), device=card)
+    before = rglru_ops.LAUNCHES
+    for b in range(2):
+        raws = _big_window(rng, K, E, S, M, T, 60.0, card)
+        with torch.no_grad():
+            state, feats, _ = pipe.run_many(state, raws, starts)
+            acts, rews, per = ref.on_windows(
+                feats.features, [480.0 * (b * K + j + 1) for j in range(K)],
+                raw=feats.raw)
+            fstate, dstate, outs = fpipe.run_many_decide(fstate, dstate,
+                                                         raws, starts)
+        assert np.array_equal(outs.actions.cpu().numpy(), acts)
+        assert np.array_equal(outs.rewards.cpu().numpy(), rews)
+        assert np.array_equal(outs.per_term.cpu().numpy(), per)
+        assert torch.equal(outs.features, feats.features)
+    assert rglru_ops.LAUNCHES - before == 4 * K
+    for x, y in zip(ref.replay, dstate.replay):
+        assert torch.equal(x, y)
+    assert torch.equal(ref._model_carry["h"], dstate.carry["h"])

@@ -94,7 +94,8 @@ def _systems(mode, tmp_path, t0=0.0, **kw):
     return jsys, psys
 
 
-@pytest.mark.parametrize("mode", ["fused", "scan"])
+@pytest.mark.parametrize("mode", ["fused", "scan", "scan_fused_decide",
+                                  "scan_async", "scan_fused_decide_async"])
 def test_system_matches_jax(mode, tmp_path):
     jsys, psys = _systems(mode, tmp_path, t0=2.0 ** 24)
     want, got = jsys.run_windows(6), psys.run_windows(6)
@@ -125,6 +126,8 @@ def test_system_matches_jax(mode, tmp_path):
         assert np.array_equal(gexp[key], wexp[key]), key
     for key in ("obs", "actions", "rewards", "next_obs"):
         assert_allclose(gexp[key], wexp[key], **TOL)
+    jsys.stop()
+    psys.stop()
 
 
 @pytest.mark.parametrize("fastpath,workers,ingest", [
@@ -155,7 +158,8 @@ def test_host_ingest_assembles_identical_batches(fastpath, workers, ingest,
 def test_port_imports_neither_jax_nor_repro():
     # mind that "repro_torch" itself starts with "repro"
     code = ("import sys; import repro_torch, repro_torch.convert, "
-            "repro_torch.runtime.system, repro_torch.models, "
+            "repro_torch.runtime.system, repro_torch.runtime.prefetch, "
+            "repro_torch.models, "
             "repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.configs.registry, "
             "repro_torch.kernels.flash_attention.ops, "
@@ -187,8 +191,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="scan_fused_decide"), "not ported"),
-    (dict(mode="scan_async"), "not ported"),
+    (dict(mode="scan_fused_decide_sharded"), "not ported"),
+    (dict(mode="scan_async_sharded"), "not ported"),
+    (dict(mode="scan_fused_decide", train="online"), "not ported"),
     (dict(elastic=True), "not ported"),
     (dict(train="online"), "not ported"),
     (dict(scan_k="auto"), "not ported"),
