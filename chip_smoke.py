@@ -36,6 +36,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   5c. loop_order — the four batch modes once more in reverse order
      (fresh systems, the same windows and checks), so each mode's
      windows/s is read early and late in the process.
+  5d. online_train — ``scan_fused_decide`` at the same config with the
+     ``mlp`` policy (hidden 32) and ``train="online"`` (128 rows a step,
+     a checkpoint every applied step), 4 batches a run, fresh systems
+     without and with training in the order off, on, on, off (the two
+     runs of each kind bit-equal; windows/s and their means). Checks:
+     (a) a step on a fresh ring is an exact no-op at version 0; (b) two
+     steps from the same inputs and indices are bit-equal; (c) a card
+     step against the same step on the CPU within ``STEP_REL``; (d) batch
+     0 with training equals batch 0 without; (e) LogDB rows carry their
+     batch's version and replay rows the version behind their action;
+     (f) ``restore_training`` puts the checkpointed bits and version into
+     the carry. Also the step's profiler device ms and activities, its
+     host launch ms, its host reads (none) and ``apply_pending``'s (one),
+     and the mlp and rwkv6 policies' decides on the card against the CPU.
   6. harmonize_system — the harmonize op entry point on the K windows of
      one batch the scan system assembled, held against its plain version
      and against ``core.harmonize.harmonize_segment(agg="mean")``, and bit
@@ -586,7 +600,7 @@ def phase_kernels(dev):
 
 
 # --------------------------------------------------------------- system
-def make_system(mode, dev, db_dir):
+def make_system(mode, dev, db_dir, policy=None, **system_kw):
     from repro_torch.core import PipelineConfig
     from repro_torch.core.reward import energy_reward_spec
     from repro_torch.runtime.db import LogDB
@@ -619,8 +633,9 @@ def make_system(mode, dev, db_dir):
                          tick_s=TICK_S, max_samples=MAX_SAMPLES,
                          gap_strategy="locf", feature_agg="mean",
                          use_kernel=True)
-    pred = Predictor(PolicyConfig("rglru", {"hidden": HIDDEN,
-                                            "use_kernel": True}),
+    policy = policy or PolicyConfig("rglru", {"hidden": HIDDEN,
+                                              "use_kernel": True})
+    pred = Predictor(policy,
                      energy_reward_spec(price_idx=1, grid_idx=0, temp_idx=2),
                      ActionSpace(np.array([-1.0, -1.0]),
                                  np.array([1.0, 1.0])),
@@ -631,7 +646,8 @@ def make_system(mode, dev, db_dir):
     system = PerceptaSystem([f"bldg-{i}" for i in range(E)], sources, cfg,
                             pred, forwarders=hub,
                             db=LogDB(db_dir, salt="opeva"), mode=mode,
-                            manual_time=True, scan_k=K, device=dev)
+                            manual_time=True, scan_k=K, device=dev,
+                            **system_kw)
     # QoS-0 receivers drop data older than their backlog horizon; one scan
     # batch spans K windows, so the horizon covers a whole batch and a
     # K-window drain loses nothing (fused and scan then see the same data)
@@ -988,6 +1004,317 @@ def phase_loop_order(dev, tmp, first):
     emit(out)
 
 
+# ------------------------------------------------------- online training
+# the online_train phase: the loop config with the mlp policy and
+# train="online" (PERF.md §4)
+ONLINE_POLICY = ("mlp", {"hidden": 32})
+TRAIN_BATCH = 128
+# card step against the CPU step, norm-wise per leaf: max |card - cpu| <=
+# STEP_REL * max |cpu| (tests/test_torch_train.py's bound against JAX)
+STEP_REL = 1e-5
+# a registry policy's decide on the card against the CPU, max abs error
+# (the repo's single-module bound)
+POLICY_TOL = 1e-5
+
+
+def tree_bits_equal(a, b):
+    from repro_torch.train import tree
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def online_system(dev, tmp, tag, train):
+    from repro_torch.runtime.policies import PolicyConfig
+    kw = {}
+    if train:
+        kw = dict(train="online", train_cfg={
+            "batch_size": TRAIN_BATCH, "checkpoint_every": 1,
+            "checkpoint_dir": str(Path(tmp) / "online_ckpt")})
+    return make_system("scan_fused_decide", dev,
+                       str(Path(tmp) / f"online_{tag}"),
+                       policy=PolicyConfig(*ONLINE_POLICY), **kw)
+
+
+def drive_online(system, label):
+    """``K * BATCHES`` windows of the training phase's main path through
+    ``run_windows``, timed, with every kernel count set to 0 just before
+    and read just after: locf n, window_agg 2n (all ``row``), rglru_scan 0
+    (the mlp policy has no kernel). The batch loop's parts are timed by
+    ``instrument``, and the trainer's ``dispatch`` + ``apply_pending``
+    (the host side of training, inside the Manager's span) as ``train``.
+    Returns the results, windows/s and ms a batch of each part."""
+    from repro_torch.kernels.locf import ops as locf_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.window_agg import ops as wagg_ops
+
+    spans = instrument(system)
+    spans["train"] = []
+    if system.trainer is not None:
+        t = system.trainer
+        t.dispatch = interval(t.dispatch, spans["train"])
+        t.apply_pending = interval(t.apply_pending, spans["train"])
+    n = K * BATCHES
+    locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
+    for ops in (locf_ops, wagg_ops):
+        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = system.run_windows(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
+                "rglru_scan": rglru_ops.LAUNCHES}
+    check(len(results) == n, f"{label}: {len(results)} results")
+    check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": 0}
+          and locf_ops.LAUNCHES_BY_IMPL["row"] == n
+          and wagg_ops.LAUNCHES_BY_IMPL["row"] == 2 * n,
+          f"{label}: kernel launches {launches}, expected locf {n}, "
+          f"window_agg {2 * n} (all row), rglru_scan 0")
+    results = [{k: v for k, v in r.items() if k != "latency_s"}
+               for r in results]
+    return {"results": results, "windows_per_s": n / wall,
+            "launches": launches,
+            **{f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / BATCHES
+               for k, v in spans.items()}}
+
+
+def _versions_rows(system):
+    return [r["policy_version"] for _, r in system.db.read_from()]
+
+
+def _to_cpu(t):
+    from repro_torch.train import tree
+    return tree.map_(lambda x: x.cpu(), t)
+
+
+def max_rel_err(got, want):
+    """max over leaves of max |got - want| / max |want| (0 where both are
+    all zeros; inf where only ``want`` is)."""
+    from repro_torch.train import tree
+    worst = 0.0
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        worst = max(worst, 0.0 if err == 0 else
+                    (err / scale if scale else float("inf")))
+    return worst
+
+
+def profile_step(fn, reps=10):
+    """Profiler device ms and device activities of one call, averaged over
+    ``reps`` calls (taken again if a trace comes back empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        busy = _device_us(dev)
+        if busy > 0:
+            return busy / reps / 1e3, sum(e.count for e in dev) / reps
+    return None, None
+
+
+def host_launch_ms(fn, reps=20):
+    """Median host time to launch ``fn``'s work (no wait for the card),
+    the card drained before each call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def policy_decides(dev):
+    """``mlp`` and ``rwkv6`` at E envs: three decide steps on the card
+    against the same calls on the CPU (weights from one seed, built on the
+    CPU and copied); max abs error of actions and carry."""
+    from repro_torch.runtime.policies import build_policy
+    g = torch.Generator().manual_seed(7)
+    F, A = 8, 2
+    out = {}
+    for name, kw in (("mlp", {"hidden": 32}), ("rwkv6", {})):
+        cpu = build_policy(name, F, A, E, device="cpu", **kw)
+        gpu = build_policy(name, F, A, E, device=dev, **kw)
+        cc = cpu.init_carry(E) if cpu.init_carry else None
+        gc = gpu.init_carry(E) if gpu.init_carry else None
+        err = 0.0
+        for _ in range(3):
+            f = torch.randn((E, F), generator=g)
+            if cc is None:
+                want, got = cpu(f), gpu(f.to(dev))
+            else:
+                want, cc = cpu.apply_carry(cpu.params, f, cc)
+                got, gc = gpu.apply_carry(gpu.params, f.to(dev), gc)
+                for k in cc:
+                    err = max(err, float((gc[k].cpu() - cc[k]).abs().max()))
+            check(got.device.type == "cuda", f"{name}: decided off the card")
+            err = max(err, float((got.cpu() - want).abs().max()))
+        check(err <= POLICY_TOL, f"{name} decide on the card vs the CPU: "
+              f"max abs error {err} > {POLICY_TOL}")
+        out[name] = err
+    return out
+
+
+def phase_online_train(dev, tmp):
+    """``scan_fused_decide`` at the loop config with the mlp policy and
+    ``train="online"`` (``TRAIN_BATCH`` rows a step), and without training,
+    each for ``BATCHES`` batches, in the order off, on, on, off (each run
+    a fresh system over the same windows; the two runs of each kind must
+    be equal bit for bit). Checks: (a) a step on a fresh ring leaves params
+    and optimizer state bit-identical and the version at 0; (b) two steps
+    from the same inputs and indices are bit-equal; (c) one card step
+    against the same step on the CPU within ``STEP_REL``; (d) batch 0 with
+    training equals batch 0 without; (e) DB rows carry their batch's
+    version, replay rows the version behind their action; (f)
+    ``restore_training`` puts the checkpointed bits and version into the
+    carry. Also the step's device time and activities, its host launch
+    time, the host reads of a step and of ``apply_pending``, and the
+    mlp/rwkv6 decide on the card against the CPU."""
+    from repro_torch.core import replay as rp
+    from repro_torch.train import tree
+
+    runs, on_sys = {}, None
+    for i, (tag, train) in enumerate((("off", False), ("on", True),
+                                      ("on", True), ("off", False))):
+        system = online_system(dev, tmp, f"{tag}{i}", train)
+        rec = drive_online(system, f"online_train {tag} #{i}")
+        if tag in runs:
+            check(rec["results"] == runs[tag][0]["results"]
+                  and _versions_rows(system) == runs[tag][0]["versions"],
+                  f"online_train: the two {tag} runs differ")
+        rec["versions"] = _versions_rows(system)
+        runs.setdefault(tag, []).append(rec)
+        if train and on_sys is None:
+            on_sys = system           # checks (b)-(f) below
+            continue
+        system.db.close()
+        system.stop()
+
+    # (d) the first batch predates any applied step
+    off, on = runs["off"][0], runs["on"][0]
+    check(on["results"][:K] == off["results"][:K]
+          and on["versions"][:K * E] == off["versions"][:K * E],
+          "online_train (d): batch 0 with training != without")
+    # (e) version attribution
+    st = on_sys.train_stats()
+    check((st["dispatched"], st["applied"], st["skipped_empty"])
+          == (BATCHES, BATCHES - 1, 0) and on_sys.policy_version()
+          == BATCHES - 1, f"online_train (e): counters {st}")
+    check(on["versions"] == [j for j in range(BATCHES)
+                             for _ in range(K * E)],
+          "online_train (e): LogDB rows do not carry their batch's version")
+    ver = on_sys.export_replay("salt")["version"]
+    want = [0] * (K - 1) + [v for j in range(1, BATCHES)
+                            for v in [j - 1] + [j] * (K - 1)]
+    check(ver.shape == (E, K * BATCHES - 1)
+          and bool((ver == np.asarray(want, np.int32)[None]).all()),
+          "online_train (e): replay versions: only the first row banked "
+          "in a batch may carry the previous version")
+    check(all(np.isfinite(r["mean_reward"]) for r in on["results"]),
+          "online_train: non-finite reward")
+
+    t, ds = on_sys.trainer, on_sys._dstate
+    replay = ds.replay
+    es, ss = t.draw(replay)
+    with count_fetches() as reads:
+        a = t.step_fn(ds.policy, t.train_state, replay, es, ss)
+        torch.cuda.synchronize()
+    check(reads.calls == 0, f"online_train: the step read the card "
+          f"{reads.calls} times")
+    check(all(x.is_cuda for x in tree.leaves(a)),
+          "online_train: a step output fell back to the CPU")
+    check(bool(a[4]), "online_train: no data in a filled ring")
+    # (b) determinism
+    b = t.step_fn(ds.policy, t.train_state, replay, es, ss)
+    check(tree_bits_equal(a, b), "online_train (b): two steps from the "
+          "same inputs and indices differ")
+    # (c) the same step on the CPU
+    c = t.step_fn(_to_cpu(ds.policy), _to_cpu(t.train_state),
+                  _to_cpu(replay), es.cpu(), ss.cpu())
+    step_err = max_rel_err(a[:4], c[:4])
+    check(step_err <= STEP_REL, f"online_train (c): card step vs CPU "
+          f"step, max relative error {step_err} > {STEP_REL}")
+    step_ms, step_acts = profile_step(
+        lambda: t.step_fn(ds.policy, t.train_state, replay, *t.draw(replay)))
+    launch_ms = host_launch_ms(
+        lambda: t.step_fn(ds.policy, t.train_state, replay, *t.draw(replay)))
+    # the last checkpoint is the last applied step's (version BATCHES - 1),
+    # whose params the carry served in the last batch
+    saved_policy = on_sys.snapshot_policy()
+    # the boundary's own host reads, without a checkpoint's copies
+    t.checkpoint_every = 0
+    with count_fetches() as reads:
+        on_sys._dstate = t.flush_pending(on_sys._dstate)
+    apply_reads = reads.calls
+    check(apply_reads == 1 and on_sys.policy_version() == BATCHES,
+          f"online_train: apply_pending read the card {apply_reads} times, "
+          "expected 1 (has_data)")
+    on_sys.db.close()
+    on_sys.stop()           # closes the trainer: its checkpoints are on disk
+
+    # (a) and (f) on a fresh system over the same checkpoint directory
+    fresh = online_system(dev, tmp, "restore", True)
+    ds = fresh._dstate
+    policy0 = tree.map_(torch.clone, ds.policy)
+    state0 = tree.map_(torch.clone, fresh.trainer.train_state)
+    fresh.trainer.dispatch(ds)
+    check(fresh.trainer.apply_pending(ds) is ds
+          and fresh.trainer.stats["skipped_empty"] == 1
+          and fresh.policy_version() == 0 and int(ds.version) == 0
+          and tree_bits_equal(ds.policy, policy0)
+          and tree_bits_equal(fresh.trainer.train_state, state0),
+          "online_train (a): a step on a fresh ring moved the state")
+    restored = fresh.restore_training()
+    check(restored is not None and restored[0] == BATCHES - 1,
+          f"online_train (f): restored {restored and restored[0]}")
+    check(fresh.policy_version() == BATCHES - 1
+          and int(fresh._dstate.version) == BATCHES - 1
+          and tree_bits_equal(fresh._dstate.policy, saved_policy),
+          "online_train (f): the carry does not hold the saved bits")
+    fresh.db.close()
+    fresh.stop()
+
+    decide_err = policy_decides(dev)
+    wps = {tag: [r["windows_per_s"] for r in runs[tag]] for tag in runs}
+    mean = {tag: sum(v) / len(v) for tag, v in wps.items()}
+    parts = {f"{k}_ms_per_batch_{tag}": [r[f"{k}_ms_per_batch"]
+                                         for r in runs[tag]]
+             for k in ("pump", "assemble", "manager", "train")
+             for tag in ("off", "on")}
+    emit({"phase": "online_train", "policy": ONLINE_POLICY[0],
+          "hidden": ONLINE_POLICY[1]["hidden"], "batch_size": TRAIN_BATCH,
+          "windows": K * BATCHES, "windows_per_batch": K,
+          "dispatched": st["dispatched"], "applied": st["applied"],
+          "skipped_empty": st["skipped_empty"],
+          "last_loss": st["last_loss"], "last_gnorm": st["last_gnorm"],
+          "step_device_ms": step_ms, "step_device_activities": step_acts,
+          "step_host_launch_ms": launch_ms,
+          "step_host_reads": 0, "apply_pending_host_reads": apply_reads,
+          "card_vs_cpu_step_max_rel_err": step_err,
+          "order": ["off", "on", "on", "off"],
+          "windows_per_s_off": wps["off"], "windows_per_s_on": wps["on"],
+          "windows_per_s_off_mean": mean["off"],
+          "windows_per_s_on_mean": mean["on"],
+          "on_vs_off": mean["on"] / mean["off"] - 1.0, **parts,
+          "launches": runs["on"][0]["launches"],
+          "policy_decide_max_abs_err": decide_err,
+          "checks": ["a", "b", "c", "d", "e", "f"]})
+
+
 def phase_harmonize(raw):
     """The harmonize op entry point on each of the K windows of one batch
     the scan system assembled (window-relative: every window starts at 0),
@@ -1266,6 +1593,7 @@ def main() -> int:
         phase_async(dev, tmp, refs)
         phase_loop_order(dev, tmp, refs)
         del scan_ref, fused_ref, refs
+        phase_online_train(dev, tmp)
     launches["harmonize"] = phase_harmonize(raw)
     del raw
     launches["flash_attention"] = phase_lm(dev)

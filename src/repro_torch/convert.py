@@ -7,6 +7,8 @@ Everything arrives as numpy arrays (the reference's leaves converted with
   * :func:`pipeline_state_from_numpy` — a ``PipelineState``;
   * :func:`replay_from_numpy` — a ``ReplayBuffer``;
   * :func:`decide_state_from_numpy` — the fused engine's ``DecideState``;
+  * :func:`train_state_from_numpy` — the online trainer's state (critic
+    and the joint optimizer state);
   * :func:`lm_params_from_numpy` / :func:`lm_cache_from_numpy` — an LM's
     param tree (for ``LM(params=)``) and its decode cache, with the
     reference's stacked pattern groups and ``tail`` layers split into the
@@ -44,7 +46,8 @@ def policy_params_from_numpy(name: str, params, device="cpu") -> dict:
     """``{key: array}`` of a reference policy builder -> ``{key: tensor}``
     for the port builder of the same name (``params=``)."""
     if name not in POLICIES:
-        raise ValueError(f"policy {name!r} is not ported yet")
+        raise ValueError(f"unknown policy {name!r} "
+                         f"(registered: {sorted(POLICIES)})")
     return {k: _t(v, device) for k, v in params.items()}
 
 
@@ -89,6 +92,18 @@ def decide_state_from_numpy(dstate, device="cpu") -> DecideState:
         carry=None if dstate.carry is None else _map(dict(dstate.carry),
                                                      leaf),
     )
+
+
+def train_state_from_numpy(tstate, device="cpu") -> dict:
+    """A reference ``OnlineTrainer.train_state`` with numpy leaves ->
+    the port's: ``{"critic": {"qw", "qb"}, "opt": {"m": {"critic",
+    "policy"}, "v": {...}, "step": int32}}``."""
+    leaf = lambda x: _t(x, device)
+    opt = tstate["opt"]
+    return {"critic": _map(dict(tstate["critic"]), leaf),
+            "opt": {"m": _map(dict(opt["m"]), leaf),
+                    "v": _map(dict(opt["v"]), leaf),
+                    "step": leaf(np.asarray(opt["step"], np.int32))}}
 
 
 def _per_layer(tree, cfg, leaf):

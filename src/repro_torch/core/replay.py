@@ -153,6 +153,56 @@ def add_batch(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
     return buf
 
 
+def gather(buf: ReplayBuffer, es, ss) -> dict:
+    """The transitions at (env ``es``, slot ``ss``), (batch,) index
+    tensors on the ring's device. ``valid`` is ``size > 0`` and the cell's
+    own liveness. Nothing gathered requires grad: the ring's tensors never
+    do, so no backward ever scatters into them."""
+    take = lambda x: x[es, ss]
+    valid = (buf.size() > 0) & take(buf.valid)
+    return {"obs": take(buf.obs), "actions": take(buf.actions),
+            "rewards": take(buf.rewards), "next_obs": take(buf.next_obs),
+            "tick_idx": take(buf.tick_idx), "version": take(buf.version),
+            "valid": valid}
+
+
+def draw_device(buf: ReplayBuffer, gen: torch.Generator, batch: int):
+    """Uniform ``(es, ss)`` int64 indices for a minibatch, drawn on the
+    ring's device from ``gen`` (a generator on that device) with no host
+    read: ``es`` in ``[0, E)``, ``ss`` in ``[0, max(size, 1))``, a uniform
+    float32 draw scaled by the device size tensor, floored and clamped
+    (``torch.randint`` needs a Python bound, which would read the cursor
+    back). A partly filled ring thus yields live slots only, and a wrapped
+    one every slot. The same ``gen`` state and ring size give the same
+    indices."""
+    E = buf.obs.shape[0]
+    dev = buf.obs.device
+    es = torch.randint(0, E, (batch,), generator=gen, device=dev)
+    n = torch.clamp(buf.size(), min=1).to(torch.int64)
+    u = torch.rand((batch,), generator=gen, device=dev)
+    ss = torch.minimum(torch.floor(u * n).to(torch.int64), n - 1)
+    return es, ss
+
+
+def sample_device(buf: ReplayBuffer, gen: torch.Generator, batch: int):
+    """In-place minibatch draw for the online trainer: :func:`draw_device`
+    then :func:`gather`, with no host transfer. Where :func:`sample` raises
+    on an empty ring, this one gates with ``valid``, False for every row
+    while the ring holds nothing (the rows are in-range slot-0 contents,
+    finite, safe to compute on); consumers weight their loss by it."""
+    return gather(buf, *draw_device(buf, gen, batch))
+
+
+def sample(buf: ReplayBuffer, gen: torch.Generator, batch: int) -> dict:
+    """Uniform sample of (env, slot) transitions for retraining, the host
+    entry point: raises on an empty ring instead of handing out the
+    untouched all-zero storage."""
+    if int(buf.cursor) == 0:
+        raise ValueError("cannot sample from an empty ReplayBuffer "
+                         "(no transitions have been added)")
+    return sample_device(buf, gen, batch)
+
+
 def anonymize_env_ids(env_ids, salt: str) -> list:
     """Salted-hash pseudonyms for export (host-side)."""
     out = []

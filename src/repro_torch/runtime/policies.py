@@ -1,5 +1,5 @@
-"""Policy registry — port of ``repro.runtime.policies`` for the policies of
-this slice (``linear``, ``rglru``).
+"""Policy registry — port of ``repro.runtime.policies``: ``linear``,
+``mlp``, ``rglru`` and ``rwkv6``.
 
 A frozen :class:`PolicyConfig` (name + kwargs) dispatches through a dict of
 builders. Every builder takes ``params=`` to load given weights (the
@@ -8,6 +8,9 @@ weights come from ``torch.Generator().manual_seed(seed)``, which draws
 different numbers from the reference's JAX generator at the same seed.
 Every dot is multiply + sum over the contracted dim (``_rowdot``), so its
 rounding depends only on that dim, never on the number of env rows.
+``linear`` and ``mlp`` are stateless (``apply(params, feats)``), so the
+online trainer can train them; ``rglru`` and ``rwkv6`` keep per-env
+recurrent state in their carry leaves (row i's state in row i).
 Certification of a policy waits for the contract-check slice.
 """
 from __future__ import annotations
@@ -21,9 +24,6 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.runtime.predictor import ModelAdapter, linear_policy
-
-NOT_PORTED = ("mlp", "rwkv6")
-
 
 def _rowdot(x, w):
     """``x (..., F) @ w (F, H)`` as multiply + sum over F, so the add order
@@ -42,6 +42,32 @@ def linear_builder(n_features: int, n_actions: int, n_envs: int = None,
     del n_envs  # stateless and env-count independent
     return linear_policy(n_features, n_actions, seed=seed, low=low,
                          high=high, params=params, device=device)
+
+
+def mlp_builder(n_features: int, n_actions: int, n_envs: int = None,
+                hidden: int = 32, seed: int = 0, low=-1.0, high=1.0, *,
+                params=None, device=None) -> ModelAdapter:
+    """Two-layer gated MLP (SwiGLU), stateless and row-wise."""
+    del n_envs  # stateless and env-count independent
+    device = resolve_device(device)
+    if params is None:
+        g = torch.Generator().manual_seed(seed)
+        randn = lambda *shape: torch.randn(shape, generator=g)
+        params = {
+            "w1": randn(n_features, hidden) / n_features ** 0.5,
+            "w3": randn(n_features, hidden) / n_features ** 0.5,
+            "w2": randn(hidden, n_actions) / hidden ** 0.5,
+        }
+    params = {k: torch.as_tensor(v).to(device) for k, v in params.items()}
+
+    def apply(params, feats):
+        h = _rowdot(feats, params["w1"])
+        g = _rowdot(feats, params["w3"])
+        return _scale(_rowdot(nn.functional.silu(g) * h, params["w2"]),
+                      low, high)
+
+    return ModelAdapter(lambda feats: apply(params, feats), "mlp_policy",
+                        params=params, apply=apply)
 
 
 class RGLRUPolicy(nn.Module):
@@ -118,9 +144,64 @@ def rglru_builder(n_features: int, n_actions: int, n_envs: int = None,
         init_carry=module.init_carry, module=module)
 
 
+def rwkv6_builder(n_features: int, n_actions: int, n_envs: int = None,
+                  hidden: int = 8, seed: int = 0, low=-1.0, high=1.0, *,
+                  params=None, device=None) -> ModelAdapter:
+    """Recurrent RWKV-6 policy: the single-head, single-step form of the
+    RWKV-6 time mix (token shift, data-dependent decay, wkv state), env
+    rows as the batch, its attention einsum as multiply + sum.
+
+    Carry: ``{"shift": (E, F), "wkv": (E, hidden, hidden)}``.
+    """
+    del n_envs  # the carry is built by init_carry at the system's env count
+    device = resolve_device(device)
+    D = hidden
+    if params is None:
+        g = torch.Generator().manual_seed(seed)
+        randn = lambda *shape: torch.randn(shape, generator=g)
+        params = {
+            "mu": torch.rand((4, n_features), generator=g),  # r/k/v/w mixes
+            "w_r": randn(n_features, D) / n_features ** 0.5,
+            "w_k": randn(n_features, D) / n_features ** 0.5,
+            "w_v": randn(n_features, D) / n_features ** 0.5,
+            "w_decay": randn(n_features, D) / n_features ** 0.5,
+            "decay_base": torch.zeros(D),
+            "bonus": torch.zeros(D),
+            "w_o": randn(D, n_actions) / D ** 0.5,
+        }
+    params = {k: torch.as_tensor(v).to(device) for k, v in params.items()}
+
+    def apply_carry(params, feats, carry):
+        shift, S = carry["shift"], carry["wkv"]          # (E,F), (E,D,D)
+        mixed = feats[None] + params["mu"][:, None, :] * (shift - feats)[None]
+        r = _rowdot(mixed[0], params["w_r"])             # (E, D)
+        k = _rowdot(mixed[1], params["w_k"])
+        v = _rowdot(mixed[2], params["w_v"])
+        lw = _rowdot(mixed[3], params["w_decay"]) \
+            + params["decay_base"][None]
+        log_w = torch.clamp(-torch.exp(torch.clamp(lw, -8.0, 3.0)),
+                            -20.0, -1e-5)
+        kv = k[..., :, None] * v[..., None, :]           # (E, D, D)
+        att = S + params["bonus"][None, :, None] * kv
+        out = (r[..., :, None] * att).sum(-2)            # einsum('ek,ekv->ev')
+        S_new = torch.exp(log_w)[..., :, None] * S + kv
+        actions = _scale(_rowdot(out, params["w_o"]), low, high)
+        return actions, {"shift": feats, "wkv": S_new}
+
+    def init_carry(n_envs):
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"shift": torch.zeros((n_envs, n_features), **f32),
+                "wkv": torch.zeros((n_envs, D, D), **f32)}
+
+    return ModelAdapter(None, "rwkv6_policy", params=params,
+                        apply_carry=apply_carry, init_carry=init_carry)
+
+
 POLICIES = {
     "linear": linear_builder,
+    "mlp": mlp_builder,
     "rglru": rglru_builder,
+    "rwkv6": rwkv6_builder,
 }
 
 
@@ -139,9 +220,6 @@ def build_policy(spec, n_features: int, n_actions: int, n_envs: int, *,
     (``None`` means the CUDA card)."""
     if isinstance(spec, str):
         spec = PolicyConfig(spec)
-    if spec.name in NOT_PORTED:
-        raise ValueError(f"policy {spec.name!r} is not ported yet "
-                         f"(ported: {sorted(POLICIES)}); see ROADMAP.md")
     try:
         builder = POLICIES[spec.name]
     except KeyError:

@@ -120,6 +120,28 @@ class ModelAdapter:
         return self.fn(features)
 
 
+def policy_call(model):
+    """``(apply_fn, params)`` view of a STATELESS model: parameterized
+    adapters route their weights explicitly, closure-only models get an
+    empty params dict and an apply that ignores it.
+
+    Stateful (``apply_carry``) models are rejected: callers of this view
+    (the online trainer's step) cannot thread a recurrent carry, so a
+    carry-less apply would silently re-run the policy from blank state
+    every call."""
+    if getattr(model, "apply_carry", None) is not None:
+        raise ValueError(
+            f"policy '{getattr(model, 'name', model)}' is stateful "
+            "(apply_carry): the stateless (apply, params) view cannot "
+            "thread its recurrent carry — use policy_call2 / the decide "
+            "paths; online retraining (train='online') supports stateless "
+            "policies only")
+    if getattr(model, "apply", None) is not None \
+            and getattr(model, "params", None) is not None:
+        return model.apply, model.params
+    return (lambda params, feats: model(feats)), {}
+
+
 def policy_call2(model):
     """``(apply2, params, init_carry)`` view — the carry-capable calling
     convention both consume paths use: ``apply2(params, features, carry)
@@ -251,6 +273,17 @@ class Predictor:
             prev_version=torch.tensor(self._prev["version"], **i32),
             carry=self._model_carry,
         )
+
+    def adopt_policy(self, params, version: int) -> None:
+        """Sync the host-side policy mirror after a hot-swap of the fused
+        carry's ``policy``/``version`` leaves (the live weights travel in
+        ``DecideState.policy``; this keeps ``policy_params``,
+        ``policy_version`` and any later :meth:`decide_state` consistent
+        with the carry)."""
+        self.policy_params = params
+        if getattr(self.model, "params", None) is not None:
+            self.model.params = params
+        self.policy_version = int(version)
 
     def make_decide_fn(self) -> DecideFns:
         """Decision protocol for the fused pipeline loop (:class:`DecideFns`).

@@ -49,9 +49,19 @@ window's start in float64 before the float32 cast, every dispatch receives
 ``window_start = 0``, and the seasonal phase survives through the exact
 integer ``PipelineConfig.tick0``. Absolute times stay host float64.
 
+``train="online"`` (fused-decide modes only; ``train_cfg`` passes through
+to it) attaches a ``runtime.trainer.OnlineTrainer``: one sample + AdamW
+step per K-window batch, launched right after the decide batch on the same
+stream. Hot-swaps land only at batch boundaries (``apply_pending`` swaps
+the carry's ``policy``/``version`` leaves before the next launch),
+``policy_version`` rises by one per applied step, and every replay row
+and LogDB row carries the version that produced its action. With training
+off, or before the first applied step, the decide path is bit-identical
+to the untrained fused modes. Accessors: :meth:`policy_version`,
+:meth:`snapshot_policy`, :meth:`train_stats`, :meth:`restore_training`.
+
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP item:
-the ``_sharded`` modes, ``elastic``, ``train``, ``scan_k="auto"`` and
-policies outside this slice.
+the ``_sharded`` modes, ``elastic`` and ``scan_k="auto"``.
 """
 from __future__ import annotations
 
@@ -68,7 +78,6 @@ from repro_torch.core.frame import make_raw_window
 from repro_torch.device import resolve_device
 from repro_torch.runtime.accumulator import Accumulator
 from repro_torch.runtime.forwarder import ForwarderHub
-from repro_torch.runtime.policies import POLICIES, PolicyConfig
 from repro_torch.runtime.predictor import Predictor
 from repro_torch.runtime.prefetch import WindowPrefetcher
 from repro_torch.runtime.queues import QueueBroker
@@ -110,7 +119,8 @@ class PerceptaSystem:
                  mode: str = "fused", speedup: float = 60.0,
                  t0: float = 0.0, manual_time: bool = False,
                  scan_k=8, ingest: str = "columnar",
-                 train: Optional[str] = None, policy=None,
+                 train: Optional[str] = None,
+                 train_cfg: Optional[dict] = None, policy=None,
                  env_slots: Optional[int] = None, elastic: bool = False,
                  ingest_workers: int = 1, ingest_fastpath: bool = True,
                  device=None):
@@ -122,17 +132,16 @@ class PerceptaSystem:
         if elastic or (env_slots is not None and env_slots != len(env_ids)):
             raise ValueError("elastic env pools are not ported yet: "
                              "ROADMAP.md queue 1 item 10")
-        if train is not None:
-            raise ValueError("train='online' is not ported yet: "
-                             "ROADMAP.md queue 1 item 11")
+        if train is not None and train != "online":
+            raise ValueError(f"unknown train mode {train!r} "
+                             "(expected None or 'online')")
+        if train is not None and _PIPELINE_MODE[mode] != "scan_fused_decide":
+            raise ValueError(
+                "train='online' rides the fused decide carry: use a "
+                f"scan_fused_decide* mode, not {mode!r}")
         if scan_k == "auto":
             raise ValueError("scan_k='auto' is not ported yet: "
                              "ROADMAP.md queue 1 item 12 (autotune)")
-        if policy is not None:
-            name = policy.name if isinstance(policy, PolicyConfig) else policy
-            if name not in POLICIES:
-                raise ValueError(f"policy {name!r} is not ported yet "
-                                 f"(ported: {sorted(POLICIES)})")
         self.device = resolve_device(device)
         if predictor.device != self.device:
             raise ValueError(f"predictor lives on {predictor.device}, the "
@@ -184,6 +193,14 @@ class PerceptaSystem:
         self.state = self.pipeline.init_state()
         self._prefetcher: Optional[WindowPrefetcher] = None
         self.predictor = predictor
+        # train="online": retraining on the device between the fused decide
+        # launches (runtime.trainer); train_cfg holds OnlineTrainer's
+        # keyword arguments (batch_size, train_cfg, seed, checkpoint_dir,
+        # checkpoint_every)
+        self.trainer = None
+        if train is not None:
+            from repro_torch.runtime.trainer import OnlineTrainer
+            self.trainer = OnlineTrainer(predictor, **dict(train_cfg or {}))
         self.forwarders = forwarders
         self.db = db
         self.speedup = speedup
@@ -253,6 +270,8 @@ class PerceptaSystem:
             r.stop()
         if self._prefetcher is not None:
             self._prefetcher.stop()
+        if self.trainer is not None:
+            self.trainer.close()
         if self._ingest_pool is not None:
             self._ingest_pool.shutdown(wait=True)
             self._ingest_pool = None
@@ -465,8 +484,16 @@ class PerceptaSystem:
     def _dispatch_decide(self, raw, k: int):
         """Run ONE ``run_many_decide`` over a staged K-window batch: the
         pipeline state and the decision carry stay on the device, and
-        nothing is read back here. Returns ``(outs, t_dispatch,
-        policy_version)``."""
+        nothing is read back here but the trainer's one scalar.
+
+        With a trainer this is the batch boundary: the previous step's
+        result swaps the carry's policy/version leaves BEFORE the launch
+        (the whole batch runs one policy), and a new step is launched
+        right AFTER it, on the same stream. Returns ``(outs, t_dispatch,
+        policy_version)`` with the version that produced this batch's
+        actions."""
+        if self.trainer is not None:
+            self._dstate = self.trainer.apply_pending(self._dstate)
         ver = int(self.predictor.policy_version)
         t_dispatch = time.time()
         starts = torch.zeros((k, self.cfg.n_envs), dtype=torch.float32,
@@ -474,6 +501,8 @@ class PerceptaSystem:
         with torch.no_grad():
             self.state, self._dstate, outs = self.pipeline.run_many_decide(
                 self.state, self._dstate, raw, starts)
+        if self.trainer is not None:
+            self.trainer.dispatch(self._dstate)
         return outs, t_dispatch, ver
 
     def _consume_decide(self, bounds, counts, outs, t_dispatch,
@@ -569,9 +598,44 @@ class PerceptaSystem:
         return min(int(buf.cursor), buf.capacity)
 
     def policy_version(self) -> int:
-        """The policy version of the actions served (0: no online training
-        is ported)."""
+        """The current policy version: 0 until a train step applies, then
+        one more per applied step. Swaps land only at batch boundaries, so
+        all K windows of a batch share one version, and every replay row
+        and LogDB row carries the version that produced its action."""
         return int(self.predictor.policy_version)
+
+    def snapshot_policy(self):
+        """A copy of the LIVE policy params: the carry's ``policy`` leaves
+        in the fused-decide modes, the Predictor's mirror otherwise."""
+        src = (self._dstate.policy if self.fused_decide
+               else self.predictor.policy_params)
+        return _clone(src)
+
+    def train_stats(self) -> Optional[dict]:
+        """The trainer's counters (dispatched/applied/skipped_empty), last
+        loss and grad norm and current version; None when training is
+        off."""
+        return None if self.trainer is None else self.trainer.train_stats()
+
+    def restore_training(self):
+        """Crash recovery: restore the newest trainer checkpoint into the
+        LIVE serving path — the trainer's state, the Predictor's mirror,
+        AND the carry's policy/version leaves (``trainer.restore_latest``
+        alone covers the host side; the carry would keep serving the
+        construction-time weights). Returns ``(step, params, extra)``, or
+        None when there is no checkpoint."""
+        if self.trainer is None:
+            raise ValueError("restore_training: system built without "
+                             "train='online'")
+        out = self.trainer.restore_latest()
+        if out is None:
+            return None
+        _, params, _ = out
+        self._dstate = self._dstate._replace(
+            policy=params, version=torch.tensor(
+                self.trainer.version, dtype=torch.int32,
+                device=self.device))
+        return out
 
     def export_replay(self, salt: str) -> dict:
         """Anonymized chronological replay export with the host mirror's

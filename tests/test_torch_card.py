@@ -35,6 +35,12 @@ card: ``harmonize_segment``'s scatter branch (M*T above the dense bound)
 across two calls and between ``run_many`` and K ticks; ``add_batch``
 against sequential ``add`` calls; ``run_many_decide`` against
 ``run_many`` + ``Predictor.on_windows``.
+Online training on the card: the train step twice from the same inputs
+and indices, bit for bit (no atomics in its backward); a step on an empty
+ring returns its inputs' bits; ``mlp`` and ``rwkv6`` decide on the card
+against the same call on the CPU, rtol = atol = 1e-5 (the repo's
+single-module bound; the two devices round ``exp``, ``tanh`` and the
+row sums differently).
 """
 import numpy as np
 import pytest
@@ -59,8 +65,10 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.rows import aligned
 from repro_torch.kernels.window_agg import ops as wagg_ops
 from repro_torch.kernels.window_agg.ref import window_agg_ref
-from repro_torch.runtime.policies import PolicyConfig
+from repro_torch.runtime import trainer as tr
+from repro_torch.runtime.policies import PolicyConfig, build_policy
 from repro_torch.runtime.predictor import ActionSpace, Predictor
+from repro_torch.train import tree
 
 
 @pytest.fixture
@@ -558,3 +566,88 @@ def test_run_many_decide_bit_equal_two_launch_path_on_card(card, rng):
     for x, y in zip(ref.replay, dstate.replay):
         assert torch.equal(x, y)
     assert torch.equal(ref._model_carry["h"], dstate.carry["h"])
+
+
+def _tree_bits_equal(a, b):
+    """Two trees of tensors equal leaf for leaf: device, dtype and bits."""
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def _trainer_on_card(card, rng, n_rows, E=64, F=12, C=256, batch=128):
+    """An mlp OnlineTrainer on the card over a ring of ``n_rows`` random
+    transitions (``add_batch``, as the fused decide path banks them)."""
+    pred = Predictor(PolicyConfig("mlp", {"hidden": 32}),
+                     energy_reward_spec(1, 0, 2),
+                     ActionSpace(np.array([-1.0, -1.0]),
+                                 np.array([1.0, 1.0])),
+                     E, F, replay_capacity=C, device=card)
+    C_ = lambda x: torch.from_numpy(np.array(x)).to(card)
+    if n_rows:
+        rp.add_batch(pred.replay,
+                     C_(rng.normal(0, 1, (n_rows, E, F)).astype(np.float32)),
+                     C_(rng.uniform(-1, 1, (n_rows, E, 2)).astype(np.float32)),
+                     C_(rng.normal(0, 3, (n_rows, E)).astype(np.float32)),
+                     C_(rng.normal(0, 1, (n_rows, E, F)).astype(np.float32)),
+                     C_(np.arange(n_rows, dtype=np.int32)))
+    return tr.OnlineTrainer(pred, batch_size=batch, train_cfg=(
+        tr.default_train_cfg(learning_rate=1e-2, weight_decay=0.1)))
+
+
+@pytest.mark.cuda
+def test_train_step_is_deterministic_on_card(card, rng):
+    """Two steps from the same params, state, ring and indices give the
+    same bits, three steps deep (critic, then policy, moving)."""
+    t = _trainer_on_card(card, rng, 40)
+    replay = t.predictor.replay
+    params, tstate = t.predictor.policy_params, t.train_state
+    for _ in range(3):
+        es, ss = t.draw(replay)
+        assert es.is_cuda and ss.is_cuda
+        a = t.step_fn(params, tstate, replay, es, ss)
+        b = t.step_fn(params, tstate, replay, es, ss)
+        assert _tree_bits_equal(a, b)
+        assert bool(a[4]) and all(x.is_cuda for x in tree.leaves(a))
+        params, tstate = a[0], a[1]
+    assert not _tree_bits_equal(params, t.predictor.policy_params)
+
+
+@pytest.mark.cuda
+def test_train_step_on_empty_ring_is_a_noop_on_card(card, rng):
+    t = _trainer_on_card(card, rng, 0)
+    ds = t.predictor.decide_state()
+    policy0 = tree.map_(torch.clone, ds.policy)
+    state0 = tree.map_(torch.clone, t.train_state)
+    t.dispatch(ds)
+    assert t.apply_pending(ds) is ds
+    assert t.stats["skipped_empty"] == 1 and t.version == 0
+    assert _tree_bits_equal(ds.policy, policy0)
+    assert _tree_bits_equal(t.train_state, state0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mlp", "rwkv6"])
+def test_registry_policy_decides_on_card_as_on_cpu(card, rng, name):
+    E, F, A = 256, 24, 2
+    cpu = build_policy(name, F, A, E, device="cpu")
+    gpu = build_policy(name, F, A, E, device=card)
+    assert all(p.is_cuda for p in gpu.params.values())
+    assert all(torch.equal(p.cpu(), q) for p, q in zip(
+        gpu.params.values(), cpu.params.values()))
+    cc = cpu.init_carry(E) if cpu.init_carry else None
+    gc = gpu.init_carry(E) if gpu.init_carry else None
+    for _ in range(3):
+        f = torch.from_numpy(rng.normal(0, 1, (E, F)).astype(np.float32))
+        if cc is None:
+            want, got = cpu(f), gpu(f.to(card))
+        else:
+            want, cc = cpu.apply_carry(cpu.params, f, cc)
+            got, gc = gpu.apply_carry(gpu.params, f.to(card), gc)
+            for k in cc:
+                assert_allclose(gc[k].cpu().numpy(), cc[k].numpy(),
+                                rtol=1e-5, atol=1e-5)
+        assert got.is_cuda
+        assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                        atol=1e-5)

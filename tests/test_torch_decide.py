@@ -23,7 +23,7 @@ from repro_torch.core import replay as rp
 from repro_torch.core import reward as rw
 from repro_torch.runtime import policies as pol
 from repro_torch.runtime.predictor import (ActionSpace, Predictor,
-                                            linear_policy)
+                                            linear_policy, policy_call)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 T_ = lambda x: torch.from_numpy(np.array(x))  # a writable private copy
@@ -114,9 +114,10 @@ def _feats(rng, K):
     return rng.normal(0, 1, (K, E, F)).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["linear", "rglru"])
+@pytest.mark.parametrize("name", ["linear", "rglru", "mlp", "rwkv6"])
 def test_policy_with_jax_weights(name, rng):
-    kw = {"hidden": 16} if name == "rglru" else {}
+    kw = {"rglru": {"hidden": 16}, "mlp": {"hidden": 8},
+          "rwkv6": {"hidden": 4}}.get(name, {})
     jad = jpol.POLICIES[name](F, A, n_envs=E, seed=3, **kw)
     params = convert.policy_params_from_numpy(
         name, _np(jad.params), "cpu")
@@ -127,25 +128,39 @@ def test_policy_with_jax_weights(name, rng):
     if name == "rglru":
         assert sorted(dict(pad.module.named_parameters())) == \
             sorted(jad.params)
+    assert sorted(pad.params) == sorted(jad.params)
     jcarry = jad.init_carry(E) if jad.init_carry else None
     pcarry = pad.init_carry(E) if pad.init_carry else None
     for f in _feats(rng, 3):
-        if name == "rglru":
+        if jcarry is not None:
             wa, jcarry = jax.jit(jad.apply_carry)(jad.params, jnp.asarray(f),
                                                   jcarry)
             ga, pcarry = pad.apply_carry(pad.params, T_(f), pcarry)
-            assert_allclose(pcarry["h"].numpy(), np.asarray(jcarry["h"]),
-                            **TOL)
+            assert sorted(pcarry) == sorted(jcarry)
+            for k in jcarry:
+                assert_allclose(pcarry[k].numpy(), np.asarray(jcarry[k]),
+                                **TOL)
         else:
             wa, ga = jad(jnp.asarray(f)), pad(T_(f))
         assert_allclose(ga.numpy(), np.asarray(wa), **TOL)
 
 
 def test_unported_policy_raises():
-    with pytest.raises(ValueError, match="not ported"):
-        pol.build_policy("rwkv6", F, A, E, device="cpu")
-    with pytest.raises(KeyError):
+    """Every registry policy of the reference is ported: an unknown name
+    raises ``KeyError`` naming the registered set, and a stateful policy
+    has no stateless view for training (``policy_call``)."""
+    assert sorted(pol.POLICIES) == sorted(jpol.POLICIES)
+    with pytest.raises(KeyError, match="registered"):
         pol.build_policy("nope", F, A, E, device="cpu")
+    for name in ("rglru", "rwkv6"):
+        with pytest.raises(ValueError, match="stateful"):
+            jpred.policy_call(jpol.POLICIES[name](F, A))
+        with pytest.raises(ValueError, match="stateful"):
+            policy_call(pol.build_policy(name, F, A, E, device="cpu"))
+    for name in ("linear", "mlp"):
+        apply, params = policy_call(pol.build_policy(name, F, A, E,
+                                                     device="cpu"))
+        assert params and apply(params, torch.zeros((E, F))).shape == (E, A)
 
 
 @pytest.mark.parametrize("build", [
@@ -153,7 +168,11 @@ def test_unported_policy_raises():
     pytest.param(lambda **kw: pol.linear_builder(F, A, **kw),
                  id="linear_builder"),
     pytest.param(lambda **kw: pol.rglru_builder(F, A, **kw),
-                 id="rglru_builder")])
+                 id="rglru_builder"),
+    pytest.param(lambda **kw: pol.mlp_builder(F, A, **kw),
+                 id="mlp_builder"),
+    pytest.param(lambda **kw: pol.rwkv6_builder(F, A, **kw),
+                 id="rwkv6_builder")])
 def test_policy_builders_default_to_the_card(build):
     """Like every entry point of the port, the policy builders take
     ``device=None`` as the CUDA card: without one they raise rather than

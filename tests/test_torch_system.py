@@ -159,6 +159,7 @@ def test_port_imports_neither_jax_nor_repro():
     # mind that "repro_torch" itself starts with "repro"
     code = ("import sys; import repro_torch, repro_torch.convert, "
             "repro_torch.runtime.system, repro_torch.runtime.prefetch, "
+            "repro_torch.runtime.trainer, repro_torch.train.checkpoint, "
             "repro_torch.models, "
             "repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.configs.registry, "
@@ -193,13 +194,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="scan_fused_decide_sharded"), "not ported"),
     (dict(mode="scan_async_sharded"), "not ported"),
-    (dict(mode="scan_fused_decide", train="online"), "not ported"),
+    (dict(mode="scan", train="online"), "rides the fused decide carry"),
     (dict(elastic=True), "not ported"),
-    (dict(train="online"), "not ported"),
+    (dict(train="online"), "rides the fused decide carry"),
     (dict(scan_k="auto"), "not ported"),
-    (dict(policy="mlp"), "not ported"),
+    (dict(mode="scan_fused_decide", train="online", policy="rwkv6"),
+     "stateful"),
+    (dict(mode="scan_fused_decide", train="online", policy="rglru"),
+     "stateful"),
+    (dict(mode="scan_fused_decide", train="offline"), "unknown train mode"),
 ])
 def test_unported_options_raise(kw, match):
+    """Options the port refuses: those not ported yet, and those the
+    reference refuses too (training outside the fused-decide modes, a
+    stateful policy with training, an unknown train mode)."""
     cfg = PipelineConfig(**PCFG)
     pred = Predictor("linear", energy_reward_spec(1, 0, 2),
                      ActionSpace(*SPACE), E, cfg.n_features, device="cpu")
@@ -207,6 +215,16 @@ def test_unported_options_raise(kw, match):
         PerceptaSystem([f"e{i}" for i in range(E)],
                        _sources(SourceSpec, SimulatedDevice), cfg, pred,
                        device="cpu", **kw)
+
+
+def test_unknown_policy_raises():
+    cfg = PipelineConfig(**PCFG)
+    pred = Predictor("linear", energy_reward_spec(1, 0, 2),
+                     ActionSpace(*SPACE), E, cfg.n_features, device="cpu")
+    with pytest.raises(KeyError, match="Unrecognized policy"):
+        PerceptaSystem([f"e{i}" for i in range(E)],
+                       _sources(SourceSpec, SimulatedDevice), cfg, pred,
+                       device="cpu", policy="nope")
 
 
 def test_ops_raise_on_unsupported_dtype():
