@@ -50,6 +50,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      the carry. Also the step's profiler device ms and activities, its
      host launch ms, its host reads (none) and ``apply_pending``'s (one),
      and the mlp and rwkv6 policies' decides on the card against the CPU.
+  5e. elastic — slot pools at the loop config in ``scan_fused_decide``
+     (``phase_elastic``): a dense system over 160 envs for 5 batches; the
+     same envs in a 256-slot pool, bit for bit against it in that mode
+     and in ``scan`` (2 batches each); then churn in a 256-slot pool
+     (detach 32, attach 96 into the recycled and free slots, attach one
+     more, which grows the pool to 512), the stable envs' replay rows bit
+     for bit against the dense run and the recycled slots free of their
+     former tenants. Launches a batch, host ms of attach, detach and
+     resize, windows/s beside the dense run's, the pool's device bytes at
+     256 and 512 slots, and one profiled batch of the 256-slot pool beside
+     the fused_decide phase's (a dense system of the same width).
+  5f. modular — ``mode="modular"`` (each stage its own call, the host
+     waiting after each) over phase 5's 32 windows, bit for bit against
+     ``fused``; windows/s beside it; its launches.
   6. harmonize_system — the harmonize op entry point on the K windows of
      one batch the scan system assembled, held against its plain version
      and against ``core.harmonize.harmonize_segment(agg="mean")``, and bit
@@ -600,7 +614,11 @@ def phase_kernels(dev):
 
 
 # --------------------------------------------------------------- system
-def make_system(mode, dev, db_dir, policy=None, **system_kw):
+def make_system(mode, dev, db_dir, policy=None, env_ids=None, slots=None,
+                **system_kw):
+    """The decision loop's system (§4's loop config) over ``env_ids`` (the
+    E buildings ``bldg-0..`` by default) in a pool of ``slots`` rows
+    (``len(env_ids)`` by default; more needs ``elastic=True``)."""
     from repro_torch.core import PipelineConfig
     from repro_torch.core.reward import energy_reward_spec
     from repro_torch.runtime.db import LogDB
@@ -629,7 +647,9 @@ def make_system(mode, dev, db_dir, policy=None, **system_kw):
         SourceSpec("battery", "amqp", SimulatedDevice(
             "soc", 300.0, base=50.0, amplitude=20.0, seed=8)),
     ]
-    cfg = PipelineConfig(n_envs=E, n_streams=len(sources), n_ticks=N_TICKS,
+    env_ids = env_ids or [f"bldg-{i}" for i in range(E)]
+    n = slots or len(env_ids)
+    cfg = PipelineConfig(n_envs=n, n_streams=len(sources), n_ticks=N_TICKS,
                          tick_s=TICK_S, max_samples=MAX_SAMPLES,
                          gap_strategy="locf", feature_agg="mean",
                          use_kernel=True)
@@ -639,15 +659,14 @@ def make_system(mode, dev, db_dir, policy=None, **system_kw):
                      energy_reward_spec(price_idx=1, grid_idx=0, temp_idx=2),
                      ActionSpace(np.array([-1.0, -1.0]),
                                  np.array([1.0, 1.0])),
-                     E, cfg.n_features, replay_capacity=CAPACITY,
+                     n, cfg.n_features, replay_capacity=CAPACITY,
                      device=dev)
     hub = ForwarderHub([Forwarder("hvac", "mqtt", [0]),
                         Forwarder("ev-charger", "amqp", [1])])
-    system = PerceptaSystem([f"bldg-{i}" for i in range(E)], sources, cfg,
-                            pred, forwarders=hub,
+    system = PerceptaSystem(env_ids, sources, cfg, pred, forwarders=hub,
                             db=LogDB(db_dir, salt="opeva"), mode=mode,
                             manual_time=True, scan_k=K, device=dev,
-                            **system_kw)
+                            env_slots=slots, **system_kw)
     # QoS-0 receivers drop data older than their backlog horizon; one scan
     # batch spans K windows, so the horizon covers a whole batch and a
     # K-window drain loses nothing (fused and scan then see the same data)
@@ -700,6 +719,45 @@ def _overlap_s(a, b):
                for x0, x1 in a for y0, y1 in b)
 
 
+def _zero_launches():
+    from repro_torch.kernels.locf import ops as locf_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.window_agg import ops as wagg_ops
+    locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
+    for ops in (locf_ops, wagg_ops):
+        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
+
+
+def _read_launches():
+    """The three loop kernels' launches since ``_zero_launches``, and
+    locf's and window_agg's by instance."""
+    from repro_torch.kernels.locf import ops as locf_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.window_agg import ops as wagg_ops
+    return ({"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
+             "rglru_scan": rglru_ops.LAUNCHES},
+            {"locf": dict(locf_ops.LAUNCHES_BY_IMPL),
+             "window_agg": dict(wagg_ops.LAUNCHES_BY_IMPL)})
+
+
+def check_loop_launches(label, launches, by_impl, n, rglru=None):
+    """n windows of the loop: locf n, window_agg 2n, rglru_scan n (or
+    ``rglru``: 0 for a policy without the kernel), every locf and
+    window_agg launch on the ``row`` instance (T = 8)."""
+    rglru = n if rglru is None else rglru
+    check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": rglru},
+          f"{label}: kernel launches {launches}, expected locf {n}, "
+          f"window_agg {2 * n}, rglru_scan {rglru}")
+    check(by_impl == {"locf": {"row": n, "warp": 0},
+                      "window_agg": {"row": 2 * n, "warp": 0}},
+          f"{label}: launches by instance {by_impl}, expected all row")
+
+
+def _strip(results):
+    return [{k: v for k, v in r.items() if k != "latency_s"}
+            for r in results]
+
+
 def drive_loop(system, label, spans):
     """The decision loop's main path: ``K * BATCHES`` windows through
     ``system.run_windows``, timed, with every kernel count set to 0 just
@@ -711,14 +769,8 @@ def drive_loop(system, label, spans):
     counted batches), windows/s, launches, and per batch the ms of each
     interval list in ``spans`` (timed batches only), the pump and assembly
     time that overlapped the Manager's, and the host bytes."""
-    from repro_torch.kernels.locf import ops as locf_ops
-    from repro_torch.kernels.rglru_scan import ops as rglru_ops
-    from repro_torch.kernels.window_agg import ops as wagg_ops
-
     n = K * BATCHES
-    locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
-    for ops in (locf_ops, wagg_ops):
-        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
+    _zero_launches()
     for v in spans.values():
         v.clear()
     torch.cuda.synchronize()
@@ -726,23 +778,14 @@ def drive_loop(system, label, spans):
     results = system.run_windows(n)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
-                "rglru_scan": rglru_ops.LAUNCHES}
-    by_impl = {"locf": dict(locf_ops.LAUNCHES_BY_IMPL),
-               "window_agg": dict(wagg_ops.LAUNCHES_BY_IMPL)}
+    launches, by_impl = _read_launches()
     ms = {f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / BATCHES
           for k, v in spans.items()}
     ms["pump_overlapping_manager_ms_per_batch"] = _overlap_s(
         spans["pump"] + spans["assemble"], spans["manager"]) * 1e3 / BATCHES
     check(len(results) == n,
           f"{label}: {len(results)} results, expected {n}")
-    check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": n},
-          f"{label}: kernel launches {launches}, expected locf {n}, "
-          f"window_agg {2 * n}, rglru_scan {n}")
-    check(by_impl == {"locf": {"row": n, "warp": 0},
-                      "window_agg": {"row": 2 * n, "warp": 0}},
-          f"{label}: launches by instance {by_impl}, expected every locf "
-          f"and window_agg launch on the row instance")
+    check_loop_launches(label, launches, by_impl, n)
     with count_fetches() as fetched:
         results = results + system.run_windows(K)
         torch.cuda.synchronize()
@@ -754,8 +797,7 @@ def drive_loop(system, label, spans):
 def loop_record(system, run):
     """What a run of the decision loop left behind, for the bit-for-bit
     comparison of two modes over the same windows."""
-    return {"results": [{k: v for k, v in r.items() if k != "latency_s"}
-                        for r in run["results"]],
+    return {"results": _strip(run["results"]),
             "export": system.export_replay("salt"),
             "db_rows": _db_rows(system),
             "sinks": [list(f.sink) for f in system.forwarders.forwarders],
@@ -919,9 +961,12 @@ def phase_fused(dev, tmp):
                   f"fused != scan: replay {key}")
     emit({"phase": "fused", "windows": n, "windows_per_s": n / wall,
           "bit_identical_to_scan": True})
+    run = {"results": rf, "windows_per_s": n / wall, "export": ef,
+           "db_rows": _db_rows(fused)}
     for s in (fused, scan):
         s.db.close()
         s.stop()
+    return run
 
 
 def phase_fused_decide(dev, tmp, ref):
@@ -948,7 +993,7 @@ def phase_fused_decide(dev, tmp, ref):
           "launches": got["launches"],
           "launches_by_impl": got["launches_by_impl"],
           "bit_identical_to_scan": True})
-    prof = profile_batch(system, "fused_decide_profile")
+    prof = got["profile"] = profile_batch(system, "fused_decide_profile")
     emit({"phase": "fused_decide_vs_scan_profile",
           "device_busy_ms": [prof["device_busy_ms"],
                              ref["profile"]["device_busy_ms"]],
@@ -1045,10 +1090,6 @@ def drive_online(system, label):
     ``instrument``, and the trainer's ``dispatch`` + ``apply_pending``
     (the host side of training, inside the Manager's span) as ``train``.
     Returns the results, windows/s and ms a batch of each part."""
-    from repro_torch.kernels.locf import ops as locf_ops
-    from repro_torch.kernels.rglru_scan import ops as rglru_ops
-    from repro_torch.kernels.window_agg import ops as wagg_ops
-
     spans = instrument(system)
     spans["train"] = []
     if system.trainer is not None:
@@ -1056,24 +1097,16 @@ def drive_online(system, label):
         t.dispatch = interval(t.dispatch, spans["train"])
         t.apply_pending = interval(t.apply_pending, spans["train"])
     n = K * BATCHES
-    locf_ops.LAUNCHES = wagg_ops.LAUNCHES = rglru_ops.LAUNCHES = 0
-    for ops in (locf_ops, wagg_ops):
-        ops.LAUNCHES_BY_IMPL.update(row=0, warp=0)
+    _zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = system.run_windows(n)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"locf": locf_ops.LAUNCHES, "window_agg": wagg_ops.LAUNCHES,
-                "rglru_scan": rglru_ops.LAUNCHES}
+    launches, by_impl = _read_launches()
     check(len(results) == n, f"{label}: {len(results)} results")
-    check(launches == {"locf": n, "window_agg": 2 * n, "rglru_scan": 0}
-          and locf_ops.LAUNCHES_BY_IMPL["row"] == n
-          and wagg_ops.LAUNCHES_BY_IMPL["row"] == 2 * n,
-          f"{label}: kernel launches {launches}, expected locf {n}, "
-          f"window_agg {2 * n} (all row), rglru_scan 0")
-    results = [{k: v for k, v in r.items() if k != "latency_s"}
-               for r in results]
+    check_loop_launches(label, launches, by_impl, n, rglru=0)
+    results = _strip(results)
     return {"results": results, "windows_per_s": n / wall,
             "launches": launches,
             **{f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / BATCHES
@@ -1313,6 +1346,204 @@ def phase_online_train(dev, tmp):
           "launches": runs["on"][0]["launches"],
           "policy_decide_max_abs_err": decide_err,
           "checks": ["a", "b", "c", "d", "e", "f"]})
+
+
+# ---------------------------------------------------- elastic, modular
+# the elastic phase (PERF.md §4): the loop config over 160 "stable" envs,
+# alone (dense) and in a pool of 256 slots that churn grows to 512
+EL_STABLE, EL_SLOTS, EL_CHURN, EL_BATCHES = 160, 256, 32, 5
+
+
+def run_batches(system, label, before=()):
+    """K-window batches through ``run_windows``, one a call: ``before[j]``
+    (a membership change, or None) runs ahead of batch j, outside the
+    timed part. Each batch's kernel counts are set to 0 just before it and
+    read just after, and checked (``check_loop_launches``). Returns the
+    results, the launches a batch and the seconds of the batches alone."""
+    results, launches, wall = [], [], 0.0
+    for j, op in enumerate(before):
+        if op is not None:
+            op()
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results += system.run_windows(K)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        got, by_impl = _read_launches()
+        check_loop_launches(f"{label} batch {j}", got, by_impl, K)
+        launches.append(got)
+    return results, launches, wall
+
+
+def pool_bytes(system):
+    """Device bytes of the pool's trees: the pipeline state and the fused
+    decide carry, the replay ring included."""
+    from repro_torch.train import tree
+    return sum(t.numel() * t.element_size()
+               for t in tree.leaves(system.state)
+               + tree.leaves(system._dstate))
+
+
+def _ms_stats(xs):
+    return {"calls": len(xs), "median_ms": statistics.median(xs),
+            "max_ms": max(xs), "total_ms": sum(xs)} if xs else {"calls": 0}
+
+
+def phase_elastic(dev, tmp, dense_profile):
+    """Elastic slot pools at the loop config in ``scan_fused_decide``.
+
+    A dense system over the 160 stable envs runs 5 batches. (a) The same
+    envs in a 256-slot elastic pool: its first 2 batches' results equal
+    the dense run's bit for bit; (b) the same in ``scan`` mode. (c) A fresh
+    256-slot pool, the stable envs plus 32 churn envs: batch; detach the
+    32; batch; attach 32 new envs (into the recycled slots) and 64 more
+    (the pool is full); batch; attach one more (the pool grows to 512);
+    batch; batch. The stable envs' replay rows equal the dense run's bit
+    for bit, the recycled slots hold nothing of their former tenants, and
+    the new env sits in slot 256. Every batch of every run launches locf
+    K, window_agg 2K and rglru_scan K times, all row. One more batch of
+    the 256-slot pool runs under the profiler, beside ``dense_profile``
+    (the fused_decide phase's profiled batch: a dense system of the same
+    width), so the device activities and busy time the masks add show."""
+    stable = [f"bldg-{i}" for i in range(EL_STABLE)]
+    churn = [f"churn-{i}" for i in range(EL_CHURN)]
+    # enough new envs to fill the pool (the recycled slots first), and one
+    late = [f"late-{i}" for i in range(EL_SLOTS - EL_STABLE + 1)]
+    mode = "scan_fused_decide"
+
+    def system(tag, envs, **kw):
+        return make_system(kw.pop("mode", mode), dev,
+                           str(Path(tmp) / f"elastic_{tag}"),
+                           env_ids=list(envs), **kw)
+
+    dense = system("dense", stable)
+    spans_d = instrument(dense)
+    rd, ld, wall_d = run_batches(dense, "elastic dense", [None] * EL_BATCHES)
+    export_d = dense.export_replay("salt")
+    dense.db.close()
+    dense.stop()
+    del dense
+
+    for m, label in ((mode, "a"), ("scan", "b")):
+        pool = system(f"static_{m}", stable, slots=EL_SLOTS, elastic=True,
+                      mode=m)
+        got, _, _ = run_batches(pool, f"elastic ({label})", [None] * 2)
+        check(_strip(got) == _strip(rd[:2 * K]),
+              f"elastic ({label}, {m}): the pool's first 2 batches differ "
+              "from the dense run's")
+        if m == mode:
+            prof = profile_batch(pool, "elastic_profile")
+            emit({"phase": "elastic_vs_dense_profile",
+                  "slots": EL_SLOTS, "live": EL_STABLE,
+                  **{k: [prof[k], dense_profile[k]]
+                     for k in ("device_kernels", "device_busy_ms",
+                               "device_idle_share", "wall_ms")}})
+        pool.db.close()
+        pool.stop()
+        del pool
+
+    pool = system("churn", stable + churn, slots=EL_SLOTS, elastic=True)
+    spans_c = instrument(pool)
+    spans_m = {"attach": [], "detach": [], "resize": []}
+    pool.resize = interval(pool.resize, spans_m["resize"])
+    attach = interval(pool.attach_env, spans_m["attach"])
+    detach = interval(pool.detach_env, spans_m["detach"])
+    bytes_256 = pool_bytes(pool)
+    slot_of = {}
+
+    def detach_churn():
+        for e in churn:
+            slot_of[e] = detach(e)
+
+    def attach_late():
+        for e in late[:-1]:
+            slot_of[e] = attach(e)
+
+    def attach_one():
+        slot_of[late[-1]] = attach(late[-1])
+
+    rc, lc, wall_c = run_batches(pool, "elastic (c)", [
+        None, detach_churn, attach_late, attach_one, None])
+    export_c = pool.export_replay("salt")
+    recycled = [slot_of[e] for e in churn]
+    check([slot_of[e] for e in late[:EL_CHURN]] == recycled,
+          "elastic (c): the new envs did not take the recycled slots")
+    check(pool.env_slots == 2 * EL_SLOTS and slot_of[late[-1]] == EL_SLOTS,
+          f"elastic (c): {pool.env_slots} slots, the new env in slot "
+          f"{slot_of[late[-1]]}; expected {2 * EL_SLOTS} and {EL_SLOTS}")
+    # the stable envs' rows equal the dense run's, joined on exported ids
+    at = {e: i for i, e in enumerate(export_c["env_ids"])}
+    rows_c = [at[e] for e in export_d["env_ids"]]
+    for key in ("obs", "actions", "rewards", "next_obs", "tick_idx",
+                "times", "valid"):
+        a, b = export_d[key], export_c[key][rows_c]
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"elastic (c): stable envs' replay {key} differs from the "
+              "dense run's")
+    # recycled slots: only the new tenants' transitions, from the window
+    # after their attach (batch 2's first window has no predecessor)
+    first_tick = 2 * K + 1
+    gone = {e for e in churn} & set(pool._export_env_ids())
+    valid, ticks = export_c["valid"][recycled], export_c["tick_idx"][recycled]
+    check(not gone and not (valid & (ticks < first_tick)).any()
+          and (valid.sum(1) == 3 * K - 1).all(),
+          f"elastic (c): recycled slots keep a trace of their former "
+          f"tenants (ids {sorted(gone)[:3]}, valid rows per slot "
+          f"{sorted(set(valid.sum(1).tolist()))})")
+    check(all(np.isfinite(r["mean_reward"]) for r in rc),
+          "elastic (c): non-finite reward")
+    bytes_512 = pool_bytes(pool)
+    ms = {k: [(b - a) * 1e3 for a, b in v] for k, v in spans_m.items()}
+    per_batch = lambda spans: {
+        f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / EL_BATCHES
+        for k, v in spans.items()}
+    emit({"phase": "elastic", "mode": mode, "stable_envs": EL_STABLE,
+          "slots": [EL_SLOTS, pool.env_slots], "windows": K * EL_BATCHES,
+          "windows_per_batch": K,
+          "static_subset_bit_identical": {mode: True, "scan": True},
+          "stable_rows_bit_identical": True,
+          "launches_per_batch_dense": ld, "launches_per_batch_churn": lc,
+          "windows_per_s_dense": K * EL_BATCHES / wall_d,
+          "windows_per_s_churn": K * EL_BATCHES / wall_c,
+          "dense": per_batch(spans_d), "churn": per_batch(spans_c),
+          "host_ms": {k: _ms_stats(v) for k, v in ms.items()},
+          "resizing_attach_ms": ms["attach"][-1],
+          "pool_device_bytes": {str(EL_SLOTS): bytes_256,
+                                str(2 * EL_SLOTS): bytes_512}})
+    pool.db.close()
+    pool.stop()
+
+
+def phase_modular(dev, tmp, fused):
+    """``modular`` over the fused phase's 32 windows: every stage its own
+    call, the host waiting for the card after each. Every result but
+    ``latency_s``, the LogDB rows and the replay export equal ``fused``'s
+    bit for bit; locf K, window_agg 2K and rglru_scan K launches."""
+    system = make_system("modular", dev, str(Path(tmp) / "modular"))
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = system.run_windows(K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_impl = _read_launches()
+    check_loop_launches("modular", launches, by_impl, K)
+    check(_strip(got) == _strip(fused["results"]),
+          "modular != fused in the per-window results")
+    check(_db_rows(system) == fused["db_rows"],
+          "modular != fused in LogDB rows")
+    exp = system.export_replay("salt")
+    for key in exp:
+        same = exp[key] == fused["export"][key] if key == "env_ids" \
+            else np.array_equal(exp[key], fused["export"][key])
+        check(same, f"modular != fused: replay {key}")
+    emit({"phase": "modular", "windows": K, "windows_per_s": K / wall,
+          "fused_windows_per_s": fused["windows_per_s"],
+          "launches": launches, "launches_by_impl": by_impl,
+          "bit_identical_to_fused": True})
+    system.db.close()
+    system.stop()
 
 
 def phase_harmonize(raw):
@@ -1587,13 +1818,17 @@ def main() -> int:
     at_path = phase_kernels(dev)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         launches, raw, scan_ref = phase_scan(dev, tmp)
-        phase_fused(dev, tmp)
+        fused_run = phase_fused(dev, tmp)
         _, fused_ref = phase_fused_decide(dev, tmp, scan_ref)
         refs = {"scan": scan_ref, "scan_fused_decide": fused_ref}
         phase_async(dev, tmp, refs)
         phase_loop_order(dev, tmp, refs)
+        dense_profile = fused_ref["profile"]
         del scan_ref, fused_ref, refs
         phase_online_train(dev, tmp)
+        phase_elastic(dev, tmp, dense_profile)
+        phase_modular(dev, tmp, fused_run)
+        del fused_run
     launches["harmonize"] = phase_harmonize(raw)
     del raw
     launches["flash_attention"] = phase_lm(dev)

@@ -10,6 +10,8 @@ is driven by ``python -m repro_torch.launch.serve``).
 
 ``--mode``:
   * ``fused`` — one pipeline tick and one decision per window;
+  * ``modular`` — the same, each stage of the tick its own call with the
+    host waiting for the card in between (the paper's architecture);
   * ``scan`` — ``SCAN_K`` windows per pipeline batch, then one
     ``Predictor.on_windows`` over the batch;
   * ``scan_fused_decide`` — the decision step inside the pipeline's K loop
@@ -22,11 +24,15 @@ Every mode gives the same decisions, rewards, DB rows and replay export
 ``system.replay_size()``: in the fused modes the system's decision carry
 is authoritative.
 
+``--elastic`` (the four batch modes) runs the buildings in a pool of
+twice as many env slots; half-way, between two batches, one building
+leaves (``detach_env``) and a new one joins its slot (``attach_env``).
+
 Run (the card is the default; ``--device cpu`` asks for the CPU):
 
     PYTHONPATH=src python examples/port_serve_edge.py \\
-        [--mode fused|scan|scan_async|scan_fused_decide|\\
-         scan_fused_decide_async] [--device cuda|cpu]
+        [--mode fused|modular|scan|scan_async|scan_fused_decide|\\
+         scan_fused_decide_async] [--elastic] [--device cuda|cpu]
 """
 import argparse
 import tempfile
@@ -44,7 +50,7 @@ from repro_torch.runtime.predictor import ActionSpace, Predictor
 from repro_torch.runtime.receivers import SimulatedDevice
 from repro_torch.runtime.system import PerceptaSystem, SourceSpec
 
-MODES = ["fused", "scan", "scan_async", "scan_fused_decide",
+MODES = ["fused", "modular", "scan", "scan_async", "scan_fused_decide",
          "scan_fused_decide_async"]
 SCAN_K = 2   # windows per pipeline batch
 E = 4        # buildings
@@ -55,7 +61,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="scan", choices=MODES)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--elastic", action="store_true",
+                    help="a pool of 2x the buildings' slots; one building "
+                         "leaves and one joins half-way")
     args = ap.parse_args()
+    if args.elastic and args.mode in ("fused", "modular"):
+        ap.error("--elastic needs a batch mode (the mask rides the batch)")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA card here (torch.cuda.is_available() is False); "
                  "pass --device cpu to run on the CPU")
@@ -70,13 +81,15 @@ def main():
             "temp_c", 30.0, base=21.0, amplitude=1.5, seed=3)),
     ]
     use_kernel = dev.type == "cuda"
-    pcfg = PipelineConfig(n_envs=E, n_streams=3, n_ticks=8, tick_s=60.0,
+    slots = 2 * E if args.elastic else E
+    pcfg = PipelineConfig(n_envs=slots, n_streams=3, n_ticks=8, tick_s=60.0,
                           max_samples=32, gap_strategy="locf",
                           feature_agg="mean", use_kernel=use_kernel)
     pred = Predictor(PolicyConfig("rglru", {"use_kernel": use_kernel}),
                      energy_reward_spec(price_idx=1, grid_idx=0, temp_idx=2),
                      ActionSpace(np.array([-1., -1.]), np.array([1., 1.])),
-                     E, pcfg.n_features, replay_capacity=256, device=dev)
+                     slots, pcfg.n_features, replay_capacity=256,
+                     device=dev)
     hub = ForwarderHub([Forwarder("hvac", "mqtt", [0]),
                         Forwarder("ev-charger", "amqp", [1])])
     with tempfile.TemporaryDirectory() as db_dir:
@@ -84,13 +97,21 @@ def main():
         system = PerceptaSystem([f"bldg-{i}" for i in range(E)], sources,
                                 pcfg, pred, forwarders=hub, db=db,
                                 speedup=4000.0, mode=args.mode,
-                                scan_k=SCAN_K, device=dev)
-        batch = 1 if args.mode == "fused" else SCAN_K
+                                scan_k=SCAN_K, device=dev,
+                                elastic=args.elastic,
+                                env_slots=slots if args.elastic else None)
+        batch = 1 if args.mode in ("fused", "modular") else SCAN_K
         print(f"=== Percepta edge decisions on {dev.type}: {WINDOWS} "
               f"windows ({args.mode} mode, {batch} windows a batch) ===")
         t_start = time.time()
         try:
-            for _ in range(0, WINDOWS, batch):
+            half = batch * (WINDOWS // (2 * batch))   # a batch boundary
+            for w in range(0, WINDOWS, batch):
+                if args.elastic and w == half:
+                    left = system.detach_env("bldg-1")
+                    joined = system.attach_env("bldg-new")
+                    print(f"bldg-1 left slot {left}; bldg-new joined slot "
+                          f"{joined} of {system.env_slots}")
                 for r in system.run_windows(batch):
                     print(f"window {r['window']}: {r['records']:4d} records"
                           f"  tick {r['latency_s'] * 1e3:6.1f} ms  "

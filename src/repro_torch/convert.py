@@ -72,14 +72,11 @@ def replay_from_numpy(buf, device="cpu") -> rp.ReplayBuffer:
 def decide_state_from_numpy(dstate, device="cpu") -> DecideState:
     """A reference ``DecideState`` with numpy leaves -> the port's: prev
     obs and actions, ``have_prev``, ``tick``, the replay ring, the policy
-    params, the versions and the recurrent model carry (a dict of per-env
-    leaves, or None). The elastic ``active``/``prev_ok`` leaves are not
-    ported and must be None."""
-    if getattr(dstate, "active", None) is not None \
-            or getattr(dstate, "prev_ok", None) is not None:
-        raise ValueError("elastic DecideState leaves are not ported yet: "
-                         "ROADMAP.md queue 1 item 10")
+    params, the versions, the recurrent model carry (a dict of per-env
+    leaves, or None) and the elastic ``active``/``prev_ok`` masks ((E,)
+    bool, or None for a dense carry)."""
     leaf = lambda x: _t(x, device)
+    mask = lambda x: None if x is None else leaf(np.asarray(x, np.bool_))
     return DecideState(
         prev_obs=leaf(dstate.prev_obs),
         prev_actions=leaf(dstate.prev_actions),
@@ -91,6 +88,8 @@ def decide_state_from_numpy(dstate, device="cpu") -> DecideState:
         prev_version=leaf(np.asarray(dstate.prev_version, np.int32)),
         carry=None if dstate.carry is None else _map(dict(dstate.carry),
                                                      leaf),
+        active=mask(getattr(dstate, "active", None)),
+        prev_ok=mask(getattr(dstate, "prev_ok", None)),
     )
 
 

@@ -1,10 +1,10 @@
 """Anomaly handling — port of ``repro.core.anomaly``.
 
 Detection: z-score against carried running statistics (an exponential
-Welford over clean observed ticks). Replacement: clip to the k-sigma
-envelope, substitute the running mean, or mark as missing so gap-filling
-handles the tick. ``detect_mad`` is not ported yet (``torch.nanmedian``
-takes the lower middle value where ``jnp.nanmedian`` averages the two).
+Welford over clean observed ticks), or the window-local median absolute
+deviation (:func:`detect_mad`). Replacement: clip to the k-sigma envelope,
+substitute the running mean, or mark as missing so gap-filling handles the
+tick.
 """
 from __future__ import annotations
 
@@ -38,10 +38,32 @@ def detect_zscore(values, observed, state: AnomalyState,
     return observed & warm & (z > k_sigma)
 
 
+def nanmedian(x):
+    """Median over the last dim ignoring NaN, as ``jnp.nanmedian`` computes
+    it (JAX 0.9.0: ``nanquantile(q=0.5, method="midpoint")``, whose
+    NaN-squashing branch sorts with NaN last, counts the non-NaN values n,
+    takes ranks lo = floor(q) and hi = ceil(q) of q = 0.5 * (n - 1), each
+    clamped to [0, n - 1], and returns ``(a[lo] + a[hi]) * 0.5``). An even
+    count thus averages the two middle values, where ``torch.nanmedian``
+    returns the lower one; an all-NaN row gives NaN. Keeps the last dim
+    (size 1)."""
+    a = x.sort(dim=-1).values                  # torch sorts NaN last
+    n = (~torch.isnan(a)).sum(-1, keepdim=True, dtype=torch.int64)
+    lo = torch.div(n - 1, 2, rounding_mode="floor").clamp(min=0)
+    hi = torch.div(n, 2, rounding_mode="floor").clamp(min=0)
+    hi = torch.minimum(hi, (n - 1).clamp(min=0))
+    return (a.gather(-1, lo) + a.gather(-1, hi)) * 0.5
+
+
 def detect_mad(values, observed, k: float = 8.0):
-    raise NotImplementedError(
-        "detect_mad is not ported yet: torch.nanmedian and jnp.nanmedian "
-        "disagree on even counts; see ROADMAP.md, queue 1")
+    """Window-local median-absolute-deviation detector (no state)."""
+    big = 3.4e38
+    masked = torch.where(observed, values, float("nan"))
+    med = nanmedian(masked)
+    mad = nanmedian((masked - med).abs())
+    mad = torch.where(torch.isnan(mad) | (mad < 1e-9), big, mad)
+    dev = (values - torch.where(torch.isnan(med), 0.0, med)).abs()
+    return observed & (dev > k * 1.4826 * mad)
 
 
 def replace(values, observed, spikes, state: AnomalyState,

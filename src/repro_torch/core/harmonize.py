@@ -191,7 +191,48 @@ def harmonize(raw: RawWindow, tick_ts, tick_s: float, agg: str = "mean",
 
 def harmonize_interp(raw: RawWindow, tick_ts, *, max_gap_s: float = 0.0,
                      prev_value=None, prev_ts=None):
-    """Linear interpolation between bracketing samples: not ported yet."""
-    raise NotImplementedError(
-        "harmonize_interp (PipelineConfig.interp_streams) is not ported yet; "
-        "see ROADMAP.md, queue 1")
+    """Linear interpolation of each tick between its bracketing samples.
+
+    For slow sources (the paper's once-an-hour devices) bucketing leaves
+    most ticks empty; interpolation rebuilds the tick resolution instead.
+    O(M*T) masked max/min, no sort. ``prev_value``/``prev_ts`` (E, S) carry
+    the last sample of the previous window in, so the first ticks bridge
+    the window boundary; ``max_gap_s > 0`` interpolates only across gaps
+    that short (a longer gap holds the earlier sample).
+
+    Each selected-sample sum is multiply + sum over M, as the reference's
+    einsum: a 0 weight times an inf or NaN value gives NaN, as in XLA's
+    dot. Every division is by a tensor (see :func:`exact_div`)."""
+    ts = torch.where(raw.valid, raw.timestamps, float("inf"))    # (E,S,M)
+    tsn = torch.where(raw.valid, raw.timestamps, float("-inf"))
+    tick = tick_ts[:, None, :, None]                             # (E,1,T,1)
+    tsn_m, ts_m = tsn[:, :, None, :], ts[:, :, None, :]          # (E,S,1,M)
+    before = tsn_m <= tick                                       # (E,S,T,M)
+    after = ts_m > tick
+
+    t_lo = torch.where(before, tsn_m, -BIG).amax(-1)             # (E,S,T)
+    t_hi = torch.where(after, ts_m, BIG).amin(-1)
+    sel_lo = before & (tsn_m == t_lo[..., None])
+    sel_hi = after & (ts_m == t_hi[..., None])
+    den_lo = sel_lo.sum(-1).clamp(min=1)
+    den_hi = sel_hi.sum(-1).clamp(min=1)
+    vals = raw.values[:, :, None, :]
+    v_lo = (sel_lo.to(torch.float32) * vals).sum(-1) / den_lo
+    v_hi = (sel_hi.to(torch.float32) * vals).sum(-1) / den_hi
+    has_lo = t_lo > -BIG
+    has_hi = t_hi < BIG
+
+    if prev_value is not None and prev_ts is not None:
+        bridge = ~has_lo & (prev_ts[:, :, None] <= tick_ts[:, None, :])
+        t_lo = torch.where(bridge, prev_ts[:, :, None], t_lo)
+        v_lo = torch.where(bridge, prev_value[:, :, None], v_lo)
+        has_lo = has_lo | bridge
+
+    span = (t_hi - t_lo).clamp(min=1e-6)
+    frac = ((tick_ts[:, None, :] - t_lo) / span).clamp(0.0, 1.0)
+    both = has_lo & has_hi
+    if max_gap_s > 0:
+        both = both & ((t_hi - t_lo) <= max_gap_s)
+    interp = v_lo + frac * (v_hi - v_lo)
+    out = torch.where(both, interp, torch.where(has_lo, v_lo, 0.0))
+    return out, both | has_lo

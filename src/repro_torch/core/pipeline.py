@@ -1,7 +1,11 @@
 """PerceptaPipeline — the per-tick program, port of ``repro.core.pipeline``.
 
-Modes ported here:
+Modes:
   * ``fused`` — one :func:`tick` per window (the reference).
+  * ``modular`` — the paper's architecture as drawn: each stage
+    (harmonize, anomaly, gap-fill, normalize, features) is its own call,
+    and the host waits for the card after each one. The same ops as
+    ``fused``, so the same bits.
   * ``scan``  — :func:`run_many`: K pre-batched windows through K ticks in
     one call, the state carried on the device between them. Outputs are
     exactly those of K sequential ticks (the same ops on the same shapes).
@@ -9,6 +13,12 @@ Modes ported here:
     the Predictor's per-window decision step after each one and the K
     replay transitions banked once after the loop; the host gets only the
     small :class:`DecideBatch`.
+
+Elastic slot pools (``elastic=True``): the env axis holds ``E`` slots, of
+which an ``active`` (E,) bool device mask marks the live ones. The host
+feeds inactive slots all-invalid windows, under which every stage's state
+update is a no-op, and :func:`mask_env_rows` zeroes their outputs; live
+rows equal a dense system's over the same envs bit for bit.
 
 State is one NamedTuple carried tick to tick (gap-fill memory, anomaly
 stats, normalizer stats, the cross-window carry and the tick counter).
@@ -37,11 +47,10 @@ from repro_torch.device import resolve_device
 
 # modes of the reference engine that later slices bring, by ROADMAP item
 NOT_PORTED_MODES = {
-    "modular": "ROADMAP.md queue 1 item 4 (the modular stage-by-stage mode)",
     "scan_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
     "scan_fused_decide_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
 }
-MODES = ("fused", "scan", "scan_fused_decide")
+MODES = ("fused", "modular", "scan", "scan_fused_decide")
 
 
 class PipelineState(NamedTuple):
@@ -62,7 +71,7 @@ class PipelineConfig:
     max_samples: int = 64        # raw samples per stream per window (padded)
     agg: str = "mean"            # harmonization aggregation
     harmonize_method: str = "segment"  # segment | onehot
-    interp_streams: bool = False # interpolating harmonizer (not ported yet)
+    interp_streams: bool = False # interpolating harmonizer instead
     gap_strategy: str = "locf"   # locf | linear | ewma | seasonal
     anomaly_policy: str = "clip" # clip | mean | missing
     k_sigma: float = 6.0
@@ -167,15 +176,11 @@ def stage_features(cfg: PipelineConfig, v_norm, v_raw, obs, filled, ticks):
 # Fused tick
 # ---------------------------------------------------------------------------
 
-def tick(cfg: PipelineConfig, state: PipelineState, raw: RawWindow,
-         window_start):
-    """One full Percepta tick. Returns (new_state, FeatureFrame, TickFrame)."""
-    v, obs, ticks = stage_harmonize(cfg, state, raw, window_start)
-    v, obs, replaced, new_anom = stage_anomaly(cfg, state, v, obs)
-    v, filled, new_gap = stage_gapfill(cfg, state, v, obs, ticks)
-    v_norm, new_norm = stage_normalize(cfg, state, v, obs | filled)
-    features = stage_features(cfg, v_norm, v, obs, filled, ticks)
-
+def next_state(cfg: PipelineConfig, state: PipelineState, raw: RawWindow,
+               new_gap, new_anom, new_norm) -> PipelineState:
+    """The state after a window: the stages' new stats, the cross-window
+    carry (the window's last sample per stream, else the old carry
+    re-expressed one window later) and the tick counter."""
     big = 3.4e38
     ts_b = torch.where(raw.valid, raw.timestamps, -big)
     last_ts = ts_b.amax(-1)
@@ -183,7 +188,7 @@ def tick(cfg: PipelineConfig, state: PipelineState, raw: RawWindow,
     is_last = (ts_b == last_ts[..., None]) & raw.valid
     last_v = (raw.values * is_last.to(torch.float32)).sum(-1) / \
         is_last.sum(-1).clamp(min=1)
-    new_state = PipelineState(
+    return PipelineState(
         gapfill=new_gap, anomaly=new_anom, norm=new_norm,
         prev_value=torch.where(has, last_v, state.prev_value),
         # no observation this window: re-express the old carry in this
@@ -192,11 +197,57 @@ def tick(cfg: PipelineConfig, state: PipelineState, raw: RawWindow,
                             state.prev_ts - cfg.n_ticks * cfg.tick_s),
         tick_index=state.tick_index + 1,
     )
+
+
+def tick(cfg: PipelineConfig, state: PipelineState, raw: RawWindow,
+         window_start):
+    """One full Percepta tick. Returns (new_state, FeatureFrame, TickFrame)."""
+    v, obs, ticks = stage_harmonize(cfg, state, raw, window_start)
+    v, obs, replaced, new_anom = stage_anomaly(cfg, state, v, obs)
+    v, filled, new_gap = stage_gapfill(cfg, state, v, obs, ticks)
+    v_norm, new_norm = stage_normalize(cfg, state, v, obs | filled)
+    features = stage_features(cfg, v_norm, v, obs, filled, ticks)
+    new_state = next_state(cfg, state, raw, new_gap, new_anom, new_norm)
     return new_state, features, TickFrame(v, obs, filled, replaced)
 
 
+def modular_tick(cfg: PipelineConfig, state: PipelineState, raw: RawWindow,
+                 window_start):
+    """:func:`tick` stage by stage, as the paper draws the architecture:
+    after each stage the host waits for the card (the reference's
+    ``block_until_ready``) before it launches the next. The same ops on
+    the same tensors as :func:`tick`, so the same bits."""
+    def wait(out):
+        if raw.values.is_cuda:
+            torch.cuda.synchronize(raw.values.device)
+        return out
+
+    v, obs, ticks = wait(stage_harmonize(cfg, state, raw, window_start))
+    v, obs, replaced, new_anom = wait(stage_anomaly(cfg, state, v, obs))
+    v, filled, new_gap = wait(stage_gapfill(cfg, state, v, obs, ticks))
+    v_norm, new_norm = wait(stage_normalize(cfg, state, v, obs | filled))
+    features = wait(stage_features(cfg, v_norm, v, obs, filled, ticks))
+    new_state = next_state(cfg, state, raw, new_gap, new_anom, new_norm)
+    return new_state, features, TickFrame(v, obs, filled, replaced)
+
+
+def mask_env_rows(tree, active):
+    """Zero every env row of ``tree``'s leaves where ``active`` (E,) bool
+    is False: one launch per leaf, a ``torch.where`` against a Python 0
+    (a kernel argument, not a tensor to fill) or, for a bool leaf, an
+    ``&``. Live rows pass through bit for bit and inactive rows become
+    zeros of the leaf's dtype (whatever a cold slot computed, NaN
+    included). The mask is never used to compact, sort or index rows.
+    Eager torch fuses nothing across the select, so the reference's
+    ``optimization_barrier`` fences have no counterpart here."""
+    def leaf(x):
+        m = active.reshape(active.shape + (1,) * (x.dim() - 1))
+        return m & x if x.dtype == torch.bool else torch.where(m, x, 0)
+    return type(tree)(*(leaf(x) for x in tree))
+
+
 def run_many(cfg: PipelineConfig, state: PipelineState, raws: RawWindow,
-             window_starts):
+             window_starts, active=None):
     """K windows through K :func:`tick` calls, the state carried between.
 
     ``raws`` leaves carry a leading K axis (K, E, S, M); ``window_starts``
@@ -204,11 +255,17 @@ def run_many(cfg: PipelineConfig, state: PipelineState, raws: RawWindow,
     frame leaves stacked along a leading K axis — exactly the outputs of K
     sequential ``tick`` calls, bit for bit (each window runs the same ops
     on the same shapes).
+
+    ``active`` (E,) bool device tensor is the elastic slot mask: each
+    window's outputs are zeroed on inactive rows. The state needs no
+    gating (inactive slots get all-invalid windows from the host).
     """
     feats, frames = [], []
     for k in range(raws.values.shape[0]):
         raw = RawWindow(raws.values[k], raws.timestamps[k], raws.valid[k])
         state, f, fr = tick(cfg, state, raw, window_starts[k])
+        if active is not None:
+            f, fr = mask_env_rows(f, active), mask_env_rows(fr, active)
         feats.append(f)
         frames.append(fr)
     stack = lambda items, cls: cls(*(torch.stack(x) for x in zip(*items)))
@@ -246,12 +303,25 @@ def run_many_decide(cfg: PipelineConfig, decide, state: PipelineState,
     replay transition; ``bank`` writes the K stacked transitions into the
     ring once, after the loop. Only the small prev/tick/carry part of
     ``dstate`` changes inside the loop. Returns ``(final_state,
-    final_dstate, DecideBatch)``."""
+    final_dstate, DecideBatch)``.
+
+    Elastic slot pools ride the decide carry: with ``dstate.active`` set
+    (an (E,) bool device tensor the host rewrites between batches), each
+    window's pipeline outputs are zeroed on inactive rows (the step masks
+    its own), and the bank marks ring rows valid per env: window 0's
+    transition closes a pair begun in the last batch, so it is valid only
+    where ``prev_ok & active`` (a slot attached this batch has no previous
+    window), later windows wherever ``active``. The scalar cursor chain,
+    and with it every ring position, is the dense engine's."""
     step, bank = decide
+    active = dstate.active
     outs, trans = [], []
     for k in range(raws.values.shape[0]):
         raw = RawWindow(raws.values[k], raws.timestamps[k], raws.valid[k])
         state, feats, frame = tick(cfg, state, raw, window_starts[k])
+        if active is not None:
+            feats = mask_env_rows(feats, active)
+            frame = mask_env_rows(frame, active)
         dstate, (actions, reward, per_term, violated), tr = step(dstate,
                                                                  feats)
         outs.append(DecideBatch(actions, reward, per_term, violated,
@@ -260,23 +330,35 @@ def run_many_decide(cfg: PipelineConfig, decide, state: PipelineState,
                                 _counts(frame.anomalous)))
         trans.append(tr)
     stacked = tuple(torch.stack(x) for x in zip(*trans))
-    dstate = dstate._replace(replay=bank(dstate.replay, stacked))
+    if active is None:
+        dstate = dstate._replace(replay=bank(dstate.replay, stacked))
+    else:
+        K = len(trans)
+        env_mask = torch.cat([(active & dstate.prev_ok)[None],
+                              active[None].expand(K - 1, -1)])
+        dstate = dstate._replace(
+            replay=bank(dstate.replay, stacked, env_mask=env_mask),
+            prev_ok=dstate.prev_ok | active)
     return state, dstate, DecideBatch(*(torch.stack(x) for x in zip(*outs)))
 
 
 class PerceptaPipeline:
-    """User-facing handle; ``mode`` is ``fused``, ``scan`` or
+    """User-facing handle; ``mode`` is ``fused``, ``modular``, ``scan`` or
     ``scan_fused_decide``.
 
-    ``run_tick`` runs one window in any mode; :meth:`run_many` runs a
-    K-window batch, and :meth:`run_many_decide` a K-window batch with the
-    decision step (``scan_fused_decide`` only, which needs ``decide=``; the
-    decision carry is passed to each call). Other modes of the reference raise and name the
-    ROADMAP item that brings them. ``device=None`` means the CUDA card.
+    ``run_tick`` runs one window in any mode (stage by stage in
+    ``modular``); :meth:`run_many` runs a K-window batch, and
+    :meth:`run_many_decide` a K-window batch with the decision step
+    (``scan_fused_decide`` only, which needs ``decide=``; the decision
+    carry is passed to each call). ``elastic=True`` marks the env axis a
+    slot pool: :meth:`run_many` then takes the (E,) ``active`` mask (the
+    fused-decide mode carries it in the decide state). Other modes of the
+    reference raise and name the ROADMAP item that brings them.
+    ``device=None`` means the CUDA card.
     """
 
     def __init__(self, cfg: PipelineConfig, mode: str = "fused",
-                 device=None, decide=None):
+                 device=None, decide=None, elastic: bool = False):
         if mode in NOT_PORTED_MODES:
             raise ValueError(f"pipeline mode {mode!r} is not ported yet: "
                              f"{NOT_PORTED_MODES[mode]}")
@@ -288,15 +370,21 @@ class PerceptaPipeline:
         self.mode = mode
         self.device = resolve_device(device)
         self.decide = decide
+        self.elastic = bool(elastic)
 
     def init_state(self):
         return init_state(self.cfg, self.device)
 
-    def run_many(self, state, raws: RawWindow, window_starts):
+    def run_many(self, state, raws: RawWindow, window_starts, active=None):
+        """K windows in one call; ``active`` (E,) bool is required iff the
+        pipeline is elastic."""
         if self.mode == "scan_fused_decide":
             raise RuntimeError("scan_fused_decide carries a decide state: "
                                "use run_many_decide(state, dstate, ...)")
-        return run_many(self.cfg, state, raws, window_starts)
+        if self.elastic != (active is not None):
+            raise ValueError("an elastic pipeline takes the (E,) active "
+                             "mask with every batch, a dense one none")
+        return run_many(self.cfg, state, raws, window_starts, active)
 
     def run_many_decide(self, state, dstate, raws: RawWindow,
                         window_starts):
@@ -306,8 +394,13 @@ class PerceptaPipeline:
         if self.mode != "scan_fused_decide":
             raise RuntimeError(f"run_many_decide needs mode "
                                f"'scan_fused_decide', not {self.mode!r}")
+        if self.elastic != (dstate.active is not None):
+            raise ValueError("an elastic pipeline's decide state carries "
+                             "the active/prev_ok masks, a dense one none")
         return run_many_decide(self.cfg, self.decide, state, dstate, raws,
                                window_starts)
 
     def run_tick(self, state, raw: RawWindow, window_start):
+        if self.mode == "modular":
+            return modular_tick(self.cfg, state, raw, window_start)
         return tick(self.cfg, state, raw, window_start)

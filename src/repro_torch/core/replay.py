@@ -56,11 +56,14 @@ def init(E, capacity, n_features, n_actions, device="cpu") -> ReplayBuffer:
 
 
 def add(buf: ReplayBuffer, obs, actions, rewards, next_obs,
-        tick_idx, version=0) -> ReplayBuffer:
+        tick_idx, version=0, env_mask=None) -> ReplayBuffer:
     """Write one tick for every env at the ring position, in place.
 
     ``tick_idx`` and ``version`` are scalars or (E,), stored as int32.
-    Returns ``buf`` (the same tensors, updated)."""
+    ``env_mask`` (E,) bool marks the rows live this tick (elastic slot
+    pools) and lands in ``valid``; None means every row. Every row is
+    written either way: the cursor is shared by all slots. Returns ``buf``
+    (the same tensors, updated)."""
     E = buf.obs.shape[0]
     slot = torch.remainder(buf.cursor, buf.capacity).to(torch.int64)
     slot = slot.reshape(1)
@@ -76,24 +79,26 @@ def add(buf: ReplayBuffer, obs, actions, rewards, next_obs,
     put(buf.next_obs, next_obs)
     put(buf.tick_idx, tick_idx)
     put(buf.version, version)
-    put(buf.valid, True)
+    put(buf.valid, True if env_mask is None else env_mask)
     buf.cursor.add_(1)
     return buf
 
 
 def add_many(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
-             mask=None, version=None) -> ReplayBuffer:
+             mask=None, version=None, env_mask=None) -> ReplayBuffer:
     """Write K stacked ticks (leading K axis on every argument; ``tick_idx``
     is (K,)) as K sequential :func:`add` calls, so write order, cursor
     advance and wraparound — even K > capacity — are exactly those of the
     sequential writes. ``mask`` (K,) bools, known on the host, skips rows
-    without advancing the cursor."""
+    without advancing the cursor; ``env_mask`` (K, E) bool is each
+    window's row liveness (:func:`add`)."""
     K = obs.shape[0]
     mask = [True] * K if mask is None else [bool(m) for m in mask]
     for k in range(K):
         if mask[k]:
             add(buf, obs[k], actions[k], rewards[k], next_obs[k],
-                tick_idx[k], 0 if version is None else version[k])
+                tick_idx[k], 0 if version is None else version[k],
+                None if env_mask is None else env_mask[k])
     return buf
 
 
@@ -113,10 +118,10 @@ def add_batch(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
     takes the masked row that lands there (``searchsorted`` over the
     running count of masked rows), the others keep their old contents.
     Every touched slot is written exactly once, and only L slots move.
-    ``env_mask`` (elastic env pools) is refused."""
-    if env_mask is not None:
-        raise ValueError("add_batch(env_mask=...): elastic env pools are "
-                         "not ported yet: ROADMAP.md queue 1 item 10")
+    ``env_mask`` (K, E) bool is each window's row liveness (elastic slot
+    pools): ring positions depend on the scalar ``mask`` chain alone, and
+    ``env_mask`` lands only in the ``valid`` values, gathered like every
+    other leaf."""
     K = obs.shape[0]
     E, C = buf.obs.shape[:2]
     dev = buf.obs.device
@@ -148,7 +153,8 @@ def add_batch(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
     put(buf.next_obs, next_obs)
     put(buf.tick_idx, tick_idx)
     put(buf.version, version)
-    put(buf.valid, torch.ones((K,), dtype=torch.bool, device=dev))
+    put(buf.valid, torch.ones((K,), dtype=torch.bool, device=dev)
+        if env_mask is None else env_mask)
     buf.cursor.copy_(total)
     return buf
 

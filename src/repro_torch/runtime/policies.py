@@ -7,7 +7,9 @@ reference's, through ``convert.policy_params_from_numpy``); without it the
 weights come from ``torch.Generator().manual_seed(seed)``, which draws
 different numbers from the reference's JAX generator at the same seed.
 Every dot is multiply + sum over the contracted dim (``_rowdot``), so its
-rounding depends only on that dim, never on the number of env rows.
+rounding depends only on that dim, never on the number of env rows; every
+transcendental function of per-env values goes through
+``predictor.rowwise``, whose rounding does not depend on it either.
 ``linear`` and ``mlp`` are stateless (``apply(params, feats)``), so the
 online trainer can train them; ``rglru`` and ``rwkv6`` keep per-env
 recurrent state in their carry leaves (row i's state in row i).
@@ -23,7 +25,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.runtime.predictor import ModelAdapter, linear_policy
+from repro_torch.runtime.predictor import (ModelAdapter, linear_policy,
+                                           rowwise)
 
 def _rowdot(x, w):
     """``x (..., F) @ w (F, H)`` as multiply + sum over F, so the add order
@@ -32,7 +35,7 @@ def _rowdot(x, w):
 
 
 def _scale(logits, low, high):
-    return torch.tanh(logits) * (high - low) / 2 + (high + low) / 2
+    return rowwise(torch.tanh, logits) * (high - low) / 2 + (high + low) / 2
 
 
 def linear_builder(n_features: int, n_actions: int, n_envs: int = None,
@@ -63,8 +66,8 @@ def mlp_builder(n_features: int, n_actions: int, n_envs: int = None,
     def apply(params, feats):
         h = _rowdot(feats, params["w1"])
         g = _rowdot(feats, params["w3"])
-        return _scale(_rowdot(nn.functional.silu(g) * h, params["w2"]),
-                      low, high)
+        return _scale(_rowdot(rowwise(nn.functional.silu, g) * h,
+                              params["w2"]), low, high)
 
     return ModelAdapter(lambda feats: apply(params, feats), "mlp_policy",
                         params=params, apply=apply)
@@ -109,12 +112,13 @@ class RGLRUPolicy(nn.Module):
     def forward(self, feats, carry):
         h = carry["h"]                                   # (E, H)
         u = _rowdot(feats, self.w_in)                    # (E, H)
-        r = torch.sigmoid(u * self.w_a[None] + self.b_a[None])
-        i = torch.sigmoid(u * self.w_i[None] + self.b_i[None])
+        r = rowwise(torch.sigmoid, u * self.w_a[None] + self.b_a[None])
+        i = rowwise(torch.sigmoid, u * self.w_i[None] + self.b_i[None])
         log_a = -8.0 * nn.functional.softplus(self.lam)[None] * r
         gated = i * u
-        b = (1.0 - torch.exp(2.0 * log_a)).clamp(min=1e-12).sqrt() * gated
-        a3, b3 = torch.exp(log_a)[:, None, :], b[:, None, :]
+        b = (1.0 - rowwise(torch.exp, 2.0 * log_a)).clamp(min=1e-12) \
+            .sqrt() * gated
+        a3, b3 = rowwise(torch.exp, log_a)[:, None, :], b[:, None, :]
         if self.use_kernel:
             from repro_torch.kernels.rglru_scan.ops import rglru_scan
             _, h_new = rglru_scan(a3, b3, h)
@@ -179,12 +183,12 @@ def rwkv6_builder(n_features: int, n_actions: int, n_envs: int = None,
         v = _rowdot(mixed[2], params["w_v"])
         lw = _rowdot(mixed[3], params["w_decay"]) \
             + params["decay_base"][None]
-        log_w = torch.clamp(-torch.exp(torch.clamp(lw, -8.0, 3.0)),
+        log_w = torch.clamp(-rowwise(torch.exp, torch.clamp(lw, -8.0, 3.0)),
                             -20.0, -1e-5)
         kv = k[..., :, None] * v[..., None, :]           # (E, D, D)
         att = S + params["bonus"][None, :, None] * kv
         out = (r[..., :, None] * att).sum(-2)            # einsum('ek,ekv->ev')
-        S_new = torch.exp(log_w)[..., :, None] * S + kv
+        S_new = rowwise(torch.exp, log_w)[..., :, None] * S + kv
         actions = _scale(_rowdot(out, params["w_o"]), low, high)
         return actions, {"shift": feats, "wkv": S_new}
 

@@ -25,6 +25,13 @@ Three consume paths:
 Long-horizon time rule: the replay ring stores the exact int32 tick index;
 absolute float64 tick times are mirrored host-side in ``_replay_times``
 and re-attached by :meth:`export_replay`.
+
+Elastic slot pools: every consume path takes the (E,) bool ``active`` and
+``prev_ok`` masks (``DecideState.active``/``prev_ok`` on the fused path).
+Outputs are zeroed on inactive rows by ``torch.where`` and replay rows are
+marked valid only where a live env closes a real prev -> next pair;
+:meth:`clear_env_rows` and :meth:`grow_envs` are the attach/detach and
+regrow hooks.
 """
 from __future__ import annotations
 
@@ -59,8 +66,14 @@ class DecideState(NamedTuple):
     params (``{}`` for closure-only models), ``carry`` the recurrent model
     state of a stateful policy (``None`` otherwise). ``replay`` is the
     ring: it stays out of the K loop and is written once per batch by
-    :class:`DecideFns`' ``bank``. The elastic ``active``/``prev_ok``
-    leaves of the reference are not ported (ROADMAP.md queue 1 item 10).
+    :class:`DecideFns`' ``bank``.
+
+    ``active``/``prev_ok`` are the elastic slot-pool masks, (E,) bool
+    device tensors (``None`` for a dense system): ``active`` marks the
+    slots live this batch, ``prev_ok`` the slots that have produced a
+    window since they last attached (the per-env twin of ``have_prev``).
+    The host rewrites them in place between batches, never per row from
+    Python values, so a membership change keeps every shape and tensor.
     """
     prev_obs: torch.Tensor      # (E, F)
     prev_actions: torch.Tensor  # (E, A)
@@ -71,6 +84,8 @@ class DecideState(NamedTuple):
     version: torch.Tensor       # () int32
     prev_version: torch.Tensor  # () int32
     carry: object = None
+    active: Optional[torch.Tensor] = None   # (E,) bool slot mask
+    prev_ok: Optional[torch.Tensor] = None  # (E,) bool per-env have-prev
 
 
 class DecideFns(NamedTuple):
@@ -80,8 +95,9 @@ class DecideFns(NamedTuple):
     per_term, violated), transition)`` runs one window's decision math;
     ``transition`` is the ``(prev_obs, prev_actions, reward, next_obs,
     tick, version, have_prev)`` row the window banks. ``bank(ReplayBuffer,
-    stacked transitions) -> ReplayBuffer`` writes the K stacked rows after
-    the loop (``replay.add_batch``)."""
+    stacked transitions, env_mask=None) -> ReplayBuffer`` writes the K
+    stacked rows after the loop (``replay.add_batch``); ``env_mask`` (K, E)
+    bool is the elastic row liveness that lands in ``valid``."""
     step: Callable
     bank: Callable
 
@@ -163,6 +179,25 @@ def policy_call2(model):
     return apply2, params, None
 
 
+def rowwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn`` (tanh, sigmoid, silu, exp...),
+    each element rounded the same whatever the tensor's length, so a row's
+    bits never depend on the number of env rows. On the CPU, PyTorch's
+    vectorized kernels compute the last ``len % (2 x vector width)``
+    elements of a tensor with scalar code, which rounds sigmoid, silu and
+    softplus an ulp apart from the vector code: a pool of E slots and a
+    dense system of fewer rows then gave a live row different bits. Here
+    the CPU computes over a copy padded to a multiple of 64 elements (no
+    scalar tail at any vector width). The card computes every element
+    with the same code, so CUDA tensors go straight through."""
+    if x.is_cuda:
+        return fn(x)
+    flat = x.reshape(-1)
+    n = flat.numel()
+    return fn(torch.nn.functional.pad(flat, (0, -n % 64)))[:n] \
+        .reshape(x.shape)
+
+
 def linear_policy(n_features: int, n_actions: int, seed: int = 0,
                   low=-1.0, high=1.0, *, params=None,
                   device=None) -> ModelAdapter:
@@ -186,7 +221,8 @@ def linear_policy(n_features: int, n_actions: int, seed: int = 0,
     # never on the number of env rows
     def apply(params, feats):
         logits = (feats[..., :, None] * params["w"]).sum(-2)
-        return torch.tanh(logits) * (high - low) / 2 + (high + low) / 2
+        return rowwise(torch.tanh, logits) * (high - low) / 2 \
+            + (high + low) / 2
 
     return ModelAdapter(lambda feats: apply(params, feats), "linear_policy",
                         params=params, apply=apply)
@@ -246,6 +282,12 @@ class Predictor:
         actions, violated = validate_actions(actions, self._low, self._high)
         return actions, violated, mcarry
 
+    def _mask(self, x):
+        """An (E,) bool host or device mask as a device tensor (None
+        passes through)."""
+        return None if x is None else torch.as_tensor(
+            x, device=self.device).to(torch.bool)
+
     # --- fused decision path (mode="scan_fused_decide") --------------------
     def decide_state(self) -> DecideState:
         """The current decision state as the fused engine's device carry.
@@ -294,7 +336,9 @@ class Predictor:
         carried device ``tick``: nothing in it reads a device value on the
         host. ``bank`` writes the K stacked transitions in one
         ``replay.add_batch`` (guarded by the carried ``have_prev`` chain),
-        bit-identical to K guarded sequential ``add`` calls."""
+        bit-identical to K guarded sequential ``add`` calls. With the
+        elastic masks in the carry, ``step`` zeroes its outputs on
+        inactive rows (``torch.where``: live rows keep their bits)."""
         apply2, spec = self._apply2, self.reward_spec
         low, high = self._low, self._high
         true = torch.ones((), dtype=torch.bool, device=self.device)
@@ -305,6 +349,9 @@ class Predictor:
             actions, violated = validate_actions(actions, low, high)
             reward, per_term = spec.compute(feats.raw, actions,
                                             carry.prev_actions)
+            if carry.active is not None:
+                actions, reward, per_term, violated = _mask_outputs(
+                    carry.active, actions, reward, per_term, violated)
             # the transition entering this window, attributed to the
             # version that produced its action
             transition = (carry.prev_obs, carry.prev_actions, reward,
@@ -317,11 +364,11 @@ class Predictor:
                                  carry=new_mcarry)
             return new, (actions, reward, per_term, violated), transition
 
-        def bank(replay, transitions):
+        def bank(replay, transitions, env_mask=None):
             obs, actions, rewards, next_obs, tick, version, mask = \
                 transitions
             return rp.add_batch(replay, obs, actions, rewards, next_obs,
-                                tick, mask, version)
+                                tick, mask, version, env_mask=env_mask)
 
         return DecideFns(step, bank)
 
@@ -343,20 +390,28 @@ class Predictor:
                 self._replay_times[(idx - 1) % C] = float(t)
 
     @torch.no_grad()
-    def on_tick(self, features, tick_time, raw=None):
+    def on_tick(self, features, tick_time, raw=None, active=None,
+                prev_ok=None):
         """features: (E, F) device tensor; returns host actions, rewards
-        and per-term rewards. The per-window reference path."""
+        and per-term rewards. The per-window reference path. ``active`` /
+        ``prev_ok`` (E,) bool are the elastic slot-pool masks (None for a
+        dense system)."""
         raw = features if raw is None else raw
+        active, prev_ok = self._mask(active), self._mask(prev_ok)
         idx = self.stats["ticks"]
         actions, violated, self._model_carry = self._decide(
             features, self._model_carry)
         reward, per_term = self.reward_spec.compute(
             raw, actions, self._prev["actions"])
+        if active is not None:
+            actions, reward, per_term, violated = _mask_outputs(
+                active, actions, reward, per_term, violated)
         if self._prev["have"]:
             rp.add(self.replay, self._prev["obs"], self._prev["actions"],
                    reward, features,
                    torch.tensor(idx, dtype=torch.int32),
-                   self._prev["version"])
+                   self._prev["version"],
+                   None if active is None else active & prev_ok)
         self._record_times(idx, [tick_time])
         self._prev = {"obs": features, "actions": actions, "have": True,
                       "version": self.policy_version}
@@ -366,14 +421,18 @@ class Predictor:
                 per_term.cpu().numpy())
 
     @torch.no_grad()
-    def on_windows(self, features, tick_times, raw=None):
+    def on_windows(self, features, tick_times, raw=None, active=None,
+                   prev_ok=None):
         """Consume a K-window stack. ``features``/``raw``: (K, E, F) (raw
         defaults to features); ``tick_times``: K absolute window-end times
         (host float64, never sent to the device). Returns host ``(actions
         (K, E, A), rewards (K, E), per_term (K, E, n_terms))`` —
         bit-identical to K sequential :meth:`on_tick` calls, replay
-        contents and stats included."""
+        contents and stats included. ``active``/``prev_ok`` (E,) bool are
+        the elastic slot-pool masks (membership is constant within a
+        batch)."""
         raw = features if raw is None else raw
+        active, prev_ok = self._mask(active), self._mask(prev_ok)
         K = features.shape[0]
         if K < 1 or len(tick_times) != K:
             raise ValueError(f"on_windows: {K} windows, "
@@ -387,9 +446,22 @@ class Predictor:
             viols.append(v)
         actions = torch.stack(acts)
         violated = torch.stack(viols)
+        if active is not None:
+            # zero the inactive rows BEFORE the prev chain forms, so they
+            # carry zeros into the shifted stack as on_tick's do
+            actions = torch.where(active[:, None], actions, 0.0)
+            violated = active & violated
         prev_act_seq = torch.cat([self._prev["actions"][None], actions[:-1]])
         rewards, per_term = self.reward_spec.compute(raw, actions,
                                                      prev_act_seq)
+        env_mask = None
+        if active is not None:
+            rewards = torch.where(active, rewards, 0.0)
+            per_term = torch.where(active[:, None], per_term, 0.0)
+            # window 0 closes a pair begun in the last batch (prev_ok);
+            # later windows need only active
+            env_mask = torch.cat([(active & prev_ok)[None],
+                                  active[None].expand(K - 1, -1)])
         # transition j stores (obs/actions entering window j, reward j,
         # next_obs = window j's features); only row 0 can lack a
         # predecessor, and only row 0's action can carry an earlier version
@@ -398,7 +470,7 @@ class Predictor:
         mask = [self._prev["have"]] + [True] * (K - 1)
         versions = [self._prev["version"]] + [self.policy_version] * (K - 1)
         rp.add_many(self.replay, prev_obs_seq, prev_act_seq, rewards,
-                    features, tick_idx, mask, versions)
+                    features, tick_idx, mask, versions, env_mask)
         self._record_times(base, tick_times)
         self._prev = {"obs": features[-1], "actions": actions[-1],
                       "have": True, "version": self.policy_version}
@@ -412,3 +484,65 @@ class Predictor:
         absolute times re-attached from the host mirror."""
         return rp.export_for_training(self.replay, env_ids, salt,
                                       slot_times=self._replay_times)
+
+    # --- elastic slot-pool hooks (PerceptaSystem(elastic=True)) ------------
+    def clear_env_rows(self, slots) -> None:
+        """Scrub recycled slots (scan-mode attach/detach): zero their prev
+        rows, reset their model-carry rows from ``init_carry`` and mark
+        every replay cell of theirs invalid, so a later tenant never sees,
+        or banks against, the departed env's transitions. The prev and
+        carry rows are rewritten as new tensors (the old ones may be views
+        of a batch's outputs); ``valid`` is written in place, as the ring
+        always is, on the device's stream after the last batch's reads."""
+        from repro_torch.distribution import elastic as el
+
+        slots = [int(s) for s in np.asarray(slots).reshape(-1)]
+        if not slots:
+            return
+        zeros = {"obs": torch.zeros_like(self._prev["obs"]),
+                 "actions": torch.zeros_like(self._prev["actions"])}
+        for k in zeros:
+            self._prev[k] = el.reset_env_rows(self._prev[k], zeros[k],
+                                              slots)
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        self.replay.valid.index_fill_(0, idx, False)
+        if self._model_carry is not None:
+            self._model_carry = el.reset_env_rows(
+                self._model_carry, self.model.init_carry(self.n_envs), slots)
+
+    def grow_envs(self, n_envs_new: int) -> None:
+        """Pad the env axis of every per-env structure (ring, prev rows,
+        model carry) to ``n_envs_new`` slots (elastic pool regrow). New
+        rows come from a fresh init template, never raw zeros where the
+        init is not zero, and existing rows are copied bit for bit. The
+        float64 time mirror is slot-aligned with the ring's capacity, not
+        its env rows, so it carries over as it is."""
+        from repro_torch.distribution import elastic as el
+
+        old_e = self.n_envs
+        if n_envs_new <= old_e:
+            raise ValueError(f"grow_envs: {n_envs_new} slots, the pool has "
+                             f"{old_e}")
+        self.n_envs = n_envs_new
+        self.replay = el.grow_env_tree(
+            self.replay, rp.init(n_envs_new, self.replay.capacity,
+                                 self.n_features, self.action_space.n,
+                                 device=self.device), old_e)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        for k, width in (("obs", self.n_features),
+                         ("actions", self.action_space.n)):
+            self._prev[k] = el.grow_env_tree(
+                self._prev[k], torch.zeros((n_envs_new, width), **f32),
+                old_e)
+        if self._model_carry is not None:
+            self._model_carry = el.grow_env_tree(
+                self._model_carry, self.model.init_carry(n_envs_new), old_e)
+
+
+def _mask_outputs(active, actions, reward, per_term, violated):
+    """Zero a window's decision outputs on the inactive rows of ``active``
+    (E,) bool, by ``torch.where``: live rows keep their bits."""
+    return (torch.where(active[:, None], actions, 0.0),
+            torch.where(active, reward, 0.0),
+            torch.where(active[:, None], per_term, 0.0),
+            active & violated)

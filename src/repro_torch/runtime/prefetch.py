@@ -22,13 +22,15 @@ deterministic batch-epoch handoff:
     card, at most one staged ahead), which also bounds host memory; at
     most three batches are alive at once (assembling, staged, in flight),
     which sizes the system's staging pool (``PerceptaSystem._STAGE_DEPTH``);
-  * the Manager takes batches in epoch order and checks the tag of each.
+  * the Manager takes batches in epoch order and checks the tag of each;
+  * every plan also carries the env-membership epoch it was built under,
+    echoed on its batch, so an elastic system can check that no plan
+    built before an attach, detach or resize is consumed after it
+    (:meth:`WindowPrefetcher.in_flight` is 0 at a true batch boundary).
 
 An exception in the pump thread (a CUDA error of its copy included) is
 captured and re-raised in the Manager thread at the handoff, and the
-prefetcher stays failed: nothing is swallowed or retried. The reference's
-env-membership tag (elastic pools, ROADMAP.md queue 1 item 10) is not
-ported.
+prefetcher stays failed: nothing is swallowed or retried.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class BatchPlan(NamedTuple):
     epoch: int                 # strictly increasing handoff tag
     bounds: List[Tuple[float, float]]
     pump: bool                 # advance the clock + poll receivers first
+    membership: int = 0        # env-membership epoch the plan was built under
 
 
 class AssembledBatch(NamedTuple):
@@ -48,6 +51,7 @@ class AssembledBatch(NamedTuple):
     bounds: List[Tuple[float, float]]
     raw: object                # RawWindow (K, E, S, M), window-relative ts
     counts: List[int]
+    membership: int = 0        # echoed from the plan; the Manager checks it
 
 
 class _PumpError(NamedTuple):
@@ -106,15 +110,20 @@ class WindowPrefetcher:
         self._next_consume = 0
 
     # --- Manager side --------------------------------------------------------
-    def submit(self, bounds, pump: bool = True) -> int:
-        """Queue one batch plan; returns its epoch tag."""
+    def submit(self, bounds, pump: bool = True, membership: int = 0) -> int:
+        """Queue one batch plan, tagged with the env-membership epoch it
+        was built under; returns its epoch tag."""
         if self._failed is not None:
             raise RuntimeError("window prefetcher failed") from self._failed
         self._ensure_thread()
         epoch = self._next_submit
         self._next_submit += 1
-        self._tasks.put(BatchPlan(epoch, list(bounds), pump))
+        self._tasks.put(BatchPlan(epoch, list(bounds), pump, membership))
         return epoch
+
+    def in_flight(self) -> int:
+        """Plans submitted and not yet consumed (0 at a batch boundary)."""
+        return self._next_submit - self._next_consume
 
     def next_batch(self, timeout: float = 600.0) -> AssembledBatch:
         """Block for the next assembled batch, checking the epoch handoff.
@@ -156,5 +165,6 @@ class WindowPrefetcher:
                 self._put_ready(_PumpError(task.epoch, e))
                 return
             if not self._put_ready(AssembledBatch(task.epoch, task.bounds,
-                                                  raw, counts)):
+                                                  raw, counts,
+                                                  task.membership)):
                 return

@@ -1,5 +1,5 @@
 """PerceptaSystem — port of ``repro.runtime.system`` for the ``fused``,
-``scan``, ``scan_fused_decide``, ``scan_async`` and
+``modular``, ``scan``, ``scan_fused_decide``, ``scan_async`` and
 ``scan_fused_decide_async`` Manager loops.
 
 All environments are rows of the batched device pipeline; isolation is by
@@ -8,11 +8,16 @@ Time is virtual (``speedup``, or ``manual_time`` for deterministic runs).
 
 ``mode="fused"``: :meth:`run_window` closes each env's window, runs one
 pipeline tick and one ``Predictor.on_tick``, forwards the decisions and
-logs them. ``mode="scan"``: queues are drained once per batch, each env's
-Accumulator closes K consecutive windows straight into (K, E, S, M)
-staging buffers, one ``PerceptaPipeline.run_many`` processes the batch on
-the device, and one ``Predictor.on_windows`` consumes it; host sinks see
-one result row per window, in window order, bit-identical to ``fused``.
+logs them; ``mode="modular"`` runs the same loop with the tick stage by
+stage, the host waiting for the card after each stage (the paper's
+architecture as drawn; bit-identical to ``fused``). ``mode="scan"``:
+queues are drained once per batch, each env's Accumulator closes K
+consecutive windows straight into (K, E, S, M) staging buffers, one
+``PerceptaPipeline.run_many`` processes the batch on the device, and one
+``Predictor.on_windows`` consumes it (``batched_consume=False``: one
+``Predictor.on_tick`` a window, the reference path the batched one
+equals); host sinks see one result row per window, in window order,
+bit-identical to ``fused``.
 
 ``mode="scan_fused_decide"``: the Predictor's per-window step (policy,
 ``validate_actions``, reward) runs inside the pipeline's K loop
@@ -60,11 +65,27 @@ off, or before the first applied step, the decide path is bit-identical
 to the untrained fused modes. Accessors: :meth:`policy_version`,
 :meth:`snapshot_policy`, :meth:`train_stats`, :meth:`restore_training`.
 
+``elastic=True`` (scan modes only) makes the env axis a slot pool of
+``env_slots`` rows. An ``active`` (E,) bool device mask (in the scan
+modes an input of every ``run_many``, in the fused-decide modes the
+``DecideState.active``/``prev_ok`` carry leaves) marks the live slots,
+and :meth:`attach_env` / :meth:`detach_env` change it between window
+batches only (in the async modes the prefetcher's membership tag checks
+that). A membership change rewrites the mask tensors in place; no shape
+changes. Inactive slots get all-invalid windows (their state updates are
+no-ops) and zeros on every output, and no host sink sees them (stats,
+LogDB, forwarders, replay export); live rows equal a dense system's over
+the same envs bit for bit. A full pool grows by :meth:`resize`
+(``distribution.elastic``): every env-leading tree is padded from a fresh
+init template, the pipeline is rebuilt at the new width and the staging
+pool dropped; surviving rows resume bit for bit.
+
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP item:
-the ``_sharded`` modes, ``elastic`` and ``scan_k="auto"``.
+the ``_sharded`` modes and ``scan_k="auto"``.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -76,6 +97,7 @@ import torch
 from repro_torch.core import PerceptaPipeline, PipelineConfig
 from repro_torch.core.frame import make_raw_window
 from repro_torch.device import resolve_device
+from repro_torch.distribution import elastic as el
 from repro_torch.runtime.accumulator import Accumulator
 from repro_torch.runtime.forwarder import ForwarderHub
 from repro_torch.runtime.predictor import Predictor
@@ -89,12 +111,14 @@ from repro_torch.runtime.translator import Translator
 # scan engines and differ only in how the Manager overlaps host assembly
 _PIPELINE_MODE = {
     "fused": "fused",
+    "modular": "modular",
     "scan": "scan",
     "scan_async": "scan",
     "scan_fused_decide": "scan_fused_decide",
     "scan_fused_decide_async": "scan_fused_decide",
 }
 _ASYNC_MODES = ("scan_async", "scan_fused_decide_async")
+_SCAN_MODES = ("scan", "scan_fused_decide") + _ASYNC_MODES
 _NOT_PORTED_MODES = {
     "scan_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
     "scan_async_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
@@ -119,6 +143,7 @@ class PerceptaSystem:
                  mode: str = "fused", speedup: float = 60.0,
                  t0: float = 0.0, manual_time: bool = False,
                  scan_k=8, ingest: str = "columnar",
+                 batched_consume: bool = True,
                  train: Optional[str] = None,
                  train_cfg: Optional[dict] = None, policy=None,
                  env_slots: Optional[int] = None, elastic: bool = False,
@@ -129,9 +154,10 @@ class PerceptaSystem:
                              f"{_NOT_PORTED_MODES[mode]}")
         if mode not in _PIPELINE_MODE:
             raise ValueError(f"unknown mode {mode!r}")
-        if elastic or (env_slots is not None and env_slots != len(env_ids)):
-            raise ValueError("elastic env pools are not ported yet: "
-                             "ROADMAP.md queue 1 item 10")
+        if elastic and mode not in _SCAN_MODES:
+            raise ValueError(
+                "elastic=True needs a scan engine (the active mask rides "
+                f"the batch); mode {mode!r} runs one window at a time")
         if train is not None and train != "online":
             raise ValueError(f"unknown train mode {train!r} "
                              "(expected None or 'online')")
@@ -146,8 +172,39 @@ class PerceptaSystem:
         if predictor.device != self.device:
             raise ValueError(f"predictor lives on {predictor.device}, the "
                              f"system on {self.device}")
-        if pipeline_cfg.n_envs != len(env_ids):
-            raise ValueError("pipeline_cfg.n_envs must equal len(env_ids)")
+        # elastic: the env axis is a slot pool of env_slots rows, of which
+        # the masked subset is live (module docstring)
+        self.elastic = bool(elastic)
+        if self.elastic:
+            slots = int(env_slots) if env_slots is not None \
+                else pipeline_cfg.n_envs
+            if len(env_ids) > slots:
+                raise ValueError(f"elastic: {len(env_ids)} envs do not fit "
+                                 f"{slots} slots")
+            if pipeline_cfg.n_envs != slots:
+                raise ValueError("elastic: pipeline_cfg.n_envs must equal "
+                                 f"env_slots ({pipeline_cfg.n_envs} != "
+                                 f"{slots})")
+            if predictor.n_envs != slots:
+                raise ValueError("elastic: build the Predictor at env_slots "
+                                 f"rows ({predictor.n_envs} != {slots})")
+            self.env_slots: Optional[int] = slots
+            self._slot_env: List[Optional[str]] = \
+                list(env_ids) + [None] * (slots - len(env_ids))
+            self._free_slots: List[int] = list(range(len(env_ids), slots))
+            # host mirrors of the device masks
+            self._active = np.zeros(slots, bool)
+            self._active[:len(env_ids)] = True
+            self._prev_ok = np.zeros(slots, bool)
+        else:
+            if env_slots is not None and env_slots != len(env_ids):
+                raise ValueError("env_slots beyond len(env_ids) requires "
+                                 "elastic=True")
+            if pipeline_cfg.n_envs != len(env_ids):
+                raise ValueError("pipeline_cfg.n_envs must equal "
+                                 "len(env_ids)")
+            self.env_slots = None
+        self._membership_epoch = 0
         if pipeline_cfg.n_streams != len(sources):
             raise ValueError("pipeline_cfg.n_streams must equal "
                              "len(sources)")
@@ -172,8 +229,17 @@ class PerceptaSystem:
         # fused-decide: the Predictor hands its decision state over as the
         # device carry and only keeps host bookkeeping (absorb_fused)
         decide = predictor.make_decide_fn() if self.fused_decide else None
+        self._decide = decide
         self._dstate = predictor.decide_state() if self.fused_decide \
             else None
+        if self.elastic:
+            # the masks live on the card: in the fused carry, or beside the
+            # state for the scan modes' run_many and on_windows
+            act, ok = self._device_masks()
+            if self.fused_decide:
+                self._dstate = self._dstate._replace(active=act, prev_ok=ok)
+            else:
+                self._active_dev, self._prev_ok_dev = act, ok
         self.scan_k = max(1, int(scan_k))
         self.ingest = ingest
         self.ingest_fastpath = bool(ingest_fastpath)
@@ -188,8 +254,13 @@ class PerceptaSystem:
                 max_workers=self.ingest_workers,
                 thread_name_prefix="percepta-ingest")
         self._stage_pool: Dict[tuple, dict] = {}
+        # scan-mode consume: one Predictor.on_windows a batch (default);
+        # False keeps the per-window on_tick loop, the reference path the
+        # batched one equals bit for bit
+        self.batched_consume = bool(batched_consume)
         self.pipeline = PerceptaPipeline(pipeline_cfg, mode=pipe_mode,
-                                         device=self.device, decide=decide)
+                                         device=self.device, decide=decide,
+                                         elastic=self.elastic)
         self.state = self.pipeline.init_state()
         self._prefetcher: Optional[WindowPrefetcher] = None
         self.predictor = predictor
@@ -248,6 +319,24 @@ class PerceptaSystem:
         self.accumulators[env_id] = Accumulator(env_id, self._stream_names,
                                                 self.cfg.max_samples,
                                                 fastpath=self.ingest_fastpath)
+
+    def _live_slots(self) -> List[tuple]:
+        """``[(slot_row, env_id), ...]`` of the live envs in slot order:
+        ``env_ids`` densely, or the pool's occupied active slots, so host
+        loops (ingest, sinks, stats) never touch a dead row."""
+        if not self.elastic:
+            return list(enumerate(self.env_ids))
+        return [(i, e) for i, e in enumerate(self._slot_env)
+                if e is not None and self._active[i]]
+
+    def _live_rows(self):
+        """``(rows, ids)``: the live slot rows as an int64 index (None for
+        a dense system, whose sinks take every row) and their env ids."""
+        if not self.elastic:
+            return None, self.env_ids
+        live = self._live_slots()
+        return np.asarray([i for i, _ in live], np.int64), \
+            [e for _, e in live]
 
     # --- virtual clock -------------------------------------------------------
     def now(self) -> float:
@@ -392,7 +481,8 @@ class PerceptaSystem:
         E = self.cfg.n_envs
         K = len(bounds)
         starts = np.asarray([b[0] for b in bounds], np.float64)
-        live = list(enumerate(self.env_ids))
+        # free and inactive slots keep their all-invalid zero rows
+        live = self._live_slots()
         values, ts, valid = self._staging_buffers(K, E)
         counts_arr = np.zeros(K, np.int64)
         if self._ingest_pool is not None and len(live) > 1:
@@ -431,33 +521,59 @@ class PerceptaSystem:
                              device=self.device)
         with torch.no_grad():
             self.state, feats, frames = self.pipeline.run_many(
-                self.state, raw, starts)
+                self.state, raw, starts,
+                self._active_dev if self.elastic else None)
         return feats, frames, t_dispatch
 
     def _consume_scan(self, bounds, counts, feats, frames,
                       t_dispatch) -> List[dict]:
         """Run the batch's host side (Predictor, Forwarders, DB, metrics)
         in window order: one ``Predictor.on_windows`` over the stacked
-        features, then per-window numpy slices for the sinks."""
+        features (or one ``on_tick`` a window, ``batched_consume=False``),
+        then per-window numpy slices for the sinks. Elastic: the Predictor
+        takes the whole pool and the masks, the sinks and stats only the
+        live rows."""
         k = len(bounds)
-        actions_b, rewards_b, _ = self.predictor.on_windows(
-            feats.features, [b[1] for b in bounds], raw=feats.raw)
-        batch_latency = time.time() - t_dispatch
+        rows, ids = self._live_rows()
+        masks = ({"active": self._active_dev, "prev_ok": self._prev_ok_dev}
+                 if self.elastic else {})
+        if self.batched_consume:
+            actions_b, rewards_b, _ = self.predictor.on_windows(
+                feats.features, [b[1] for b in bounds], raw=feats.raw,
+                **masks)
+            self._advance_prev_ok()
+            batch_latency = time.time() - t_dispatch
         # one batch-wide host transfer per leaf; the per-window loop
         # slices numpy
         feat_np = feats.features.cpu().numpy()
+        if not self.batched_consume:
+            batch_latency = time.time() - t_dispatch
         obs_np = frames.observed.cpu().numpy()
         fill_np = frames.filled.cpu().numpy()
         anom_np = frames.anomalous.cpu().numpy()
         out = []
         for j, (t_start, t_end) in enumerate(bounds):
             t_host0 = time.time()
-            actions, rewards = actions_b[j], rewards_b[j]
+            if self.batched_consume:
+                actions, rewards = actions_b[j], rewards_b[j]
+            else:
+                # the per-window step stays inside the timed region, so
+                # latency_s counts the Predictor's time
+                actions, rewards, _ = self.predictor.on_tick(
+                    feats.features[j], t_end, raw=feats.raw[j], **masks)
+                self._advance_prev_ok()
+            feat_j, obs_j, fill_j, anom_j = (feat_np[j], obs_np[j],
+                                             fill_np[j], anom_np[j])
+            if rows is not None:
+                # sinks and stats never see (or average over) a dead
+                # slot's zeros
+                actions, rewards, feat_j, obs_j, fill_j, anom_j = (
+                    x[rows] for x in (actions, rewards, feat_j, obs_j,
+                                      fill_j, anom_j))
             if self.forwarders is not None:
                 self.forwarders.dispatch_window(t_end, actions)
             if self.db is not None:
-                self.db.append_many(self.env_ids, t_end, feat_np[j], actions,
-                                    rewards,
+                self.db.append_many(ids, t_end, feat_j, actions, rewards,
                                     extra={"policy_version":
                                            int(self.predictor.policy_version)})
             self.window_index += 1
@@ -472,13 +588,18 @@ class PerceptaSystem:
                 "latency_s": latency,
                 "mean_reward": float(np.mean(rewards)) if rewards.size
                                else 0.0,
-                "observed_frac": float(obs_np[j].mean())
-                                 if obs_np[j].size else 0.0,
-                "filled_frac": float(fill_np[j].mean())
-                               if fill_np[j].size else 0.0,
-                "anomalous": int(anom_np[j].sum()),
+                "observed_frac": float(obs_j.mean()) if obs_j.size else 0.0,
+                "filled_frac": float(fill_j.mean()) if fill_j.size else 0.0,
+                "anomalous": int(anom_j.sum()),
             })
         return out
+
+    def _advance_prev_ok(self) -> None:
+        """After a consumed window (scan modes): every active slot now has
+        a predecessor, on the host mirror and on the card (in place)."""
+        if self.elastic:
+            self._prev_ok |= self._active
+            self._prev_ok_dev |= self._active_dev
 
     # --- fused-decide operation ------------------------------------------------
     def _dispatch_decide(self, raw, k: int):
@@ -501,6 +622,9 @@ class PerceptaSystem:
         with torch.no_grad():
             self.state, self._dstate, outs = self.pipeline.run_many_decide(
                 self.state, self._dstate, raw, starts)
+        if self.elastic:
+            # host mirror of the carry's prev_ok = prev_ok | active
+            self._prev_ok |= self._active
         if self.trainer is not None:
             self.trainer.dispatch(self._dstate)
         return outs, t_dispatch, ver
@@ -523,17 +647,24 @@ class PerceptaSystem:
             else None
         self.predictor.absorb_fused([b[1] for b in bounds],
                                     outs.violated.cpu().numpy())
-        denom = float(self.cfg.n_envs * self.cfg.n_streams
-                      * self.cfg.n_ticks)
+        # elastic: the counts of inactive rows are zeros, so whole-row sums
+        # are the live rows'; the fractions divide by the live row count
+        rows, ids = self._live_rows()
+        n_rows = self.cfg.n_envs if rows is None else max(len(rows), 1)
+        denom = float(n_rows * self.cfg.n_streams * self.cfg.n_ticks)
         out = []
         for j, (t_start, t_end) in enumerate(bounds):
             t_host0 = time.time()
             actions, rewards = actions_b[j], rewards_b[j]
+            feat_j = feat_np[j] if feat_np is not None else None
+            if rows is not None:
+                actions, rewards = actions[rows], rewards[rows]
+                if feat_j is not None:
+                    feat_j = feat_j[rows]
             if self.forwarders is not None:
                 self.forwarders.dispatch_window(t_end, actions)
             if self.db is not None:
-                self.db.append_many(self.env_ids, t_end, feat_np[j], actions,
-                                    rewards,
+                self.db.append_many(ids, t_end, feat_j, actions, rewards,
                                     extra={"policy_version": version})
             self.window_index += 1
             latency = batch_latency / k + (time.time() - t_host0)
@@ -572,6 +703,162 @@ class PerceptaSystem:
         else:
             while self.now() < t_end:
                 time.sleep(0.001)
+
+    # --- elastic membership (attach / detach / resize) --------------------------
+    def _assert_membership_boundary(self):
+        if not self.elastic:
+            raise ValueError("attach/detach/resize require elastic=True")
+        if self._prefetcher is not None and self._prefetcher.in_flight():
+            raise RuntimeError(
+                "membership changes only at batch boundaries: a window "
+                "batch plan is still in flight (finish run_windows first)")
+
+    def _refresh_env_ids(self):
+        self.env_ids = [e for _, e in self._live_slots()]
+
+    def _export_env_ids(self) -> List[str]:
+        """Slot-table env ids at the full pool width (the replay export
+        keys rows by slot; a free slot gets a placeholder that matches no
+        valid row)."""
+        if not self.elastic:
+            return self.env_ids
+        return [e if e is not None else f"__slot{i}__"
+                for i, e in enumerate(self._slot_env)]
+
+    def _device_masks(self):
+        """Device copies of the host mirrors (never views of them: the
+        mirrors change in place on the host)."""
+        return tuple(torch.tensor(m, dtype=torch.bool, device=self.device)
+                     for m in (self._active, self._prev_ok))
+
+    def _push_masks(self) -> None:
+        """Write the host mirrors into the device masks, in place."""
+        act, ok = ((self._dstate.active, self._dstate.prev_ok)
+                   if self.fused_decide
+                   else (self._active_dev, self._prev_ok_dev))
+        act.copy_(torch.from_numpy(self._active))
+        ok.copy_(torch.from_numpy(self._prev_ok))
+
+    def _scrub_slot(self, slot: int) -> None:
+        """Clear a recycled slot's decision rows (prev rows, model carry,
+        the ring's ``valid``) and push the masks to the card."""
+        if self.fused_decide:
+            d = self._dstate
+            zero = lambda x: el.reset_env_rows(x, torch.zeros_like(x),
+                                               [slot])
+            carry = d.carry
+            if carry is not None:
+                carry = el.reset_env_rows(
+                    carry, self.predictor.model.init_carry(self.cfg.n_envs),
+                    [slot])
+            # the ring is the Predictor's too and is written in place by
+            # every batch; its valid column is scrubbed the same way
+            d.replay.valid[slot] = False
+            self._dstate = d._replace(prev_obs=zero(d.prev_obs),
+                                      prev_actions=zero(d.prev_actions),
+                                      carry=carry)
+        else:
+            self.predictor.clear_env_rows([slot])
+        self._push_masks()
+
+    def attach_env(self, env_id: str) -> int:
+        """Join a new env into the lowest free slot between window batches.
+
+        Only the mask's values change. The slot's pipeline-state rows are
+        reset from a fresh init template (its sentinels, ``prev_ts`` and
+        the norm min/max, are not zeros), its decision rows are scrubbed,
+        and its receiver subscriptions start a fresh poll horizon now. A
+        full pool grows first (:meth:`resize`). Returns the slot row."""
+        self._assert_membership_boundary()
+        if env_id in self.accumulators:
+            raise ValueError(f"env {env_id!r} is already attached")
+        if not self._free_slots:
+            self.resize()
+        slot = self._free_slots.pop(0)
+        self._slot_env[slot] = env_id
+        self._active[slot] = True
+        self._prev_ok[slot] = False
+        self._register_env(env_id)
+        self.state = el.reset_env_rows(self.state,
+                                       self.pipeline.init_state(), [slot])
+        self._scrub_slot(slot)
+        self._refresh_env_ids()
+        self._membership_epoch += 1
+        return slot
+
+    def detach_env(self, env_id: str) -> int:
+        """Remove a live env and free its slot. Its receiver subscriptions,
+        queue and Accumulator go (pending records are dropped), and its
+        decision rows are scrubbed, so a later tenant never sees the
+        departed env's data. Returns the freed slot row."""
+        self._assert_membership_boundary()
+        if env_id not in self.accumulators:
+            raise ValueError(f"env {env_id!r} is not attached")
+        slot = self._slot_env.index(env_id)
+        for r in self.receivers:
+            r.unsubscribe(env_id)
+        self.broker.remove(env_id)
+        self.accumulators.pop(env_id).reset()
+        self._slot_env[slot] = None
+        self._active[slot] = False
+        self._prev_ok[slot] = False
+        bisect.insort(self._free_slots, slot)
+        self._scrub_slot(slot)
+        self._refresh_env_ids()
+        self._membership_epoch += 1
+        return slot
+
+    def resize(self, new_slots: Optional[int] = None) -> int:
+        """Grow the slot pool: the one change of shape.
+
+        Lands a pending train step in the carry first, pads every
+        env-leading tree from a fresh init template at the new width
+        (surviving rows copied bit for bit), rebuilds the pipeline there
+        and drops the staging pool, whose buffers are keyed by the width.
+        Returns the new slot count."""
+        self._assert_membership_boundary()
+        old = self.env_slots
+        if new_slots is None:
+            new_slots = el.next_pool_size(old + 1, old)
+        if new_slots <= old:
+            raise ValueError(f"resize: {new_slots} slots, the pool has {old}")
+        if self.trainer is not None:
+            # a step launched against the old-width carry lands first
+            self._dstate = self.trainer.flush_pending(self._dstate)
+        pad = new_slots - old
+        self._active = np.concatenate([self._active, np.zeros(pad, bool)])
+        self._prev_ok = np.concatenate([self._prev_ok, np.zeros(pad, bool)])
+        self._slot_env.extend([None] * pad)
+        self._free_slots.extend(range(old, new_slots))
+        if self.fused_decide:
+            # the carry is authoritative for the prev rows and the model
+            # carry; grow_envs pads the Predictor's, so hand them over
+            d = self._dstate
+            self.predictor._prev["obs"] = d.prev_obs
+            self.predictor._prev["actions"] = d.prev_actions
+            self.predictor._model_carry = d.carry
+        self.predictor.grow_envs(new_slots)
+        act, ok = self._device_masks()
+        if self.fused_decide:
+            # the ring stays shared with the Predictor (grown there)
+            strip = dict(replay=None, active=None, prev_ok=None)
+            d = el.grow_env_tree(self._dstate._replace(**strip),
+                                 self.predictor.decide_state()._replace(
+                                     **strip), old)
+            self._dstate = d._replace(replay=self.predictor.replay,
+                                      active=act, prev_ok=ok)
+        else:
+            self._active_dev, self._prev_ok_dev = act, ok
+        self.cfg = dataclasses.replace(self.cfg, n_envs=new_slots)
+        self.pipeline = PerceptaPipeline(self.cfg, mode=self.pipeline.mode,
+                                         device=self.device,
+                                         decide=self._decide, elastic=True)
+        self.state = el.grow_env_tree(self.state, self.pipeline.init_state(),
+                                      old)
+        self.env_slots = new_slots
+        self._stage_pool.clear()
+        self._membership_epoch += 1
+        return new_slots
 
     # --- state access -----------------------------------------------------------
     def snapshot_state(self):
@@ -640,13 +927,14 @@ class PerceptaSystem:
     def export_replay(self, salt: str) -> dict:
         """Anonymized chronological replay export with the host mirror's
         float64 times, any mode (fused modes share the Predictor's ring and
-        keep its mirror in step)."""
-        return self.predictor.export_replay(self.env_ids, salt)
+        keep its mirror in step). Elastic: every slot's rows, free slots
+        under placeholder ids and all-invalid."""
+        return self.predictor.export_replay(self._export_env_ids(), salt)
 
     def run_windows(self, n: int, pump: bool = True) -> List[dict]:
         if self.mode in _ASYNC_MODES:
             return self._run_windows_async(n, pump)
-        if self.mode != "fused":
+        if self.mode in _SCAN_MODES:
             out: List[dict] = []
             while len(out) < n:
                 k = min(self.scan_k, n - len(out))
@@ -689,11 +977,18 @@ class PerceptaSystem:
             plans.append([self.window_bounds(idx + j) for j in range(k)])
             idx, left = idx + k, left - k
         for bounds in plans:
-            self._prefetcher.submit(bounds, pump=pump)
+            self._prefetcher.submit(bounds, pump=pump,
+                                    membership=self._membership_epoch)
         out: List[dict] = []
         pending = None
         for _ in plans:
             batch = self._prefetcher.next_batch()
+            if batch.membership != self._membership_epoch:
+                raise RuntimeError(
+                    "membership changed while a batch plan was in flight "
+                    f"(plan built under epoch {batch.membership}, now "
+                    f"{self._membership_epoch}); attach/detach/resize only "
+                    "between run_windows calls")
             # consume j-1 BEFORE launching j: the scan consume's decide
             # step queues behind whatever the card holds, and results
             # leave in window order

@@ -35,6 +35,12 @@ card: ``harmonize_segment``'s scatter branch (M*T above the dense bound)
 across two calls and between ``run_many`` and K ticks; ``add_batch``
 against sequential ``add`` calls; ``run_many_decide`` against
 ``run_many`` + ``Predictor.on_windows``.
+Elastic pools: ``run_many_decide`` gives E live rows inside a pool of W
+slots the bits of a dense E-row run, on the card and, as the one group of
+cases here that is not marked ``cuda``, on the CPU too (the contract
+holds on both devices); the elastic trees, ``add_batch(env_mask=)``,
+``harmonize_interp`` and ``detect_mad`` on the card equal the CPU bit for
+bit.
 Online training on the card: the train step twice from the same inputs
 and indices, bit for bit (no atomics in its backward); a step on an empty
 ring returns its inputs' bits; ``mlp`` and ``rwkv6`` decide on the card
@@ -651,3 +657,171 @@ def test_registry_policy_decides_on_card_as_on_cpu(card, rng, name):
         assert got.is_cuda
         assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                         atol=1e-5)
+
+
+# ------------------------------------------------------------ elastic pools
+def _pool_device(dev):
+    if dev == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device(dev)
+
+
+@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
+                                                     marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("policy", ["rglru", "mlp"])
+@pytest.mark.parametrize("E,W", [(3, 4), (160, 256), (160, 512), (192, 256)])
+def test_live_rows_do_not_depend_on_pool_width(dev, policy, E, W, rng):
+    """The elastic contract at the loop's shape (S = 8, M = 32, T = 8, the
+    kernels on): ``run_many_decide`` over E live rows inside a pool of W
+    slots gives those rows the bits of a dense E-row run — outputs, state,
+    carry and ring — over two batches. Every reduction of the tick and the
+    decide step (multiply + sum, the reward terms) and every elementwise
+    function must round a row the same at E and W rows."""
+    dev = _pool_device(dev)
+    S, M, T, K = 8, 32, 8, 4
+    kw = dict(n_streams=S, n_ticks=T, tick_s=60.0, max_samples=M,
+              gap_strategy="locf", feature_agg="mean", use_kernel=True)
+    spec = PolicyConfig(policy, {"hidden": 16, "use_kernel": True}
+                        if policy == "rglru" else {"hidden": 16})
+    runs = []
+    for n, elastic in ((E, False), (W, True)):
+        cfg = PipelineConfig(n_envs=n, **kw)
+        pred = Predictor(spec, energy_reward_spec(1, 0, 2),
+                         ActionSpace(np.array([-1.0, -1.0]),
+                                     np.array([1.0, 1.0])),
+                         n, cfg.n_features, replay_capacity=6, device=dev)
+        pipe = pl.PerceptaPipeline(cfg, mode="scan_fused_decide",
+                                   device=dev, decide=pred.make_decide_fn(),
+                                   elastic=elastic)
+        dstate = pred.decide_state()
+        if elastic:
+            active = torch.arange(n, device=dev) < E
+            dstate = dstate._replace(active=active,
+                                     prev_ok=torch.zeros_like(active))
+        runs.append([pipe, pipe.init_state(), dstate])
+    g = np.random.RandomState(7)
+    for b in range(2):
+        raws = _big_window(g, K, W, S, M, T, 60.0, "cpu")
+        raws = raws._replace(valid=raws.valid & (torch.arange(W) < E)
+                             .reshape(1, W, 1, 1))
+        starts = torch.zeros((K, W), device=dev)
+        outs = []
+        for r, n in zip(runs, (E, W)):
+            pipe, state, dstate = r
+            part = type(raws)(*(x[:, :n].to(dev) for x in raws))
+            with torch.no_grad():
+                r[1], r[2], out = pipe.run_many_decide(state, dstate, part,
+                                                       starts[:, :n])
+            outs.append(out)
+        for name, x, y in zip(outs[0]._fields, *outs):
+            assert torch.equal(x, y[:, :E]), (b, name)
+    (_, sd, dd), (_, sw, dw) = runs
+    for x, y in zip(tree.leaves(sd), tree.leaves(sw)):
+        assert torch.equal(x, y if x.dim() == 0 else y[:E])
+    for name in ("prev_obs", "prev_actions"):
+        assert torch.equal(getattr(dd, name), getattr(dw, name)[:E]), name
+    for x, y in zip(tree.leaves(dd.carry), tree.leaves(dw.carry)):
+        assert torch.equal(x, y[:E])
+    for name, x, y in zip(dd.replay._fields, dd.replay, dw.replay):
+        assert torch.equal(x, y if x.dim() == 0 else y[:E]), name
+    assert bool(dw.replay.valid[:E].any()) and \
+        not bool(dw.replay.valid[E:].any())
+
+
+@pytest.mark.cuda
+def test_elastic_trees_on_card_equal_the_cpu(card, rng):
+    """``reset_env_rows`` and ``grow_env_tree`` on card trees (a pipeline
+    state and a ring) give the CPU's bits: they only copy and select."""
+    from repro_torch.distribution import elastic as el
+    E, S = 6, 8
+    cfg = PipelineConfig(n_envs=E, n_streams=S, n_ticks=8, max_samples=32)
+    big = PipelineConfig(n_envs=2 * E, n_streams=S, n_ticks=8,
+                         max_samples=32)
+    noisy = lambda t: tree.map_(
+        lambda x: torch.from_numpy(rng.normal(0, 1, x.shape).astype(
+            np.float32)).to(x.dtype) if x.dim() else x, t)
+    state = noisy(pl.init_state(cfg))
+    ring = noisy(rp.init(E, 16, 8, 2))
+    for t, tmpl in ((state, pl.init_state(cfg)), (ring, rp.init(E, 16, 8,
+                                                                 2))):
+        on_card = tree.map_(lambda x: x.to(card), t)
+        got = el.reset_env_rows(on_card, tree.map_(lambda x: x.to(card),
+                                                   tmpl), [1, 4])
+        want = el.reset_env_rows(t, tmpl, [1, 4])
+        assert _tree_bits_equal(tree.map_(lambda x: x.cpu(), got), want)
+    grown = el.grow_env_tree(tree.map_(lambda x: x.to(card), state),
+                             pl.init_state(big, card), E)
+    want = el.grow_env_tree(state, pl.init_state(big), E)
+    assert _tree_bits_equal(tree.map_(lambda x: x.cpu(), grown), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,C", [(3, 8), (21, 4)])
+def test_add_batch_env_mask_on_card_equals_cpu(card, rng, K, C):
+    E, F, A = 5, 8, 2
+    obs, nxt = (rng.normal(0, 1, (K, E, F)).astype(np.float32)
+                for _ in range(2))
+    act = rng.normal(0, 1, (K, E, A)).astype(np.float32)
+    rew = rng.normal(0, 1, (K, E)).astype(np.float32)
+    args = (obs, act, rew, nxt, np.arange(K, dtype=np.int32),
+            rng.rand(K) > 0.2, np.zeros(K, np.int32))
+    env_mask = rng.rand(K, E) > 0.4
+    out = []
+    for dev in ("cpu", card):
+        buf = rp.init(E, C, F, A, device=dev)
+        rp.add_batch(buf, *(torch.from_numpy(np.array(a)).to(dev)
+                            for a in args),
+                     env_mask=torch.from_numpy(env_mask).to(dev))
+        out.append(buf)
+    assert _tree_bits_equal(tree.map_(lambda x: x.cpu(), out[1]), out[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bridge", [False, True])
+def test_harmonize_interp_on_card_equals_cpu(card, rng, bridge):
+    """At the loop's shape (E = 256, S = 8, T = 8, M = 32), NaN and +-inf
+    samples and tied timestamps included: the card's values and
+    ``observed`` equal the CPU's bit for bit (one selected sample a tick,
+    or two tied ones, summed with zeros: exact in any order; the quotient,
+    product and add are IEEE-rounded on both)."""
+    E, S, M, T, tick = 256, 8, 32, 8, 60.0
+    vals = rng.normal(5, 2, (E, S, M)).astype(np.float32)
+    ts = rng.uniform(-tick, (T + 1) * tick, (E, S, M)).astype(np.float32)
+    ts[:, :, 1] = ts[:, :, 0]                      # ties
+    valid = rng.rand(E, S, M) < 0.3
+    vals[rng.rand(E, S, M) < 0.01] = np.nan
+    vals[rng.rand(E, S, M) < 0.01] = np.inf
+    ticks = np.tile(np.arange(1, T + 1, dtype=np.float32) * tick, (E, 1))
+    kw = {}
+    if bridge:
+        kw = dict(prev_value=rng.normal(5, 2, (E, S)).astype(np.float32),
+                  prev_ts=rng.uniform(-600, 60, (E, S)).astype(np.float32))
+    out = []
+    for dev in ("cpu", card):
+        raw = make_raw_window(vals, ts, valid, device=dev)
+        dkw = {k: torch.from_numpy(v).to(dev) for k, v in kw.items()}
+        v, obs = hz.harmonize_interp(raw, torch.from_numpy(ticks).to(dev),
+                                     max_gap_s=300.0, **dkw)
+        out.append((v.cpu(), obs.cpu()))
+    assert torch.equal(out[0][1], out[1][1])
+    assert _bits_equal(out[1][0], out[0][0])
+    assert bool(torch.isnan(out[0][0]).any())
+
+
+@pytest.mark.cuda
+def test_detect_mad_on_card_equals_cpu(card, rng):
+    """At the loop's shape: the spike mask exactly, the medians bit for
+    bit (a sort, two picks, one add and one multiply)."""
+    from repro_torch.core import anomaly as an
+    E, S, T = 256, 8, 8
+    v = rng.normal(10, 1, (E, S, T)).astype(np.float32)
+    v[rng.rand(E, S, T) < 0.05] += 40.0
+    v[rng.rand(E, S, T) < 0.01] = np.inf
+    obs = rng.rand(E, S, T) < 0.8
+    out = []
+    for dev in ("cpu", card):
+        x, o = torch.from_numpy(v).to(dev), torch.from_numpy(obs).to(dev)
+        masked = torch.where(o, x, float("nan"))
+        out.append((an.detect_mad(x, o).cpu(), an.nanmedian(masked).cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and bool(out[0][0].any())
+    assert _bits_equal(out[1][1], out[0][1])

@@ -89,13 +89,38 @@ def test_add_batch_matches_jax_and_sequential_adds(K, C, row0, rng):
     assert got.cursor.dtype == torch.int32
 
 
-def test_add_batch_refuses_env_mask():
-    buf = rp.init(2, 4, 3, 2)
-    z = torch.zeros
-    with pytest.raises(ValueError, match="item 10"):
-        rp.add_batch(buf, z(1, 2, 3), z(1, 2, 2), z(1, 2), z(1, 2, 3),
-                     z(1, dtype=torch.int32),
-                     env_mask=torch.ones(1, 2, dtype=torch.bool))
+@pytest.mark.parametrize("C", [4, 16])
+@pytest.mark.parametrize("K", [1, 3, 20])
+def test_add_batch_env_mask_matches_jax(K, C, rng):
+    """The elastic row liveness (``env_mask`` (K, E)) lands in ``valid``
+    only, equal to the JAX ``add_batch`` and to K guarded sequential
+    ``add`` calls with the per-window mask, bit for bit: ring positions
+    and every other leaf as without it, K > capacity included."""
+    E, F, A = 4, 3, 2
+    seq, got, want = rp.init(E, C, F, A), rp.init(E, C, F, A), \
+        jrp.init(E, C, F, A)
+    obs = rng.normal(0, 1, (K, E, F)).astype(np.float32)
+    act = rng.normal(0, 1, (K, E, A)).astype(np.float32)
+    rew = rng.normal(0, 1, (K, E)).astype(np.float32)
+    nxt = rng.normal(0, 1, (K, E, F)).astype(np.float32)
+    idx = np.arange(K, dtype=np.int32)
+    ver = np.zeros(K, np.int32)
+    mask = rng.rand(K) > 0.2
+    env_mask = rng.rand(K, E) > 0.4
+    env_mask[:, 1] = False                   # a free slot
+    for j in range(K):
+        if mask[j]:
+            rp.add(seq, T_(obs[j]), T_(act[j]), T_(rew[j]), T_(nxt[j]),
+                   T_(idx[j]), T_(ver[j]), env_mask=T_(env_mask[j]))
+    want = jrp.add_batch(want, *map(jnp.asarray, (obs, act, rew, nxt, idx,
+                                                  mask, ver)),
+                         env_mask=jnp.asarray(env_mask))
+    rp.add_batch(got, *map(T_, (obs, act, rew, nxt, idx, mask, ver)),
+                 env_mask=T_(env_mask))
+    for s, w, g in zip(seq, want, got):
+        assert torch.equal(g, s)
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert not got.valid[1].any()
 
 
 # ------------------------------------------------------- run_many_decide

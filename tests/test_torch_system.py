@@ -160,6 +160,7 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys; import repro_torch, repro_torch.convert, "
             "repro_torch.runtime.system, repro_torch.runtime.prefetch, "
             "repro_torch.runtime.trainer, repro_torch.train.checkpoint, "
+            "repro_torch.distribution.elastic, "
             "repro_torch.models, "
             "repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.configs.registry, "
@@ -195,7 +196,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     (dict(mode="scan_fused_decide_sharded"), "not ported"),
     (dict(mode="scan_async_sharded"), "not ported"),
     (dict(mode="scan", train="online"), "rides the fused decide carry"),
-    (dict(elastic=True), "not ported"),
+    (dict(elastic=True), "scan engine"),
     (dict(train="online"), "rides the fused decide carry"),
     (dict(scan_k="auto"), "not ported"),
     (dict(mode="scan_fused_decide", train="online", policy="rwkv6"),
@@ -206,8 +207,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 ])
 def test_unported_options_raise(kw, match):
     """Options the port refuses: those not ported yet, and those the
-    reference refuses too (training outside the fused-decide modes, a
-    stateful policy with training, an unknown train mode)."""
+    reference refuses too (training outside the fused-decide modes, an
+    elastic pool on the per-window engine, a stateful policy with
+    training, an unknown train mode)."""
     cfg = PipelineConfig(**PCFG)
     pred = Predictor("linear", energy_reward_spec(1, 0, 2),
                      ActionSpace(*SPACE), E, cfg.n_features, device="cpu")
