@@ -36,6 +36,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   5c. loop_order — the four batch modes once more in reverse order
      (fresh systems, the same windows and checks), so each mode's
      windows/s is read early and late in the process.
+  5c'. sharded — env sharding on logical shards of the card (the mesh
+     names the card N times; all the cards too where there are more):
+     (a) ``run_many`` and ``run_many_decide`` over the scan phase's last
+     recorded batch on 1, 2, 4 and 8 shards, each bit for bit against the
+     unsharded engine (features, frames, state, ``DecideBatch``, carry,
+     ring), with the launches of one batch per kernel and instance (N*K
+     locf, 2N*K window_agg, N*K rglru_scan, all ``row``), a profiled
+     batch's device ms and activities and the host ms to launch it; (b)
+     ``scan_fused_decide_sharded`` and ``scan_sharded`` for 2 batches on
+     4 shards at E = 256, their async twins for 1, each against the
+     first batches of its unsharded twin's run (results, sinks, LogDB
+     rows, replay export); (c) an elastic pool in
+     ``scan_fused_decide_sharded``, 4 slots on 4 shards grown to 8 on 8,
+     its 4 stable envs bit for bit against a dense system.
+  5c''. autotune — ``PerceptaSystem(scan_k="auto")`` in ``scan`` and
+     ``scan_fused_decide`` with k_grid (8, 16, 32) and the default
+     measure: the grid (windows/s of the engine alone), the chosen K (the
+     grid's argmax) and the calibration seconds.
   5d. online_train — ``scan_fused_decide`` at the same config with the
      ``mlp`` policy (hidden 32) and ``train="online"`` (128 rows a step,
      a checkpoint every applied step), 4 batches a run, fresh systems
@@ -64,8 +82,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   5f. modular — ``mode="modular"`` (each stage its own call, the host
      waiting after each) over phase 5's 32 windows, bit for bit against
      ``fused``; windows/s beside it; its launches.
-  6. harmonize_system — the harmonize op entry point on the K windows of
-     one batch the scan system assembled, held against its plain version
+  6. harmonize_system (run right after phase 4) — the harmonize op entry
+     point on the K windows of one batch the scan system assembled, held against its plain version
      and against ``core.harmonize.harmonize_segment(agg="mean")``, and bit
      for bit against a sequential float32 loop; its instance (``warp``)
      from ``LAUNCHES_BY_IMPL`` and the profiler's trace, and the batch's
@@ -115,7 +133,13 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -178,35 +202,53 @@ def _device_us(events):
                for e in events if e.device_type == DeviceType.CUDA)
 
 
-def device_ms(fn, reps=20, warmup=3, tries=3):
+def _missing(events, want):
+    """The names in ``want`` that no device kernel among ``events``
+    contains."""
+    from torch.autograd import DeviceType
+    keys = [e.key for e in events if e.device_type == DeviceType.CUDA]
+    return [w for w in want if not any(w in k for k in keys)]
+
+
+def device_ms(fn, reps=20, warmup=3, tries=3, want=()):
     """Device time of one call: the card's busy time (every kernel the call
     launched, gaps between them excluded), from the profiler's CUPTI trace,
     averaged over ``reps`` calls. A trace now and then holds no device
-    activity at all; then it is taken again, up to ``tries`` times, and
-    None is returned if every one came back empty (the caller then reports
-    event times)."""
+    activity at all, or loses the kernels launched through the ctypes
+    library (PERF.md §7); then it is taken again, up to ``tries`` times.
+    If every trace came back empty, None is returned (the caller then
+    reports event times); if every one lacks a kernel named in ``want``,
+    the check fails rather than read low."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    missing = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = _device_us(prof.key_averages())
-        if total > 0:
+        events = prof.key_averages()
+        total = _device_us(events)
+        missing = _missing(events, want)
+        if total > 0 and not missing:
             return total / reps / 1e3
+    check(not missing, f"device_ms: every trace lacks kernels {missing}")
     return None
 
 
-def traced_kernels(fn, reps=10, tries=3):
-    """Names of the device kernels that ``reps`` calls of ``fn`` ran, from
-    the profiler's trace (not from the wrappers' counters). A trace of a
-    single call came back empty on the card; an empty trace is taken
-    again, as in ``device_ms``."""
+def traced_kernels(fn, want, reps=10, tries=3):
+    """Names of the device kernels containing ``want`` that ``reps`` calls
+    of ``fn`` ran, from the profiler's trace (not from the wrappers'
+    counters). A trace of a single call came back empty on the card, and
+    after the sharded phase's large traces a trace holding only kernels
+    launched through the ctypes library often lost them, while one that
+    also held a PyTorch kernel kept them: each trace also runs one
+    ``fill_`` on the card, and a trace without ``want`` is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros((), device="cuda")
     names = []
     fn()
     for _ in range(tries):
@@ -214,9 +256,11 @@ def traced_kernels(fn, reps=10, tries=3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
+            marker.fill_(1.0)
             torch.cuda.synchronize()
         names = sorted({e.key for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA})
+                        if e.device_type == DeviceType.CUDA
+                        and want in e.key})
         if names:
             break
     return names
@@ -245,7 +289,7 @@ def check_instance(ops, name, label, call, impl, info, want=None):
           f"{name} {label}: launches by impl {ops.LAUNCHES_BY_IMPL}, "
           f"expected {by_impl}")
     want = want or f"{name}_{impl}_kernel"
-    ran = [n for n in traced_kernels(call) if name in n]
+    ran = traced_kernels(call, name)
     check(len(ran) == 1 and want in ran[0],
           f"{name} {label}: trace shows {ran}, expected {want}")
     info.update(impl=impl, traced_kernel=ran[0])
@@ -462,6 +506,14 @@ def harmonize_cases(dev, g):
 
 # the source file of each flash-attention kernel, and the name its device
 # kernel carries in a profiler trace
+# the part of a port kernel's device name a trace must show ("rglru"
+# covers its scan and step instances)
+TRACE_NAME = {"locf": "locf", "window_agg": "window_agg",
+              "rglru_scan": "rglru", "harmonize": "harmonize",
+              "flash_attention": "flash_attention"}
+# the loop's kernels in a traced batch
+LOOP_TRACE = ("locf", "window_agg", "rglru")
+
 FA_KERNELS = {
     "wgmma": ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_sm90.cu", "flash_attention_sm90_kernel"),
@@ -588,7 +640,8 @@ def phase_kernels(dev):
         reps = 20 if long_ else 50
         calls = {k: call_ms(case[k], reps=reps) for k in
                  ("kernel", "plain", "library") if case[k] is not None}
-        dev_ms = {k: device_ms(case[k]) for k in calls}
+        dev_ms = {k: device_ms(case[k], want=(TRACE_NAME[case["name"]],)
+                               if k == "kernel" else ()) for k in calls}
         timer = "profiler" if all(v is not None
                                   for v in dev_ms.values()) else "events"
         t = dev_ms if timer == "profiler" else calls
@@ -619,12 +672,8 @@ def make_system(mode, dev, db_dir, policy=None, env_ids=None, slots=None,
     """The decision loop's system (§4's loop config) over ``env_ids`` (the
     E buildings ``bldg-0..`` by default) in a pool of ``slots`` rows
     (``len(env_ids)`` by default; more needs ``elastic=True``)."""
-    from repro_torch.core import PipelineConfig
-    from repro_torch.core.reward import energy_reward_spec
     from repro_torch.runtime.db import LogDB
     from repro_torch.runtime.forwarder import Forwarder, ForwarderHub
-    from repro_torch.runtime.policies import PolicyConfig
-    from repro_torch.runtime.predictor import ActionSpace, Predictor
     from repro_torch.runtime.receivers import SimulatedDevice
     from repro_torch.runtime.system import PerceptaSystem, SourceSpec
 
@@ -649,23 +698,14 @@ def make_system(mode, dev, db_dir, policy=None, env_ids=None, slots=None,
     ]
     env_ids = env_ids or [f"bldg-{i}" for i in range(E)]
     n = slots or len(env_ids)
-    cfg = PipelineConfig(n_envs=n, n_streams=len(sources), n_ticks=N_TICKS,
-                         tick_s=TICK_S, max_samples=MAX_SAMPLES,
-                         gap_strategy="locf", feature_agg="mean",
-                         use_kernel=True)
-    policy = policy or PolicyConfig("rglru", {"hidden": HIDDEN,
-                                              "use_kernel": True})
-    pred = Predictor(policy,
-                     energy_reward_spec(price_idx=1, grid_idx=0, temp_idx=2),
-                     ActionSpace(np.array([-1.0, -1.0]),
-                                 np.array([1.0, 1.0])),
-                     n, cfg.n_features, replay_capacity=CAPACITY,
-                     device=dev)
+    cfg = loop_config(n)
+    pred = loop_predictor(cfg, dev, policy)
     hub = ForwarderHub([Forwarder("hvac", "mqtt", [0]),
                         Forwarder("ev-charger", "amqp", [1])])
+    system_kw.setdefault("scan_k", K)
     system = PerceptaSystem(env_ids, sources, cfg, pred, forwarders=hub,
                             db=LogDB(db_dir, salt="opeva"), mode=mode,
-                            manual_time=True, scan_k=K, device=dev,
+                            manual_time=True, device=dev,
                             env_slots=slots, **system_kw)
     # QoS-0 receivers drop data older than their backlog horizon; one scan
     # batch spans K windows, so the horizon covers a whole batch and a
@@ -673,6 +713,31 @@ def make_system(mode, dev, db_dir, policy=None, env_ids=None, slots=None,
     for r in system.receivers:
         r.max_backlog_s = 2 * K * system.window_s
     return system
+
+
+def loop_config(n):
+    """§4's loop config at ``n`` env rows (8 sources)."""
+    from repro_torch.core import PipelineConfig
+    return PipelineConfig(n_envs=n, n_streams=8, n_ticks=N_TICKS,
+                          tick_s=TICK_S, max_samples=MAX_SAMPLES,
+                          gap_strategy="locf", feature_agg="mean",
+                          use_kernel=True)
+
+
+def loop_predictor(cfg, dev, policy=None):
+    """The loop's Predictor: the rglru policy (hidden 16, its kernel on)
+    unless ``policy`` says otherwise, replay capacity 4096."""
+    from repro_torch.core.reward import energy_reward_spec
+    from repro_torch.runtime.policies import PolicyConfig
+    from repro_torch.runtime.predictor import ActionSpace, Predictor
+    policy = policy or PolicyConfig("rglru", {"hidden": HIDDEN,
+                                              "use_kernel": True})
+    return Predictor(policy,
+                     energy_reward_spec(price_idx=1, grid_idx=0, temp_idx=2),
+                     ActionSpace(np.array([-1.0, -1.0]),
+                                 np.array([1.0, 1.0])),
+                     cfg.n_envs, cfg.n_features, replay_capacity=CAPACITY,
+                     device=dev)
 
 
 # the decision loop's batch modes, and the twin each must equal bit for bit
@@ -758,18 +823,20 @@ def _strip(results):
             for r in results]
 
 
-def drive_loop(system, label, spans):
-    """The decision loop's main path: ``K * BATCHES`` windows through
+def drive_loop(system, label, spans, batches=None, count_bytes=True):
+    """The decision loop's main path: ``K * batches`` windows through
     ``system.run_windows``, timed, with every kernel count set to 0 just
     before and read just after. Checks locf n, window_agg 2n and rglru_scan
     n launches, all locf and window_agg launches on the ``row`` instance.
-    Then one more batch, untimed, under ``count_fetches`` for the bytes
-    fetched to the host (the patched ``Tensor`` methods stay out of the
-    timed run). Returns the run's reading: every window's result (timed and
-    counted batches), windows/s, launches, and per batch the ms of each
-    interval list in ``spans`` (timed batches only), the pump and assembly
-    time that overlapped the Manager's, and the host bytes."""
-    n = K * BATCHES
+    Then (``count_bytes``) one more batch, untimed, under ``count_fetches``
+    for the bytes fetched to the host (the patched ``Tensor`` methods stay
+    out of the timed run). Returns the run's reading: every window's
+    result (timed and counted batches), windows/s, launches, and per batch
+    the ms of each interval list in ``spans`` (timed batches only), the
+    pump and assembly time that overlapped the Manager's, and the host
+    bytes."""
+    batches = BATCHES if batches is None else batches
+    n = K * batches
     _zero_launches()
     for v in spans.values():
         v.clear()
@@ -779,19 +846,21 @@ def drive_loop(system, label, spans):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, by_impl = _read_launches()
-    ms = {f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / BATCHES
+    ms = {f"{k}_ms_per_batch": sum(b - a for a, b in v) * 1e3 / batches
           for k, v in spans.items()}
     ms["pump_overlapping_manager_ms_per_batch"] = _overlap_s(
-        spans["pump"] + spans["assemble"], spans["manager"]) * 1e3 / BATCHES
+        spans["pump"] + spans["assemble"], spans["manager"]) * 1e3 / batches
     check(len(results) == n,
           f"{label}: {len(results)} results, expected {n}")
     check_loop_launches(label, launches, by_impl, n)
-    with count_fetches() as fetched:
-        results = results + system.run_windows(K)
-        torch.cuda.synchronize()
-    return {"results": results, "windows_per_s": n / wall, "wall_s": wall,
-            "launches": launches, "launches_by_impl": by_impl, **ms,
-            "host_bytes_per_batch": fetched.bytes}
+    out = {"results": results, "windows_per_s": n / wall, "wall_s": wall,
+           "launches": launches, "launches_by_impl": by_impl, **ms}
+    if count_bytes:
+        with count_fetches() as fetched:
+            out["results"] = results + system.run_windows(K)
+            torch.cuda.synchronize()
+        out["host_bytes_per_batch"] = fetched.bytes
+    return out
 
 
 def loop_record(system, run):
@@ -804,12 +873,13 @@ def loop_record(system, run):
             **{k: v for k, v in run.items() if k != "results"}}
 
 
-def run_mode(mode, dev, tmp, tag=""):
-    """A fresh ``mode`` system driven by ``drive_loop`` with the same
-    instrument as every other mode; returns it and its record."""
+def run_mode(mode, dev, tmp, tag="", **drive):
+    """A fresh ``mode`` system driven by ``drive_loop`` (``drive``: its
+    batches and byte count) with the same instrument as every other mode;
+    returns it and its record."""
     system = make_system(mode, dev, str(Path(tmp) / f"{mode}{tag}"))
     spans = instrument(system)
-    run = drive_loop(system, mode + tag, spans)
+    run = drive_loop(system, mode + tag, spans, **drive)
     return system, loop_record(system, run)
 
 
@@ -898,7 +968,8 @@ def profile_batch(system, phase="scan_profile"):
     """One more batch under the profiler: the card's busy time against the
     batch's wall time, and the kernels that took the most device time.
     Runs after the measured batches, so it touches none of their numbers.
-    Emits and returns the reading."""
+    The trace must show the loop's kernels (``LOOP_TRACE``), or the check
+    fails rather than read low. Emits and returns the reading."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     torch.cuda.synchronize()
@@ -910,6 +981,8 @@ def profile_batch(system, phase="scan_profile"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
+    missing = _missing(dev, LOOP_TRACE)
+    check(not missing, f"{phase}: the trace lacks kernels {missing}")
     busy_ms = _device_us(dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     out = {"phase": phase, "windows": K, "wall_ms": wall_ms,
@@ -1027,19 +1100,25 @@ def phase_async(dev, tmp, refs):
         system.stop()
 
 
+# loop_order's depth: timed batches a mode (the first runs time BATCHES)
+LATE_BATCHES = 2
+
+
 def phase_loop_order(dev, tmp, first):
     """The four batch modes again, fresh systems over the same windows, in
-    the reverse of the order the phases above ran them, each checked bit for
-    bit against its twin's first run. A mode's windows/s is then read once
-    early and once late in the process (host time of identical work drifts
-    within one run), and the mean of its two readings is what compares
-    modes."""
+    the reverse of the order the phases above ran them, ``LATE_BATCHES``
+    each, checked bit for bit against the first batches of its twin's
+    first run. A mode's windows/s is then read once early and once late in
+    the process (host time of identical work drifts within one run), and
+    the mean of its two readings is what compares modes."""
     order = list(LOOP_TWIN)
-    out = {"phase": "loop_order", "order": [order, order[::-1]]}
+    out = {"phase": "loop_order", "order": [order, order[::-1]],
+           "late_batches": LATE_BATCHES}
     for mode in order[::-1]:
-        system, got = run_mode(mode, dev, tmp, tag="_late")
-        check_same_loop(f"{mode} (late) != {LOOP_TWIN[mode]}", got,
-                        first[LOOP_TWIN[mode]])
+        system, got = run_mode(mode, dev, tmp, tag="_late",
+                               batches=LATE_BATCHES, count_bytes=False)
+        _prefix_equal(f"{mode} (late) != {LOOP_TWIN[mode]}", got,
+                      first[LOOP_TWIN[mode]], K * LATE_BATCHES)
         system.db.close()
         system.stop()
         for key in ("windows_per_s", "pump_ms_per_batch",
@@ -1047,6 +1126,281 @@ def phase_loop_order(dev, tmp, first):
             pair = [first[mode][key], got[key]]
             out.setdefault(key, {})[mode] = pair + [sum(pair) / 2]
     emit(out)
+
+
+# ---------------------------------------------------------- env sharding
+# the sharded phase (PERF.md §4): logical shards of the one card (the
+# counterpart of the reference's forced host-device count), and the real
+# cards where there are more than one
+SHARDS = (1, 2, 4, 8)
+SYS_SHARDS = 4
+EL_SHARDED = (4, 8)     # elastic pool: slots on as many shards, grown
+
+
+class logical_shards:
+    """``sharding.visible_devices`` lists ``n`` copies of the card while
+    the block runs (the mesh then splits the rows into n shards)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        from repro_torch.distribution import sharding as sh
+        self.saved = sh.visible_devices
+        sh.visible_devices = lambda device: [torch.device(device)] * self.n
+
+    def __exit__(self, *exc):
+        from repro_torch.distribution import sharding as sh
+        sh.visible_devices = self.saved
+
+
+def _clone_tree(t):
+    from repro_torch.train import tree
+    return tree.map_(lambda x: x.clone(), t)
+
+
+def engine_shards(dev, raw):
+    """(a) ``run_many`` and ``run_many_decide`` over one recorded batch of
+    the scan phase (``raw``, K windows at E = 256) on each mesh of
+    ``SHARDS`` logical shards of the card (and of all the cards where
+    there are more), each bit for bit against the unsharded engines from
+    the same state and carry. Per mesh: the launches of one batch per
+    kernel and instance (counts set to 0 just before and read just after
+    each engine call), the device ms and activities of a profiled batch
+    and the host ms to launch one."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.distribution import sharding as sh
+    cfg = loop_config(E)
+    pred = loop_predictor(cfg, dev)
+    decide = pred.make_decide_fn()
+    d0 = _clone_tree(pred.decide_state())
+    starts = torch.zeros((K, E), device=dev)
+    with torch.no_grad():
+        ref_state, ref_feats, ref_frames = pl.run_many(
+            cfg, pl.init_state(cfg, dev), raw, starts)
+        ref_fstate, ref_d, ref_out = pl.run_many_decide(
+            cfg, decide, pl.init_state(cfg, dev), _clone_tree(d0), raw,
+            starts)
+    meshes = [("logical", sh.env_mesh(E, [dev] * n)) for n in SHARDS]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("cards", sh.env_mesh(E, sh.visible_devices(dev))))
+    plain = {"state": pl.init_state(cfg, dev), "d": _clone_tree(d0)}
+
+    def plain_run():
+        with torch.no_grad():
+            pl.run_many_decide(cfg, decide, plain["state"], plain["d"], raw,
+                               starts)
+
+    p_ms, p_acts = profile_step(plain_run, reps=1, want=LOOP_TRACE)
+    out = {"unsharded": {"device_ms_per_batch": p_ms,
+                         "device_activities_per_batch": p_acts,
+                         "host_launch_ms_per_batch": host_launch_ms(
+                             plain_run, reps=3)}}
+    for kind, mesh in meshes:
+        n = mesh.size
+        label = f"sharded (a), {n} {kind} shards"
+        scan = pl.PerceptaPipeline(cfg, "scan_sharded", device=dev,
+                                   mesh=mesh)
+        fused = pl.PerceptaPipeline(cfg, "scan_fused_decide_sharded",
+                                    device=dev, decide=decide, mesh=mesh,
+                                    decide_state=d0)
+        st, fst = scan.init_state(), fused.init_state()
+        dsh = fused.place_decide(_clone_tree(d0))
+        torch.cuda.synchronize()
+        _zero_launches()
+        with torch.no_grad():
+            st, feats, frames = scan.run_many(st, raw, starts)
+        torch.cuda.synchronize()
+        l_scan, bi_scan = _read_launches()
+        check_loop_launches(label + " run_many", l_scan, bi_scan, n * K,
+                            rglru=0)
+        _zero_launches()
+        with torch.no_grad():
+            fst, dsh, bout = fused.run_many_decide(fst, dsh, raw, starts)
+        torch.cuda.synchronize()
+        l_fused, bi_fused = _read_launches()
+        check_loop_launches(label + " run_many_decide", l_fused, bi_fused,
+                            n * K)
+        for name, got, want in (
+                ("features", feats, ref_feats),
+                ("frames", frames, ref_frames),
+                ("state", scan.gather_state(st), ref_state),
+                ("DecideBatch", bout, ref_out),
+                ("fused state", fused.gather_state(fst), ref_fstate),
+                ("decide carry and ring", fused.gather_decide(dsh), ref_d)):
+            check(tree_bits_equal(got, want),
+                  f"{label}: {name} differ from the unsharded engine's")
+        check(sh.replicas_agree(dsh, sh.decide_specs(dsh[0], 0)),
+              f"{label}: the shards' scalars differ")
+        cell = {"state": fst, "d": dsh}
+
+        def run():
+            with torch.no_grad():
+                fused.run_many_decide(cell["state"], cell["d"], raw, starts)
+
+        ms, acts = profile_step(run, reps=1, want=LOOP_TRACE)
+        out[f"{n}_{kind}"] = {
+            "launches_per_batch": {"run_many": l_scan,
+                                   "run_many_decide": l_fused},
+            "launches_by_impl": {"run_many": bi_scan,
+                                 "run_many_decide": bi_fused},
+            "device_ms_per_batch": ms, "device_activities_per_batch": acts,
+            "host_launch_ms_per_batch": host_launch_ms(run, reps=3),
+            "bit_identical": True}
+        del scan, fused, st, fst, dsh, cell
+    emit({"phase": "sharded_engine", "envs": E, "windows_per_batch": K,
+          **out})
+
+
+def _prefix_equal(label, got, ref, windows):
+    """A short run against the first ``windows`` windows of a longer run
+    of its twin: results, each forwarder's sink, the LogDB rows and the
+    replay export's rows so far, bit for bit."""
+    rows = windows * E
+    check(got["results"] == ref["results"][:windows],
+          f"{label}: results differ from the twin's first {windows}")
+    check(all(len(g) == rows and g == r[:rows]
+              for g, r in zip(got["sinks"], ref["sinks"])),
+          f"{label}: forwarder sinks differ from the twin's")
+    check(len(got["db_rows"]) == rows
+          and got["db_rows"] == ref["db_rows"][:rows],
+          f"{label}: LogDB rows differ from the twin's")
+    ea, eb = got["export"], ref["export"]
+    check(ea["env_ids"] == eb["env_ids"], f"{label}: replay ids")
+    for key in eb:
+        if key != "env_ids":
+            c = ea[key].shape[1]
+            check(c == windows - 1 and ea[key].dtype == eb[key].dtype
+                  and np.array_equal(ea[key], eb[key][:, :c]),
+                  f"{label}: replay {key} differs from the twin's")
+
+
+def system_shards(dev, tmp, refs):
+    """(b) ``scan_fused_decide_sharded`` and ``scan_sharded`` for 2 batches
+    at E = 256 on ``SYS_SHARDS`` logical shards, their async twins for 1,
+    each held against the first batches of its unsharded twin's run in
+    ``refs``; launches counted over the run."""
+    out = {}
+    runs = (("scan_fused_decide_sharded", "scan_fused_decide", 2),
+            ("scan_sharded", "scan", 2),
+            ("scan_fused_decide_async_sharded", "scan_fused_decide", 1),
+            ("scan_async_sharded", "scan", 1))
+    with logical_shards(SYS_SHARDS):
+        for mode, twin, batches in runs:
+            system = make_system(mode, dev, str(Path(tmp) / mode))
+            check(system.mesh.size == SYS_SHARDS,
+                  f"{mode}: {system.mesh.size} shards")
+            n = batches * K
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = system.run_windows(n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, by_impl = _read_launches()
+            # the shards launch the pipeline kernels; rglru_scan runs in
+            # the decide step: per shard in the fused modes, once a window
+            # in scan's unsharded consume
+            check_loop_launches(mode, {**launches, "rglru_scan": 0},
+                                by_impl, SYS_SHARDS * n, rglru=0)
+            want_rglru = SYS_SHARDS * n if system.fused_decide else n
+            check(launches["rglru_scan"] == want_rglru,
+                  f"{mode}: rglru_scan {launches['rglru_scan']}, expected "
+                  f"{want_rglru}")
+            got = loop_record(system, {"results": results})
+            _prefix_equal(f"{mode} != {twin}", got, refs[twin], n)
+            if system.fused_decide:
+                cert = system.policy_certificate
+                check(cert is not None
+                      and cert.shard_widths == (E // SYS_SHARDS,),
+                      f"{mode}: policy certificate {cert}")
+            out[mode] = {"windows": n, "windows_per_s": n / wall,
+                         "launches": launches, "twin": twin,
+                         "twin_windows_per_s": refs[twin]["windows_per_s"],
+                         "bit_identical_to_twin": True}
+            system.db.close()
+            system.stop()
+    emit({"phase": "sharded_system", "shards": SYS_SHARDS, **out})
+
+
+def elastic_shards(dev, tmp):
+    """(c) An elastic pool in ``scan_fused_decide_sharded``: 4 envs in 4
+    slots on 4 logical shards; a batch; a fifth env joins, which grows the
+    pool to 8 slots on 8 shards; a batch. The 4 envs' results (batch 0),
+    LogDB rows and replay rows equal a dense unsharded system's over them
+    bit for bit."""
+    slots, grown = EL_SHARDED
+    stable = [f"bldg-{i}" for i in range(slots)]
+    dense = make_system("scan_fused_decide", dev,
+                        str(Path(tmp) / "el_sh_dense"), env_ids=stable)
+    rd = dense.run_windows(2 * K)
+    with logical_shards(grown):
+        pool = make_system("scan_fused_decide_sharded", dev,
+                           str(Path(tmp) / "el_sh_pool"), env_ids=stable,
+                           slots=slots, elastic=True)
+        check(pool.mesh.size == slots,
+              f"elastic sharded: {pool.mesh.size} shards")
+        rp = pool.run_windows(K)
+        t0 = time.perf_counter()
+        pool.attach_env("late-0")
+        grow_ms = (time.perf_counter() - t0) * 1e3
+        check(pool.env_slots == grown and pool.mesh.size == grown,
+              f"elastic sharded: {pool.env_slots} slots on "
+              f"{pool.mesh.size} shards, expected {grown} on {grown}")
+        pool.run_windows(K)
+    check(_strip(rp) == _strip(rd[:K]),
+          "elastic sharded: batch 0 differs from the dense run")
+    ed, ep = dense.export_replay("salt"), pool.export_replay("salt")
+    at = {e: i for i, e in enumerate(ep["env_ids"])}
+    rows = [at[e] for e in ed["env_ids"]]
+    for key in ed:
+        if key != "env_ids":
+            check(np.array_equal(ed[key], ep[key][rows]),
+                  f"elastic sharded: the stable envs' replay {key} differs")
+    ids = {r[0] for r in _db_rows(dense)}      # the LogDB's own pseudonyms
+    check([r for r in _db_rows(pool) if r[0] in ids] == _db_rows(dense),
+          "elastic sharded: the stable envs' LogDB rows differ")
+    emit({"phase": "sharded_elastic", "slots": [slots, grown],
+          "shards": [slots, grown], "windows": 2 * K,
+          "resizing_attach_ms": grow_ms, "stable_rows_bit_identical": True})
+    for s_ in (dense, pool):
+        s_.db.close()
+        s_.stop()
+
+
+def phase_sharded(dev, tmp, raw, refs):
+    engine_shards(dev, raw)
+    system_shards(dev, tmp, refs)
+    elastic_shards(dev, tmp)
+
+
+def phase_autotune(dev, tmp):
+    """``scan_k="auto"`` in ``scan`` and ``scan_fused_decide`` at the loop
+    config, k_grid (8, 16, 32), the default measure: the whole grid (the
+    engine's windows/s alone, no source simulation), the chosen K and the
+    calibration seconds; the choice must be the grid's argmax."""
+    from repro_torch.core import autotune
+    for mode in ("scan", "scan_fused_decide"):
+        spans = []
+        tune = autotune.tune_scan_params
+        autotune.tune_scan_params = interval(tune, spans)
+        try:
+            system = make_system(mode, dev, str(Path(tmp) / f"auto_{mode}"),
+                                 scan_k="auto",
+                                 autotune={"k_grid": (8, 16, 32)})
+        finally:
+            autotune.tune_scan_params = tune
+        tuned = system.tuned
+        best = max(tuned.grid, key=lambda row: row[2])
+        check((tuned.scan_k, tuned.mesh_devices) == best[:2]
+              and system.scan_k == tuned.scan_k,
+              f"autotune {mode}: chose {tuned.scan_k}, the grid's best is "
+              f"{best}")
+        emit({"phase": "autotune", "mode": mode, "tuned": tuned.as_dict(),
+              "scan_k": system.scan_k,
+              "calibration_s": spans[0][1] - spans[0][0]})
+        system.db.close()
+        system.stop()
 
 
 # ------------------------------------------------------- online training
@@ -1136,12 +1490,14 @@ def max_rel_err(got, want):
     return worst
 
 
-def profile_step(fn, reps=10):
+def profile_step(fn, reps=10, want=()):
     """Profiler device ms and device activities of one call, averaged over
-    ``reps`` calls (taken again if a trace comes back empty)."""
+    ``reps`` calls (taken again if a trace comes back empty or lacks a
+    kernel named in ``want``; the check fails if every one lacks it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
+    missing = []
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1152,8 +1508,10 @@ def profile_step(fn, reps=10):
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         busy = _device_us(dev)
-        if busy > 0:
+        missing = _missing(dev, want)
+        if busy > 0 and not missing:
             return busy / reps / 1e3, sum(e.count for e in dev) / reps
+    check(not missing, f"profile_step: every trace lacks kernels {missing}")
     return None, None
 
 
@@ -1578,11 +1936,11 @@ def phase_harmonize(raw):
     check(launches == k, f"harmonize: {launches} launches, expected {k}")
     check(by_impl == {impl: k},
           f"harmonize: launches by instance {by_impl}, expected {impl} {k}")
-    traced = [n for n in traced_kernels(lambda: window(0))
-              if "harmonize" in n]
+    traced = traced_kernels(lambda: window(0), "harmonize")
     check(len(traced) == 1 and f"harmonize_{impl}_kernel" in traced[0],
           f"harmonize: trace shows {traced}, expected harmonize_{impl}_kernel")
-    batch_ms = device_ms(lambda: [window(j) for j in range(k)], reps=5)
+    batch_ms = device_ms(lambda: [window(j) for j in range(k)], reps=5,
+                         want=("harmonize",))
     err_plain = err_seg = 0.0
     observed = 0
     grid = tick_grid(ws, TICK_S, N_TICKS)
@@ -1818,18 +2176,20 @@ def main() -> int:
     at_path = phase_kernels(dev)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         launches, raw, scan_ref = phase_scan(dev, tmp)
+        launches["harmonize"] = phase_harmonize(raw)
         fused_run = phase_fused(dev, tmp)
         _, fused_ref = phase_fused_decide(dev, tmp, scan_ref)
         refs = {"scan": scan_ref, "scan_fused_decide": fused_ref}
         phase_async(dev, tmp, refs)
         phase_loop_order(dev, tmp, refs)
+        phase_sharded(dev, tmp, raw, refs)
+        phase_autotune(dev, tmp)
         dense_profile = fused_ref["profile"]
         del scan_ref, fused_ref, refs
         phase_online_train(dev, tmp)
         phase_elastic(dev, tmp, dense_profile)
         phase_modular(dev, tmp, fused_run)
         del fused_run
-    launches["harmonize"] = phase_harmonize(raw)
     del raw
     launches["flash_attention"] = phase_lm(dev)
 

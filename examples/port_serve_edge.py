@@ -18,13 +18,23 @@ is driven by ``python -m repro_torch.launch.serve``).
     and one replay-ring write per batch; only the small per-window outputs
     come back to the host;
   * ``scan_async`` / ``scan_fused_decide_async`` — the two batch modes
-    with host assembly of batch j+1 on a pump thread while batch j runs.
+    with host assembly of batch j+1 on a pump thread while batch j runs;
+  * ``scan_sharded``, ``scan_async_sharded``, ``scan_fused_decide_sharded``
+    and ``scan_fused_decide_async_sharded`` — the four batch modes with
+    the buildings' rows split over the visible cards (one card: one
+    shard).
 Every mode gives the same decisions, rewards, DB rows and replay export
 (bit for bit). Read the replay through ``system.export_replay`` and
 ``system.replay_size()``: in the fused modes the system's decision carry
 is authoritative.
 
-``--elastic`` (the four batch modes) runs the buildings in a pool of
+``--scan-k auto`` picks the windows per batch (and, in a sharded mode,
+the split) by timing the engine on a short calibration grid
+(``core.autotune``), and prints the grid. ``--shards N`` is a test aid,
+not a deployment setting: it places N logical shards on the one device,
+so the shard logic runs where there is one card.
+
+``--elastic`` (the batch modes) runs the buildings in a pool of
 twice as many env slots; half-way, between two batches, one building
 leaves (``detach_env``) and a new one joins its slot (``attach_env``).
 
@@ -32,7 +42,9 @@ Run (the card is the default; ``--device cpu`` asks for the CPU):
 
     PYTHONPATH=src python examples/port_serve_edge.py \\
         [--mode fused|modular|scan|scan_async|scan_fused_decide|\\
-         scan_fused_decide_async] [--elastic] [--device cuda|cpu]
+         scan_fused_decide_async|scan_sharded|scan_async_sharded|\\
+         scan_fused_decide_sharded|scan_fused_decide_async_sharded] \\
+        [--scan-k 2|auto] [--shards N] [--elastic] [--device cuda|cpu]
 """
 import argparse
 import tempfile
@@ -43,6 +55,7 @@ import torch
 
 from repro_torch.core import PipelineConfig
 from repro_torch.core.reward import energy_reward_spec
+from repro_torch.distribution import sharding
 from repro_torch.runtime.db import LogDB
 from repro_torch.runtime.forwarder import Forwarder, ForwarderHub
 from repro_torch.runtime.policies import PolicyConfig
@@ -51,7 +64,8 @@ from repro_torch.runtime.receivers import SimulatedDevice
 from repro_torch.runtime.system import PerceptaSystem, SourceSpec
 
 MODES = ["fused", "modular", "scan", "scan_async", "scan_fused_decide",
-         "scan_fused_decide_async"]
+         "scan_fused_decide_async", "scan_sharded", "scan_async_sharded",
+         "scan_fused_decide_sharded", "scan_fused_decide_async_sharded"]
 SCAN_K = 2   # windows per pipeline batch
 E = 4        # buildings
 WINDOWS = 6
@@ -61,6 +75,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="scan", choices=MODES)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--scan-k", default=str(SCAN_K),
+                    help="windows per batch, or 'auto' to time a short "
+                         "calibration grid and take its best")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="test aid, not a deployment setting: place this "
+                         "many logical shards of the env rows on the one "
+                         "device (sharded modes)")
     ap.add_argument("--elastic", action="store_true",
                     help="a pool of 2x the buildings' slots; one building "
                          "leaves and one joins half-way")
@@ -71,6 +92,11 @@ def main():
         ap.error("no CUDA card here (torch.cuda.is_available() is False); "
                  "pass --device cpu to run on the CPU")
     dev = torch.device(args.device)
+    if args.shards is not None:
+        if "sharded" not in args.mode:
+            ap.error("--shards needs a sharded mode")
+        sharding.visible_devices = lambda device: [dev] * args.shards
+    scan_k = args.scan_k if args.scan_k == "auto" else int(args.scan_k)
 
     sources = [
         SourceSpec("meter", "mqtt", SimulatedDevice("grid_kw", 60.0,
@@ -97,12 +123,18 @@ def main():
         system = PerceptaSystem([f"bldg-{i}" for i in range(E)], sources,
                                 pcfg, pred, forwarders=hub, db=db,
                                 speedup=4000.0, mode=args.mode,
-                                scan_k=SCAN_K, device=dev,
+                                scan_k=scan_k, device=dev,
+                                autotune=dict(k_grid=(1, 2, 3), reps=1),
                                 elastic=args.elastic,
                                 env_slots=slots if args.elastic else None)
-        batch = 1 if args.mode in ("fused", "modular") else SCAN_K
+        batch = 1 if args.mode in ("fused", "modular") else system.scan_k
+        if system.tuned is not None:
+            print(f"autotune grid: {system.tuned.as_dict()}")
+        shards = "" if system.mesh is None else \
+            f", {system.mesh.size} shards"
         print(f"=== Percepta edge decisions on {dev.type}: {WINDOWS} "
-              f"windows ({args.mode} mode, {batch} windows a batch) ===")
+              f"windows ({args.mode} mode, {batch} windows a batch"
+              f"{shards}) ===")
         t_start = time.time()
         try:
             half = batch * (WINDOWS // (2 * batch))   # a batch boundary

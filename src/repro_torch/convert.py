@@ -6,7 +6,8 @@ Everything arrives as numpy arrays (the reference's leaves converted with
     port builders' ``params=``;
   * :func:`pipeline_state_from_numpy` — a ``PipelineState``;
   * :func:`replay_from_numpy` — a ``ReplayBuffer``;
-  * :func:`decide_state_from_numpy` — the fused engine's ``DecideState``;
+  * :func:`decide_state_from_numpy` — the fused engine's ``DecideState``,
+    and :func:`decide_state_on_mesh` — the same placed on an env mesh;
   * :func:`train_state_from_numpy` — the online trainer's state (critic
     and the joint optimizer state);
   * :func:`lm_params_from_numpy` / :func:`lm_cache_from_numpy` — an LM's
@@ -27,6 +28,7 @@ from repro_torch.core import gapfill as gf
 from repro_torch.core import normalize as nz
 from repro_torch.core import replay as rp
 from repro_torch.core.pipeline import PipelineState
+from repro_torch.distribution import sharding as sh
 from repro_torch.runtime.policies import POLICIES
 from repro_torch.runtime.predictor import DecideState
 
@@ -91,6 +93,15 @@ def decide_state_from_numpy(dstate, device="cpu") -> DecideState:
         active=mask(getattr(dstate, "active", None)),
         prev_ok=mask(getattr(dstate, "prev_ok", None)),
     )
+
+
+def decide_state_on_mesh(dstate, mesh, device="cpu") -> tuple:
+    """A reference ``DecideState`` (numpy leaves; dense or elastic) as the
+    per-shard carries of ``mesh``: :func:`decide_state_from_numpy`, then
+    ``sharding.place_env_tree`` with ``decide_specs`` (policy params
+    replicated, the rest split by rank)."""
+    d = decide_state_from_numpy(dstate, device)
+    return sh.place_env_tree(d, 0, mesh, sh.decide_specs(d, 0))
 
 
 def train_state_from_numpy(tstate, device="cpu") -> dict:

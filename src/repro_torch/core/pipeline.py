@@ -13,6 +13,12 @@ Modes:
     the Predictor's per-window decision step after each one and the K
     replay transitions banked once after the loop; the host gets only the
     small :class:`DecideBatch`.
+  * ``scan_sharded`` / ``scan_fused_decide_sharded`` — the same engines
+    with the env rows split over an ``EnvMesh``
+    (``distribution.sharding``): each shard runs :func:`run_many` or
+    :func:`run_many_decide` over its own rows, and the outputs gather back
+    on the mesh's first device, bit for bit those of the unsharded engine
+    (:func:`make_run_many_sharded`, :func:`make_run_many_decide_sharded`).
 
 Elastic slot pools (``elastic=True``): the env axis holds ``E`` slots, of
 which an ``active`` (E,) bool device mask marks the live ones. The host
@@ -32,6 +38,7 @@ produced it and re-expressed one window length later each tick.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -44,13 +51,13 @@ from repro_torch.core import harmonize as hz
 from repro_torch.core import normalize as nz
 from repro_torch.core.frame import FeatureFrame, RawWindow, TickFrame
 from repro_torch.device import resolve_device
+from repro_torch.distribution import sharding as sh
+from repro_torch.kernels._build import on_device
+from repro_torch.train import tree as tr
 
-# modes of the reference engine that later slices bring, by ROADMAP item
-NOT_PORTED_MODES = {
-    "scan_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-    "scan_fused_decide_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-}
-MODES = ("fused", "modular", "scan", "scan_fused_decide")
+MODES = ("fused", "modular", "scan", "scan_fused_decide", "scan_sharded",
+         "scan_fused_decide_sharded")
+SHARDED_MODES = ("scan_sharded", "scan_fused_decide_sharded")
 
 
 class PipelineState(NamedTuple):
@@ -342,65 +349,218 @@ def run_many_decide(cfg: PipelineConfig, decide, state: PipelineState,
     return state, dstate, DecideBatch(*(torch.stack(x) for x in zip(*outs)))
 
 
-class PerceptaPipeline:
-    """User-facing handle; ``mode`` is ``fused``, ``modular``, ``scan`` or
-    ``scan_fused_decide``.
+def _shard_cfg(cfg: PipelineConfig, mesh) -> PipelineConfig:
+    if cfg.n_envs % mesh.size:
+        raise ValueError(f"{cfg.n_envs} envs do not split over "
+                         f"{mesh.size} shards")
+    return dataclasses.replace(cfg, n_envs=cfg.n_envs // mesh.size)
 
-    ``run_tick`` runs one window in any mode (stage by stage in
-    ``modular``); :meth:`run_many` runs a K-window batch, and
+
+def _split_batch(mesh, raws, window_starts, active=None):
+    """The batch's per-shard parts: the (K, E, ...) leaves split on dim 1,
+    ``active`` (E,) on dim 0; views where a shard's device is the batch's
+    (the engine only reads them)."""
+    batch = sh.place_env_tree((raws, window_starts), 1, mesh, copy=False)
+    if active is None:
+        return [b + (None,) for b in batch]
+    act = sh.place_env_tree(active, 0, mesh, copy=False)
+    return [b + (a,) for b, a in zip(batch, act)]
+
+
+def make_run_many_sharded(cfg: PipelineConfig, mesh=None,
+                          elastic: bool = False):
+    """Env-sharded scan engine: :func:`run_many` over each shard's rows.
+
+    Returns ``(fn, mesh)``; ``fn(states, raws, window_starts[, active])``
+    takes the per-shard states (``sharding.place_env_tree(state, 0,
+    mesh)``), the whole (K, E, S, M) batch and (K, E) starts (split here
+    on dim 1) and, with ``elastic=True``, the whole (E,) ``active`` mask
+    (split on dim 0). It launches every shard before anything is read
+    (nothing is: the engine never waits for the card) and returns ``(new
+    per-shard states, FeatureFrame, TickFrame)``, the frames gathered on
+    the mesh's first device. The tick is per-env (no stage reduces across
+    envs), so the outputs equal :func:`run_many`'s bit for bit; the
+    replicated ``tick_index`` advances on every shard alike. ``mesh``
+    defaults to ``sharding.env_mesh(cfg.n_envs)``."""
+    if mesh is None:
+        mesh = sh.env_mesh(cfg.n_envs)
+    scfg = _shard_cfg(cfg, mesh)
+
+    def fn(states, raws, window_starts, active=None):
+        if elastic != (active is not None):
+            raise ValueError("an elastic engine takes the (E,) active mask "
+                             "with every batch, a dense one none")
+        outs = []
+        for dev, state, part in zip(mesh.devices, states,
+                                    _split_batch(mesh, raws, window_starts,
+                                                 active)):
+            with on_device(dev):
+                outs.append(run_many(scfg, state, *part))
+        new_states, feats, frames = zip(*outs)
+        return (tuple(new_states), sh.gather_env_tree(feats, 1),
+                sh.gather_env_tree(frames, 1))
+
+    return fn, mesh
+
+
+def make_run_many_decide_sharded(cfg: PipelineConfig, decide, dstate=None,
+                                 mesh=None):
+    """Env-sharded fused decision engine: :func:`run_many_decide` over each
+    shard's rows.
+
+    Returns ``(fn, mesh)``; ``fn(states, dstates, raws, window_starts)``
+    takes the per-shard pipeline states and decide carries (the carry
+    placed with ``sharding.decide_specs``: prev rows, model carry, masks
+    and ring rows split on dim 0, the policy params and the ``have_prev``
+    / ``tick`` / version / ring ``cursor`` scalars replicated), splits the
+    batch on dim 1 and returns ``(states, dstates, DecideBatch)``, the
+    batch gathered on the mesh's first device. Each shard writes its own
+    ring in place with its own cursor; every shard sees the same scalar
+    chain, so ring positions are the unsharded engine's. The decision math
+    must be per-env row-wise, which ``analysis.certify`` checks of the
+    policy. ``dstate`` (a template, optional) lets a closure-only model be
+    refused here: its weights live in the closure, on one device, and
+    cannot follow the shards to another card."""
+    if mesh is None:
+        mesh = sh.env_mesh(cfg.n_envs)
+    scfg = _shard_cfg(cfg, mesh)
+    if (dstate is not None and mesh.physical > 1
+            and not tr.leaves(dstate.policy)):
+        raise ValueError(
+            "scan_fused_decide_sharded over more than one device needs the "
+            "policy's weights in DecideState.policy (a ModelAdapter with "
+            "params= and apply=): a closure-only model keeps them on one "
+            "device, and the shards on the other devices could not read "
+            "them")
+
+    def fn(states, dstates, raws, window_starts):
+        outs = []
+        for dev, state, dstate, part in zip(
+                mesh.devices, states, dstates,
+                _split_batch(mesh, raws, window_starts)):
+            with on_device(dev):
+                outs.append(run_many_decide(scfg, decide, state, dstate,
+                                            *part[:2]))
+        new_states, new_dstates, batches = zip(*outs)
+        return (tuple(new_states), tuple(new_dstates),
+                sh.gather_env_tree(batches, 1))
+
+    return fn, mesh
+
+
+class PerceptaPipeline:
+    """User-facing handle; ``mode`` is one of :data:`MODES`.
+
+    ``run_tick`` runs one window in the unsharded modes (stage by stage
+    in ``modular``); :meth:`run_many` runs a K-window batch, and
     :meth:`run_many_decide` a K-window batch with the decision step
-    (``scan_fused_decide`` only, which needs ``decide=``; the decision
-    carry is passed to each call). ``elastic=True`` marks the env axis a
-    slot pool: :meth:`run_many` then takes the (E,) ``active`` mask (the
-    fused-decide mode carries it in the decide state). Other modes of the
-    reference raise and name the ROADMAP item that brings them.
-    ``device=None`` means the CUDA card.
+    (the fused-decide modes, which need ``decide=``; the decision carry
+    is passed to each call). ``elastic=True`` marks the env axis a slot
+    pool: :meth:`run_many` then takes the (E,) ``active`` mask (the
+    fused-decide modes carry it in the decide state). ``device=None``
+    means the CUDA card.
+
+    The sharded modes split the env rows over ``mesh`` (default:
+    ``sharding.env_mesh`` over ``sharding.visible_devices(device)``): the
+    state (:meth:`init_state`, :meth:`place_state`) and the decide carry
+    (:meth:`place_decide`) are tuples of per-shard trees, and outputs come
+    back whole on the mesh's first device. :meth:`gather_state` and
+    :meth:`gather_decide` give the unsharded view. ``decide_state`` (a
+    template) lets a closure-only model be refused on a mesh of more
+    than one card.
     """
 
     def __init__(self, cfg: PipelineConfig, mode: str = "fused",
-                 device=None, decide=None, elastic: bool = False):
-        if mode in NOT_PORTED_MODES:
-            raise ValueError(f"pipeline mode {mode!r} is not ported yet: "
-                             f"{NOT_PORTED_MODES[mode]}")
+                 device=None, decide=None, elastic: bool = False,
+                 mesh=None, decide_state=None):
         if mode not in MODES:
             raise ValueError(f"unknown pipeline mode {mode!r}")
-        if mode == "scan_fused_decide" and decide is None:
-            raise ValueError("scan_fused_decide needs decide=")
+        self.fused_decide = mode in ("scan_fused_decide",
+                                     "scan_fused_decide_sharded")
+        if self.fused_decide and decide is None:
+            raise ValueError(f"{mode} needs decide=")
         self.cfg = cfg
         self.mode = mode
         self.device = resolve_device(device)
         self.decide = decide
         self.elastic = bool(elastic)
+        self.mesh = None
+        self._sharded = None
+        if mode in SHARDED_MODES:
+            self.mesh = mesh if mesh is not None else sh.env_mesh(
+                cfg.n_envs, sh.visible_devices(self.device))
+            if self.fused_decide:
+                self._sharded, _ = make_run_many_decide_sharded(
+                    cfg, decide, decide_state, self.mesh)
+            else:
+                self._sharded, _ = make_run_many_sharded(cfg, self.mesh,
+                                                         self.elastic)
+
+    # --- placement (sharded modes; identity otherwise) ----------------------
+    def place_state(self, state):
+        """A whole pipeline state as the engine's state: per-shard copies
+        in the sharded modes, ``state`` itself otherwise."""
+        if self.mesh is None:
+            return state
+        return sh.place_env_tree(state, 0, self.mesh)
+
+    def gather_state(self, state):
+        """The engine's state as one whole tree on the first device."""
+        if self.mesh is None:
+            return state
+        return sh.gather_env_tree(state, 0)
+
+    def place_decide(self, dstate):
+        """A whole ``DecideState`` as the engine's carry (policy params
+        replicated, ``sharding.decide_specs``)."""
+        if self.mesh is None:
+            return dstate
+        return sh.place_env_tree(dstate, 0, self.mesh,
+                                 sh.decide_specs(dstate, 0))
+
+    def gather_decide(self, dstate):
+        if self.mesh is None:
+            return dstate
+        return sh.gather_env_tree(dstate, 0, sh.decide_specs(dstate[0], 0))
 
     def init_state(self):
-        return init_state(self.cfg, self.device)
+        return self.place_state(init_state(self.cfg, self.device))
 
     def run_many(self, state, raws: RawWindow, window_starts, active=None):
         """K windows in one call; ``active`` (E,) bool is required iff the
         pipeline is elastic."""
-        if self.mode == "scan_fused_decide":
-            raise RuntimeError("scan_fused_decide carries a decide state: "
+        if self.fused_decide:
+            raise RuntimeError(f"{self.mode} carries a decide state: "
                                "use run_many_decide(state, dstate, ...)")
         if self.elastic != (active is not None):
             raise ValueError("an elastic pipeline takes the (E,) active "
                              "mask with every batch, a dense one none")
+        if self._sharded is not None:
+            return self._sharded(state, raws, window_starts, active)
         return run_many(self.cfg, state, raws, window_starts, active)
 
     def run_many_decide(self, state, dstate, raws: RawWindow,
                         window_starts):
         """K windows and their decisions; returns ``(new_state,
-        new_dstate, DecideBatch)``. The ring in ``dstate`` is written in
-        place."""
-        if self.mode != "scan_fused_decide":
+        new_dstate, DecideBatch)``. The ring in ``dstate`` (each shard's,
+        when sharded) is written in place."""
+        if not self.fused_decide:
             raise RuntimeError(f"run_many_decide needs mode "
-                               f"'scan_fused_decide', not {self.mode!r}")
-        if self.elastic != (dstate.active is not None):
+                               f"'scan_fused_decide' or its sharded twin, "
+                               f"not {self.mode!r}")
+        first = dstate[0] if self._sharded is not None else dstate
+        if self.elastic != (first.active is not None):
             raise ValueError("an elastic pipeline's decide state carries "
                              "the active/prev_ok masks, a dense one none")
+        if self._sharded is not None:
+            return self._sharded(state, dstate, raws, window_starts)
         return run_many_decide(self.cfg, self.decide, state, dstate, raws,
                                window_starts)
 
     def run_tick(self, state, raw: RawWindow, window_start):
+        if self.mesh is not None:
+            raise RuntimeError(f"{self.mode} runs window batches: use "
+                               "run_many / run_many_decide")
         if self.mode == "modular":
             return modular_tick(self.cfg, state, raw, window_start)
         return tick(self.cfg, state, raw, window_start)

@@ -159,17 +159,58 @@ def add_batch(buf: ReplayBuffer, obs, actions, rewards, next_obs, tick_idx,
     return buf
 
 
+def shard_rings(buf) -> tuple:
+    """A ring as a tuple of rings: itself, or a sharded ring's shards (a
+    tuple of rings, each holding its env rows, in row order)."""
+    return (buf,) if isinstance(buf, ReplayBuffer) else tuple(buf)
+
+
+def whole(buf) -> ReplayBuffer:
+    """A sharded ring's shards gathered into one ring, rows in order, on
+    the first shard's device; an unsharded ring itself."""
+    if isinstance(buf, ReplayBuffer):
+        return buf
+    from repro_torch.distribution import sharding as sh
+    return sh.gather_env_tree(tuple(buf), 0)
+
+
 def gather(buf: ReplayBuffer, es, ss) -> dict:
     """The transitions at (env ``es``, slot ``ss``), (batch,) index
     tensors on the ring's device. ``valid`` is ``size > 0`` and the cell's
     own liveness. Nothing gathered requires grad: the ring's tensors never
-    do, so no backward ever scatters into them."""
+    do, so no backward ever scatters into them.
+
+    ``buf`` may be a sharded ring (a tuple of shard rings in row order):
+    each shard gathers at every index's row within a shard
+    (``sharding.row_owner``), a ``where`` keeps the owning shard's, and
+    the rows come back on the
+    device of ``es``, equal bit for bit to a gather from the whole ring."""
+    if not isinstance(buf, ReplayBuffer):
+        return _gather_shards(tuple(buf), es, ss)
     take = lambda x: x[es, ss]
     valid = (buf.size() > 0) & take(buf.valid)
     return {"obs": take(buf.obs), "actions": take(buf.actions),
             "rewards": take(buf.rewards), "next_obs": take(buf.next_obs),
             "tick_idx": take(buf.tick_idx), "version": take(buf.version),
             "valid": valid}
+
+
+def _gather_shards(rings, es, ss) -> dict:
+    from repro_torch.distribution import sharding as sh
+    n = len(rings)
+    owner, loc = sh.row_owner(es, n, n * rings[0].obs.shape[0])
+    out = None
+    for j, ring in enumerate(rings):
+        dev = ring.obs.device
+        part = gather(ring, loc.to(dev), ss.to(dev))
+        part = {k: v.to(es.device) for k, v in part.items()}
+        if out is None:
+            out = part
+            continue
+        hit = owner == j
+        out = {k: torch.where(hit.reshape(hit.shape + (1,) * (v.dim() - 1)),
+                              v, out[k]) for k, v in part.items()}
+    return out
 
 
 def draw_device(buf: ReplayBuffer, gen: torch.Generator, batch: int):
@@ -180,11 +221,13 @@ def draw_device(buf: ReplayBuffer, gen: torch.Generator, batch: int):
     (``torch.randint`` needs a Python bound, which would read the cursor
     back). A partly filled ring thus yields live slots only, and a wrapped
     one every slot. The same ``gen`` state and ring size give the same
-    indices."""
-    E = buf.obs.shape[0]
-    dev = buf.obs.device
+    indices. A sharded ring (a tuple of shard rings) draws over all its
+    rows, on its first shard's device."""
+    rings = shard_rings(buf)
+    E = sum(r.obs.shape[0] for r in rings)
+    dev = rings[0].obs.device
     es = torch.randint(0, E, (batch,), generator=gen, device=dev)
-    n = torch.clamp(buf.size(), min=1).to(torch.int64)
+    n = torch.clamp(rings[0].size(), min=1).to(torch.int64)
     u = torch.rand((batch,), generator=gen, device=dev)
     ss = torch.minimum(torch.floor(u * n).to(torch.int64), n - 1)
     return es, ss

@@ -1,2 +1,2 @@
-# Elastic env-slot pools (``elastic``); the env-axis sharding of the
-# reference's ``distribution`` package waits for the multi-device slice.
+# Elastic env-slot pools (``elastic``) and the env half of the reference's
+# ``distribution.sharding`` (``sharding``: the env mesh and placement).

@@ -8,12 +8,15 @@ library is built at first use and rebuilt when a source or a
 ``ctypes``. A failed build raises with ``nvcc``'s
 stderr. Nothing here runs at import time.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch, and
-:func:`check` turns a non-zero code into an exception, so a launch the card
-refuses (too many threads, a bad configuration) never passes silently.
+Every C entry point launches on the current device, so the wrappers
+launch under :func:`on_device`. Every C entry point returns
+``cudaGetLastError()`` after its launch, and :func:`check` turns a
+non-zero code into an exception, so a launch the card refuses (too many
+threads, a bad configuration) never passes silently.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -143,3 +146,16 @@ def require(name: str, t, dtype, shape, device) -> None:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device):
+    """Make ``device`` the current CUDA device for a launch (a no-op for
+    the CPU). The C entries launch ``<<<..., stream>>>`` on the current
+    device, so a tensor on another card than the current one would
+    otherwise meet a stream of the wrong device. Every wrapper launches
+    under it, and the sharded engines run each shard under it; on one
+    card it changes nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

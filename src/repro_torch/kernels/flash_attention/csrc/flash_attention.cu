@@ -48,6 +48,7 @@ constexpr float kMasked = -1e30f;
 constexpr float kMaxFloor = -1e29f;
 constexpr float kDenomFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;                // shared-memory opt-in slots
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -200,15 +201,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int Hkv, int window, float softcap,
                    float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  // above 48 KB a block's shared memory must be opted into; set once per
-  // instance (a repeated set is harmless)
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // above 48 KB a block's shared memory must be opted into; the setting
+  // belongs to the current device, so set once per instance and device (a
+  // repeated set is harmless)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
         flash_attention_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(

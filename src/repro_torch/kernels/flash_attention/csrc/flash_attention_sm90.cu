@@ -48,6 +48,7 @@
 namespace {
 
 constexpr int kBlockM = 128;                  // q rows per CTA
+constexpr int kMaxDevices = 64;               // shared-memory opt-in slots
 constexpr int kConsumers = 2;                 // warpgroups of 64 q rows
 constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kStages = 2;
@@ -565,13 +566,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int Hkv, int window, float softcap,
                    float scale, cudaStream_t stream) {
   constexpr int smem = Tiles<D, BN>::kSmem;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the opt-in belongs to the current device: once per device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
         flash_attention_sm90_kernel<D, BN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;

@@ -76,11 +76,13 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     impl = impl_for(q.dtype, D)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             H, Hkv, D, int(window), float(softcap), scale)
-    stream = _build.stream_ptr(dev)
-    if impl == "wgmma":
-        code = lib.flash_attention_sm90_launch(*args, stream)
-    else:
-        code = lib.flash_attention_launch(*args, _DTYPES[q.dtype], stream)
+    with _build.on_device(dev):
+        stream = _build.stream_ptr(dev)
+        if impl == "wgmma":
+            code = lib.flash_attention_sm90_launch(*args, stream)
+        else:
+            code = lib.flash_attention_launch(*args, _DTYPES[q.dtype],
+                                              stream)
     _build.check(code, f"flash_attention ({impl})")
     LAUNCHES += 1
     LAUNCHES_BY_IMPL[impl] += 1

@@ -65,11 +65,12 @@ def harmonize(values, timestamps, valid, window_start, *, tick_s: float,
     lib = _build.library()
     out = torch.empty((E, S, n_ticks), dtype=torch.float32, device=dev)
     obs = torch.empty((E, S, n_ticks), dtype=torch.bool, device=dev)
-    _build.check(lib.harmonize_launch(
-        values.data_ptr(), timestamps.data_ptr(), valid.data_ptr(),
-        window_start.data_ptr(), out.data_ptr(), obs.data_ptr(), E, S, M,
-        n_ticks, float(tick_s), int(vec), _build.stream_ptr(dev)),
-        "harmonize")
+    with _build.on_device(dev):
+        _build.check(lib.harmonize_launch(
+            values.data_ptr(), timestamps.data_ptr(), valid.data_ptr(),
+            window_start.data_ptr(), out.data_ptr(), obs.data_ptr(), E, S, M,
+            n_ticks, float(tick_s), int(vec), _build.stream_ptr(dev)),
+            "harmonize")
     LAUNCHES += 1
     LAUNCHES_BY_IMPL[impl] += 1
     return out, obs

@@ -43,10 +43,11 @@ def locf(values, observed, init_value, init_has):
     out = torch.empty_like(values)
     has = torch.empty_like(observed)
     impl, vec = impl_for(T, aligned(values, observed, out, has))
-    _build.check(lib.locf_launch(
-        values.data_ptr(), observed.data_ptr(), init_value.data_ptr(),
-        init_has.data_ptr(), out.data_ptr(), has.data_ptr(), R, T,
-        IMPLS[impl], int(vec), _build.stream_ptr(dev)), f"locf ({impl})")
+    with _build.on_device(dev):
+        _build.check(lib.locf_launch(
+            values.data_ptr(), observed.data_ptr(), init_value.data_ptr(),
+            init_has.data_ptr(), out.data_ptr(), has.data_ptr(), R, T,
+            IMPLS[impl], int(vec), _build.stream_ptr(dev)), f"locf ({impl})")
     LAUNCHES += 1
     LAUNCHES_BY_IMPL[impl] += 1
     return out, has

@@ -33,8 +33,9 @@ def rglru_scan(a, b, h0):
     lib = _build.library()
     hs = torch.empty_like(a)
     h_last = torch.empty_like(h0)
-    _build.check(lib.rglru_scan_launch(
-        a.data_ptr(), b.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-        h_last.data_ptr(), B, T, W, _build.stream_ptr(dev)), "rglru_scan")
+    with _build.on_device(dev):
+        _build.check(lib.rglru_scan_launch(
+            a.data_ptr(), b.data_ptr(), h0.data_ptr(), hs.data_ptr(),
+            h_last.data_ptr(), B, T, W, _build.stream_ptr(dev)), "rglru_scan")
     LAUNCHES += 1
     return hs, h_last

@@ -46,11 +46,12 @@ def window_agg(values, mask, state_mean, state_var, *,
     stats = torch.empty((E, S, N_STATS), dtype=torch.float32, device=dev)
     spikes = torch.empty_like(mask)
     impl, vec = impl_for(T, aligned(values, mask, stats, spikes))
-    _build.check(lib.window_agg_launch(
-        values.data_ptr(), mask.data_ptr(), state_mean.data_ptr(),
-        state_var.data_ptr(), stats.data_ptr(), spikes.data_ptr(), R, T,
-        float(k_sigma), IMPLS[impl], int(vec), _build.stream_ptr(dev)),
-        f"window_agg ({impl})")
+    with _build.on_device(dev):
+        _build.check(lib.window_agg_launch(
+            values.data_ptr(), mask.data_ptr(), state_mean.data_ptr(),
+            state_var.data_ptr(), stats.data_ptr(), spikes.data_ptr(), R, T,
+            float(k_sigma), IMPLS[impl], int(vec), _build.stream_ptr(dev)),
+            f"window_agg ({impl})")
     LAUNCHES += 1
     LAUNCHES_BY_IMPL[impl] += 1
     return stats, spikes

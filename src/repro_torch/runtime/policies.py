@@ -13,7 +13,10 @@ transcendental function of per-env values goes through
 ``linear`` and ``mlp`` are stateless (``apply(params, feats)``), so the
 online trainer can train them; ``rglru`` and ``rwkv6`` keep per-env
 recurrent state in their carry leaves (row i's state in row i).
-Certification of a policy waits for the contract-check slice.
+:func:`build_policy` certifies the builder (``analysis.certify``: rows,
+carry and param-replication probes at E = 4 with the real feature and
+action counts) and attaches the certificate as ``adapter.certificate``,
+cached by ``(name, kwargs, probes, device type)``.
 """
 from __future__ import annotations
 
@@ -110,11 +113,16 @@ class RGLRUPolicy(nn.Module):
                                  device=self.w_in.device)}
 
     def forward(self, feats, carry):
+        return self.step(dict(self.named_parameters()), feats, carry)
+
+    def step(self, p, feats, carry):
+        """One step with the params ``p`` (the module's own, or copies of
+        them on another device: a shard's replicated policy)."""
         h = carry["h"]                                   # (E, H)
-        u = _rowdot(feats, self.w_in)                    # (E, H)
-        r = rowwise(torch.sigmoid, u * self.w_a[None] + self.b_a[None])
-        i = rowwise(torch.sigmoid, u * self.w_i[None] + self.b_i[None])
-        log_a = -8.0 * nn.functional.softplus(self.lam)[None] * r
+        u = _rowdot(feats, p["w_in"])                    # (E, H)
+        r = rowwise(torch.sigmoid, u * p["w_a"][None] + p["b_a"][None])
+        i = rowwise(torch.sigmoid, u * p["w_i"][None] + p["b_i"][None])
+        log_a = -8.0 * nn.functional.softplus(p["lam"])[None] * r
         gated = i * u
         b = (1.0 - rowwise(torch.exp, 2.0 * log_a)).clamp(min=1e-12) \
             .sqrt() * gated
@@ -125,7 +133,7 @@ class RGLRUPolicy(nn.Module):
         else:
             from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
             _, h_new = rglru_scan_ref(a3, b3, h)
-        actions = _scale(_rowdot(h_new, self.w_out), self.low, self.high)
+        actions = _scale(_rowdot(h_new, p["w_out"]), self.low, self.high)
         return actions, {"h": h_new}
 
 
@@ -144,7 +152,7 @@ def rglru_builder(n_features: int, n_actions: int, n_envs: int = None,
     module = module.to(device)
     return ModelAdapter(
         None, "rglru_policy", params=dict(module.named_parameters()),
-        apply_carry=lambda p, feats, carry: module(feats, carry),
+        apply_carry=module.step,
         init_carry=module.init_carry, module=module)
 
 
@@ -219,9 +227,12 @@ class PolicyConfig:
 
 def build_policy(spec, n_features: int, n_actions: int, n_envs: int, *,
                  device=None, **overrides) -> ModelAdapter:
-    """Resolve a registry name / :class:`PolicyConfig` to a
+    """Resolve a registry name / :class:`PolicyConfig` to a certified
     :class:`~repro_torch.runtime.predictor.ModelAdapter` on ``device``
-    (``None`` means the CUDA card)."""
+    (``None`` means the CUDA card). Certification probes the builder
+    before the adapter is built and raises
+    ``analysis.contracts.ContractViolation`` naming the rule ids; the
+    certificate rides the adapter as ``adapter.certificate``."""
     if isinstance(spec, str):
         spec = PolicyConfig(spec)
     try:
@@ -232,5 +243,14 @@ def build_policy(spec, n_features: int, n_actions: int, n_envs: int, *,
             f"(registered: {sorted(POLICIES)})") from None
     kwargs = dict(spec.kwargs)
     kwargs.update(overrides)
-    return functools.partial(builder, **kwargs)(
-        n_features, n_actions, n_envs=n_envs, device=resolve_device(device))
+    device = resolve_device(device)
+    bound = functools.partial(builder, **kwargs)
+    from repro_torch.analysis.certify import certify_policy
+    probes = ((4, n_features, n_actions),)
+    key = None if "params" in kwargs else (
+        spec.name, tuple(sorted(kwargs.items())), probes, device.type)
+    cert = certify_policy(bound, probes, name=spec.name, device=device,
+                          cache_key=key)
+    adapter = bound(n_features, n_actions, n_envs=n_envs, device=device)
+    adapter.certificate = cert
+    return adapter

@@ -109,7 +109,9 @@ class ModelAdapter:
     ``apply(params, features)``. Recurrent models expose
     ``apply_carry(params, features, carry) -> (actions, new_carry)`` and
     ``init_carry(n_envs)``; their ``fn`` may be None. ``module`` holds the
-    ``nn.Module`` of a policy that is one.
+    ``nn.Module`` of a policy that is one. ``certificate`` holds the
+    ``analysis.certify.PolicyCertificate`` the registry attaches (None
+    until a policy is certified).
     """
 
     def __init__(self, fn: Optional[Callable], name: str = "policy",
@@ -127,6 +129,7 @@ class ModelAdapter:
         self.apply_carry = apply_carry
         self.init_carry = init_carry
         self.module = module
+        self.certificate = None
 
     def __call__(self, features):
         if self.fn is None:
@@ -340,10 +343,18 @@ class Predictor:
         elastic masks in the carry, ``step`` zeroes its outputs on
         inactive rows (``torch.where``: live rows keep their bits)."""
         apply2, spec = self._apply2, self.reward_spec
-        low, high = self._low, self._high
-        true = torch.ones((), dtype=torch.bool, device=self.device)
+        # the envelope and the True scalar on each device a step runs on
+        # (the shards of a sharded engine may sit on other cards)
+        consts = {}
+
+        def on(dev):
+            if dev not in consts:
+                consts[dev] = (self._low.to(dev), self._high.to(dev),
+                               torch.ones((), dtype=torch.bool, device=dev))
+            return consts[dev]
 
         def step(carry: DecideState, feats):
+            low, high, true = on(feats.features.device)
             actions, new_mcarry = apply2(carry.policy, feats.features,
                                          carry.carry)
             actions, violated = validate_actions(actions, low, high)
@@ -383,7 +394,7 @@ class Predictor:
     def _record_times(self, base_idx: int, tick_times) -> None:
         """Mirror absolute float64 tick times into the slot-aligned host
         ring (tick idx adds at cursor idx-1 -> slot (idx-1) % capacity)."""
-        C = self.replay.capacity
+        C = self._replay_times.shape[0]
         for j, t in enumerate(tick_times):
             idx = base_idx + j
             if idx >= 1:
@@ -481,8 +492,9 @@ class Predictor:
 
     def export_replay(self, env_ids, salt: str) -> dict:
         """Anonymized chronological replay export with exact float64
-        absolute times re-attached from the host mirror."""
-        return rp.export_for_training(self.replay, env_ids, salt,
+        absolute times re-attached from the host mirror (a sharded ring's
+        shards gathered, rows in order)."""
+        return rp.export_for_training(rp.whole(self.replay), env_ids, salt,
                                       slot_times=self._replay_times)
 
     # --- elastic slot-pool hooks (PerceptaSystem(elastic=True)) ------------

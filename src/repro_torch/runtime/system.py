@@ -1,6 +1,7 @@
-"""PerceptaSystem — port of ``repro.runtime.system`` for the ``fused``,
+"""PerceptaSystem — port of ``repro.runtime.system``: the ``fused``,
 ``modular``, ``scan``, ``scan_fused_decide``, ``scan_async`` and
-``scan_fused_decide_async`` Manager loops.
+``scan_fused_decide_async`` Manager loops and their four ``*_sharded``
+twins.
 
 All environments are rows of the batched device pipeline; isolation is by
 construction (per-env queues, per-env state rows, per-env model slots).
@@ -30,8 +31,9 @@ is attached; the (K, E, S, T) frames stay on the card. Results equal
 ``scan``'s bit for bit. Accessor rule: the system's ``DecideState`` is
 authoritative for the decision carry (prev obs and actions, tick, model
 carry); the Predictor's own copies of those stop following it. The replay
-ring is shared: the carry's ``replay`` IS the Predictor's ring, written in
-place by each batch, and ``Predictor.absorb_fused`` keeps its float64 time
+ring has one rule: the Predictor's ``replay`` IS the ring the carry
+writes, in place, by each batch (a tuple of shard rings in the sharded
+fused modes, below), and ``Predictor.absorb_fused`` keeps its float64 time
 mirror in step, so :meth:`export_replay` and :meth:`replay_size` read the
 Predictor in every mode. :meth:`snapshot_decide` clones the carry.
 
@@ -80,8 +82,44 @@ the same envs bit for bit. A full pool grows by :meth:`resize`
 init template, the pipeline is rebuilt at the new width and the staging
 pool dropped; surviving rows resume bit for bit.
 
-Not ported yet, and refused with a ``ValueError`` naming the ROADMAP item:
-the ``_sharded`` modes and ``scan_k="auto"``.
+``mode="scan_sharded"`` / ``"scan_async_sharded"`` run the scan engine
+with the env rows split over an ``EnvMesh`` (``distribution.sharding``;
+default: ``env_mesh`` over ``sharding.visible_devices(device)``, the CUDA
+cards): the pipeline state is a tuple of per-shard states, and each batch
+is split, run shard by shard (every shard launched before anything is
+read) and gathered on the mesh's first device, where the Predictor
+consumes it unsharded. ``"scan_fused_decide_sharded"`` /
+``"scan_fused_decide_async_sharded"`` split the decide carry too
+(``sharding.decide_specs``: prev rows, model carry, masks and ring rows on
+their shard, the policy params and the scalars replicated), so the ring
+becomes one ring per shard. The Predictor's ``replay`` becomes the tuple
+of shard rings (its whole-width ring is dropped), and
+:meth:`export_replay`, :meth:`replay_size`, :meth:`snapshot_decide` and
+the trainer read it in the unsharded row order. Results equal the
+unsharded twin's bit for bit. One mesh device
+degenerates to one shard; a mesh may name one card N times (logical
+shards), which is how the shard logic is tested on one device. Online
+training runs its step on the mesh's first device over the minibatch
+gathered from the shard rings, and a new policy is copied to every shard
+at the batch boundary; an elastic pool's :meth:`resize` re-chooses the
+mesh (``elastic.next_pool_size`` rounds the pool to the device count) and
+places the grown trees on it.
+
+The fused-decide modes will not start without a
+``analysis.certify.PolicyCertificate`` (``contract_check=True``, the
+default): a registry policy brings one from its build; any other model is
+certified here at the true (E, F, A). The env and carry rules bind only in
+the sharded fused modes, where the decision math runs per shard, and are
+probed there at the shard widths the mesh can give, again at the new
+mesh's width on every :meth:`resize`; a policy whose rows depend on each
+other or on the row count is refused with a ``ContractViolation`` naming
+the reference's rule id.
+
+``scan_k="auto"`` runs ``core.autotune.tune_scan_params`` at construction
+(``autotune`` holds its keyword arguments): a measured grid over windows
+per batch x mesh split (splits only in the sharded modes) picks the
+windows/s argmax of the engine that will run; the result is kept on
+``self.tuned`` and the mesh is built over its ``mesh_devices``.
 """
 from __future__ import annotations
 
@@ -95,9 +133,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import PerceptaPipeline, PipelineConfig
+from repro_torch.core import replay as rp
 from repro_torch.core.frame import make_raw_window
+from repro_torch.core.pipeline import init_state
 from repro_torch.device import resolve_device
 from repro_torch.distribution import elastic as el
+from repro_torch.distribution import sharding as sh
 from repro_torch.runtime.accumulator import Accumulator
 from repro_torch.runtime.forwarder import ForwarderHub
 from repro_torch.runtime.predictor import Predictor
@@ -113,19 +154,23 @@ _PIPELINE_MODE = {
     "fused": "fused",
     "modular": "modular",
     "scan": "scan",
+    "scan_sharded": "scan_sharded",
     "scan_async": "scan",
+    "scan_async_sharded": "scan_sharded",
     "scan_fused_decide": "scan_fused_decide",
+    "scan_fused_decide_sharded": "scan_fused_decide_sharded",
     "scan_fused_decide_async": "scan_fused_decide",
+    "scan_fused_decide_async_sharded": "scan_fused_decide_sharded",
 }
-_ASYNC_MODES = ("scan_async", "scan_fused_decide_async")
-_SCAN_MODES = ("scan", "scan_fused_decide") + _ASYNC_MODES
-_NOT_PORTED_MODES = {
-    "scan_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-    "scan_async_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-    "scan_fused_decide_sharded": "ROADMAP.md queue 1 item 12 (multi-device)",
-    "scan_fused_decide_async_sharded":
-        "ROADMAP.md queue 1 item 12 (multi-device)",
-}
+_FUSED_DECIDE_MODES = ("scan_fused_decide", "scan_fused_decide_sharded",
+                       "scan_fused_decide_async",
+                       "scan_fused_decide_async_sharded")
+_SCAN_MODES = ("scan", "scan_sharded", "scan_async",
+               "scan_async_sharded") + _FUSED_DECIDE_MODES
+_ASYNC_MODES = ("scan_async", "scan_async_sharded",
+                "scan_fused_decide_async", "scan_fused_decide_async_sharded")
+# pipeline modes whose batches run over the env mesh's shards
+_SHARDED_PIPE_MODES = ("scan_sharded", "scan_fused_decide_sharded")
 
 
 @dataclass
@@ -143,15 +188,14 @@ class PerceptaSystem:
                  mode: str = "fused", speedup: float = 60.0,
                  t0: float = 0.0, manual_time: bool = False,
                  scan_k=8, ingest: str = "columnar",
+                 autotune: Optional[dict] = None,
                  batched_consume: bool = True,
+                 contract_check: bool = True,
                  train: Optional[str] = None,
                  train_cfg: Optional[dict] = None, policy=None,
                  env_slots: Optional[int] = None, elastic: bool = False,
                  ingest_workers: int = 1, ingest_fastpath: bool = True,
                  device=None):
-        if mode in _NOT_PORTED_MODES:
-            raise ValueError(f"mode {mode!r} is not ported yet: "
-                             f"{_NOT_PORTED_MODES[mode]}")
         if mode not in _PIPELINE_MODE:
             raise ValueError(f"unknown mode {mode!r}")
         if elastic and mode not in _SCAN_MODES:
@@ -161,13 +205,10 @@ class PerceptaSystem:
         if train is not None and train != "online":
             raise ValueError(f"unknown train mode {train!r} "
                              "(expected None or 'online')")
-        if train is not None and _PIPELINE_MODE[mode] != "scan_fused_decide":
+        if train is not None and mode not in _FUSED_DECIDE_MODES:
             raise ValueError(
                 "train='online' rides the fused decide carry: use a "
                 f"scan_fused_decide* mode, not {mode!r}")
-        if scan_k == "auto":
-            raise ValueError("scan_k='auto' is not ported yet: "
-                             "ROADMAP.md queue 1 item 12 (autotune)")
         self.device = resolve_device(device)
         if predictor.device != self.device:
             raise ValueError(f"predictor lives on {predictor.device}, the "
@@ -223,7 +264,8 @@ class PerceptaSystem:
         self.cfg = pipeline_cfg
         self.mode = mode
         pipe_mode = _PIPELINE_MODE[mode]
-        self.fused_decide = pipe_mode == "scan_fused_decide"
+        self.fused_decide = mode in _FUSED_DECIDE_MODES
+        self._sharded = pipe_mode in _SHARDED_PIPE_MODES
         if policy is not None:
             predictor.set_model(policy)
         # fused-decide: the Predictor hands its decision state over as the
@@ -240,6 +282,42 @@ class PerceptaSystem:
                 self._dstate = self._dstate._replace(active=act, prev_ok=ok)
             else:
                 self._active_dev, self._prev_ok_dev = act, ok
+        visible = sh.visible_devices(self.device)
+        # the policy gate, before anything is tuned or placed
+        self.contract_check = bool(contract_check)
+        self.policy_certificate = None
+        if self.contract_check and self.fused_decide:
+            E = pipeline_cfg.n_envs
+            if not self._sharded:
+                counts = [1]
+            elif scan_k == "auto":
+                # every split the tuner may choose
+                from repro_torch.core.autotune import candidate_device_counts
+                counts = (autotune or {}).get("device_counts") or \
+                    candidate_device_counts(E, len(visible))
+            else:
+                counts = [sh.env_mesh(E, visible).size]
+            self.policy_certificate = self._certify(predictor, E, counts)
+        # scan_k="auto": a measured grid over K x mesh split
+        self.tuned = None
+        mesh = None
+        if scan_k == "auto":
+            from repro_torch.core.autotune import tune_scan_params
+            kw = dict(autotune or {})
+            if not self._sharded:
+                # mesh splits only apply to the sharded engines
+                kw.setdefault("device_counts", [1])
+            if self.fused_decide:
+                kw.setdefault("decide", decide)
+                kw.setdefault("decide_state", self._dstate)
+            kw.setdefault("device", self.device)
+            self.tuned = tune_scan_params(pipeline_cfg, **kw)
+            scan_k = self.tuned.scan_k
+            if self._sharded:
+                # honour the measured split, one device included
+                mesh = sh.env_mesh(
+                    pipeline_cfg.n_envs,
+                    visible[:max(1, self.tuned.mesh_devices)])
         self.scan_k = max(1, int(scan_k))
         self.ingest = ingest
         self.ingest_fastpath = bool(ingest_fastpath)
@@ -260,10 +338,17 @@ class PerceptaSystem:
         self.batched_consume = bool(batched_consume)
         self.pipeline = PerceptaPipeline(pipeline_cfg, mode=pipe_mode,
                                          device=self.device, decide=decide,
-                                         elastic=self.elastic)
+                                         elastic=self.elastic, mesh=mesh,
+                                         decide_state=self._dstate)
+        self.mesh = self.pipeline.mesh
+        # sharded modes: per-shard states and carries from here on
         self.state = self.pipeline.init_state()
+        if self.fused_decide:
+            self._dstate = self.pipeline.place_decide(self._dstate)
         self._prefetcher: Optional[WindowPrefetcher] = None
         self.predictor = predictor
+        if self.fused_decide:
+            self._adopt_ring()
         # train="online": retraining on the device between the fused decide
         # launches (runtime.trainer); train_cfg holds OnlineTrainer's
         # keyword arguments (batch_size, train_cfg, seed, checkpoint_dir,
@@ -295,6 +380,93 @@ class PerceptaSystem:
             self._register_env(env)
         self.metrics: Dict[str, list] = {"tick_latency_s": [],
                                          "ingest_records": []}
+
+    def _certify(self, predictor, E: int, counts):
+        """The policy certificate the fused-decide modes demand: the
+        model's own (a registry build's) outside the sharded modes, else
+        one probed here at the true (E, F, A); in the sharded modes the
+        env and carry rules bind, at the shard width E/n of every mesh
+        size n in ``counts``."""
+        from repro_torch.analysis import certify
+        cert = getattr(predictor.model, "certificate", None)
+        if cert is not None and not self._sharded:
+            return cert
+        widths = tuple(sorted({E // n for n in counts if n > 1
+                               and E % n == 0}))
+        found = certify.certify_policy(
+            predictor.model,
+            ((E, predictor.n_features, predictor.action_space.n),),
+            name=getattr(predictor.model, "name", None),
+            rules=certify.Rules(env=self._sharded, carry=self._sharded),
+            shard_widths=widths, device=self.device)
+        if cert is None:
+            predictor.model.certificate = found
+        return found
+
+    # --- the shards of a sharded tree (one shard when unsharded) -------------
+    def _shards(self, tree) -> tuple:
+        return tuple(tree) if self._sharded else (tree,)
+
+    def _unshard(self, shards):
+        return tuple(shards) if self._sharded else shards[0]
+
+    def _owner(self, slot: int) -> tuple:
+        """``(shard, row within it)`` of a global env row."""
+        if not self._sharded:
+            return 0, slot
+        return self.mesh.owner(slot, self.cfg.n_envs)
+
+    def _shard_of(self, tree, j: int):
+        """Shard ``j``'s rows of a whole (E, ...)-leading tree (views)."""
+        if not self._sharded:
+            return tree
+        return sh.shard_of(tree, 0, self.mesh, j)
+
+    def _adopt_ring(self) -> None:
+        """Point the Predictor at the ring the carry writes (the ring's
+        one rule, module docstring): the same ring unsharded, the tuple of
+        shard rings sharded, which drops the whole-width ring."""
+        self.predictor.replay = self._unshard(
+            [d.replay for d in self._shards(self._dstate)])
+
+    def _reset_rows(self, tree, template, slot: int):
+        """``elastic.reset_env_rows`` of one global row, in the shard that
+        holds it; ``template`` is a whole (unsharded) tree."""
+        j, r = self._owner(slot)
+        shards = list(self._shards(tree))
+        shards[j] = el.reset_env_rows(shards[j], self._shard_of(template, j),
+                                      [r])
+        return self._unshard(shards)
+
+    def _set_policy(self, params, version) -> None:
+        """Put new policy params and version into every shard's carry (a
+        tensor is never written in place, so a shard on the params' own
+        device shares them)."""
+        from repro_torch.train import tree
+        self._dstate = self._unshard([
+            d._replace(policy=tree.map_(
+                lambda x, dev=d.tick.device: x.to(dev), params),
+                version=version.to(d.tick.device))
+            for d in self._shards(self._dstate)])
+
+    def _train_view(self):
+        """The carry the trainer reads: shard 0's, with the shard rings as
+        one sharded ring (``replay.gather`` reads it in row order)."""
+        if not self._sharded:
+            return self._dstate
+        return self._dstate[0]._replace(replay=self.predictor.replay)
+
+    def _land_step(self, flush: bool = False) -> None:
+        """Adopt the trainer's launched step into the carry (every
+        shard's)."""
+        view = self._train_view()
+        land = self.trainer.flush_pending if flush \
+            else self.trainer.apply_pending
+        new = land(view)
+        if not self._sharded:
+            self._dstate = new
+        elif new is not view:
+            self._set_policy(new.policy, new.version)
 
     def _register_env(self, env_id: str) -> None:
         """Wire one env into every source Receiver and give it its own
@@ -614,7 +786,7 @@ class PerceptaSystem:
         policy_version)`` with the version that produced this batch's
         actions."""
         if self.trainer is not None:
-            self._dstate = self.trainer.apply_pending(self._dstate)
+            self._land_step()
         ver = int(self.predictor.policy_version)
         t_dispatch = time.time()
         starts = torch.zeros((k, self.cfg.n_envs), dtype=torch.float32,
@@ -626,7 +798,7 @@ class PerceptaSystem:
             # host mirror of the carry's prev_ok = prev_ok | active
             self._prev_ok |= self._active
         if self.trainer is not None:
-            self.trainer.dispatch(self._dstate)
+            self.trainer.dispatch(self._train_view())
         return outs, t_dispatch, ver
 
     def _consume_decide(self, bounds, counts, outs, t_dispatch,
@@ -732,31 +904,38 @@ class PerceptaSystem:
                      for m in (self._active, self._prev_ok))
 
     def _push_masks(self) -> None:
-        """Write the host mirrors into the device masks, in place."""
-        act, ok = ((self._dstate.active, self._dstate.prev_ok)
-                   if self.fused_decide
-                   else (self._active_dev, self._prev_ok_dev))
-        act.copy_(torch.from_numpy(self._active))
-        ok.copy_(torch.from_numpy(self._prev_ok))
+        """Write the host mirrors into the device masks, in place (each
+        shard's rows into its carry's masks in the sharded fused modes)."""
+        if not self.fused_decide:
+            self._active_dev.copy_(torch.from_numpy(self._active))
+            self._prev_ok_dev.copy_(torch.from_numpy(self._prev_ok))
+            return
+        E = self.cfg.n_envs
+        for j, d in enumerate(self._shards(self._dstate)):
+            rows = self.mesh.rows(j, E) if self._sharded else slice(None)
+            d.active.copy_(torch.from_numpy(self._active[rows]))
+            d.prev_ok.copy_(torch.from_numpy(self._prev_ok[rows]))
 
     def _scrub_slot(self, slot: int) -> None:
         """Clear a recycled slot's decision rows (prev rows, model carry,
         the ring's ``valid``) and push the masks to the card."""
         if self.fused_decide:
-            d = self._dstate
-            zero = lambda x: el.reset_env_rows(x, torch.zeros_like(x),
-                                               [slot])
+            j, r = self._owner(slot)
+            shards = list(self._shards(self._dstate))
+            d = shards[j]
+            zero = lambda x: el.reset_env_rows(x, torch.zeros_like(x), [r])
             carry = d.carry
             if carry is not None:
-                carry = el.reset_env_rows(
-                    carry, self.predictor.model.init_carry(self.cfg.n_envs),
-                    [slot])
-            # the ring is the Predictor's too and is written in place by
-            # every batch; its valid column is scrubbed the same way
-            d.replay.valid[slot] = False
-            self._dstate = d._replace(prev_obs=zero(d.prev_obs),
-                                      prev_actions=zero(d.prev_actions),
-                                      carry=carry)
+                carry = el.reset_env_rows(carry, self._shard_of(
+                    self.predictor.model.init_carry(self.cfg.n_envs), j),
+                    [r])
+            # the ring (the Predictor's too) is written in place by every
+            # batch; its valid column is scrubbed the same way
+            d.replay.valid[r] = False
+            shards[j] = d._replace(prev_obs=zero(d.prev_obs),
+                                   prev_actions=zero(d.prev_actions),
+                                   carry=carry)
+            self._dstate = self._unshard(shards)
         else:
             self.predictor.clear_env_rows([slot])
         self._push_masks()
@@ -779,8 +958,8 @@ class PerceptaSystem:
         self._active[slot] = True
         self._prev_ok[slot] = False
         self._register_env(env_id)
-        self.state = el.reset_env_rows(self.state,
-                                       self.pipeline.init_state(), [slot])
+        self.state = self._reset_rows(self.state,
+                                      init_state(self.cfg, self.device), slot)
         self._scrub_slot(slot)
         self._refresh_env_ids()
         self._membership_epoch += 1
@@ -815,32 +994,50 @@ class PerceptaSystem:
         env-leading tree from a fresh init template at the new width
         (surviving rows copied bit for bit), rebuilds the pipeline there
         and drops the staging pool, whose buffers are keyed by the width.
-        Returns the new slot count."""
+        The sharded modes gather their shards first, re-choose the mesh
+        at the new width (the pool rounded up to a multiple of the device
+        count) and place the grown trees on it; a sharded fused system
+        certifies its policy again at the new mesh's shard width first, and
+        a refusal leaves the system as it was. Returns the new slot
+        count."""
         self._assert_membership_boundary()
         old = self.env_slots
+        visible = sh.visible_devices(self.device)
+        n_dev = len(visible) if self._sharded else 1
         if new_slots is None:
-            new_slots = el.next_pool_size(old + 1, old)
+            new_slots = el.next_pool_size(old + 1, old, n_dev)
         if new_slots <= old:
             raise ValueError(f"resize: {new_slots} slots, the pool has {old}")
+        mesh = sh.env_mesh(new_slots, visible) if self._sharded else None
+        if self.contract_check and self.fused_decide and self._sharded:
+            # the probes read the row count: a new width is a new check
+            self.policy_certificate = self._certify(
+                self.predictor, new_slots, [mesh.size])
         if self.trainer is not None:
             # a step launched against the old-width carry lands first
-            self._dstate = self.trainer.flush_pending(self._dstate)
+            self._land_step(flush=True)
+        # from here on whole trees: the shards come back together
+        self.state = self.pipeline.gather_state(self.state)
+        if self.fused_decide:
+            self._dstate = self.pipeline.gather_decide(self._dstate)
         pad = new_slots - old
         self._active = np.concatenate([self._active, np.zeros(pad, bool)])
         self._prev_ok = np.concatenate([self._prev_ok, np.zeros(pad, bool)])
         self._slot_env.extend([None] * pad)
         self._free_slots.extend(range(old, new_slots))
         if self.fused_decide:
-            # the carry is authoritative for the prev rows and the model
-            # carry; grow_envs pads the Predictor's, so hand them over
+            # the carry is authoritative for the prev rows, the model carry
+            # and the ring (gathered whole); grow_envs pads the
+            # Predictor's, so hand them over
             d = self._dstate
+            self.predictor.replay = d.replay
             self.predictor._prev["obs"] = d.prev_obs
             self.predictor._prev["actions"] = d.prev_actions
             self.predictor._model_carry = d.carry
         self.predictor.grow_envs(new_slots)
         act, ok = self._device_masks()
         if self.fused_decide:
-            # the ring stays shared with the Predictor (grown there)
+            # the ring grows in the Predictor
             strip = dict(replay=None, active=None, prev_ok=None)
             d = el.grow_env_tree(self._dstate._replace(**strip),
                                  self.predictor.decide_state()._replace(
@@ -850,11 +1047,16 @@ class PerceptaSystem:
         else:
             self._active_dev, self._prev_ok_dev = act, ok
         self.cfg = dataclasses.replace(self.cfg, n_envs=new_slots)
-        self.pipeline = PerceptaPipeline(self.cfg, mode=self.pipeline.mode,
-                                         device=self.device,
-                                         decide=self._decide, elastic=True)
-        self.state = el.grow_env_tree(self.state, self.pipeline.init_state(),
-                                      old)
+        self.pipeline = PerceptaPipeline(
+            self.cfg, mode=self.pipeline.mode, device=self.device,
+            decide=self._decide, elastic=True, mesh=mesh,
+            decide_state=self._dstate)
+        self.mesh = self.pipeline.mesh
+        self.state = self.pipeline.place_state(el.grow_env_tree(
+            self.state, init_state(self.cfg, self.device), old))
+        if self.fused_decide:
+            self._dstate = self.pipeline.place_decide(self._dstate)
+            self._adopt_ring()
         self.env_slots = new_slots
         self._stage_pool.clear()
         self._membership_epoch += 1
@@ -862,26 +1064,27 @@ class PerceptaSystem:
 
     # --- state access -----------------------------------------------------------
     def snapshot_state(self):
-        """Deep copy of the pipeline state, safe to hold across windows."""
-        return _clone(self.state)
+        """Deep copy of the pipeline state, safe to hold across windows
+        (the whole state, its shards gathered, in the sharded modes)."""
+        return _clone(self.pipeline.gather_state(self.state))
 
     def snapshot_norm(self):
         """Deep copy of just the normalizer stats (``NormState``)."""
-        return _clone(self.state.norm)
+        return _clone(self.pipeline.gather_state(self.state).norm)
 
     def snapshot_decide(self):
         """Deep copy of the fused decision carry (``DecideState``), safe to
         hold across batches: the live carry's ring is written in place by
-        every batch."""
+        every batch. Sharded: the shards gathered, rows in order."""
         if not self.fused_decide:
             raise ValueError(f"snapshot_decide: mode {self.mode!r} is not a "
                              "fused-decide mode")
-        return _clone(self._dstate)
+        return _clone(self.pipeline.gather_decide(self._dstate))
 
     def replay_size(self) -> int:
-        """Live transition count of the replay ring, any mode (fused modes
-        share the Predictor's ring)."""
-        buf = self.predictor.replay
+        """Live transition count of the replay ring, any mode (every
+        shard's ring has the same cursor)."""
+        buf = rp.shard_rings(self.predictor.replay)[0]
         return min(int(buf.cursor), buf.capacity)
 
     def policy_version(self) -> int:
@@ -894,7 +1097,7 @@ class PerceptaSystem:
     def snapshot_policy(self):
         """A copy of the LIVE policy params: the carry's ``policy`` leaves
         in the fused-decide modes, the Predictor's mirror otherwise."""
-        src = (self._dstate.policy if self.fused_decide
+        src = (self._shards(self._dstate)[0].policy if self.fused_decide
                else self.predictor.policy_params)
         return _clone(src)
 
@@ -918,10 +1121,8 @@ class PerceptaSystem:
         if out is None:
             return None
         _, params, _ = out
-        self._dstate = self._dstate._replace(
-            policy=params, version=torch.tensor(
-                self.trainer.version, dtype=torch.int32,
-                device=self.device))
+        self._set_policy(params, torch.tensor(
+            self.trainer.version, dtype=torch.int32, device=self.device))
         return out
 
     def export_replay(self, salt: str) -> dict:

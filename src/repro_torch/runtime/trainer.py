@@ -40,8 +40,15 @@ until :meth:`OnlineTrainer.train_stats` reads them. The step itself reads
 nothing back.
 
 The reference checks the train step against its jaxpr contracts
-(``contract_check``); the port has no counterpart until the contract-check
-slice (ROADMAP.md queue 1 item 14), so there is no such argument here.
+(``contract_check``); the port certifies the policy only
+(``analysis.certify``), and the train step's check waits for ROADMAP.md
+queue 1 item 14, so there is no such argument here.
+
+Sharded systems hand :meth:`OnlineTrainer.dispatch` shard 0's carry with
+the shard rings as one sharded ring (a tuple, in row order): the draw
+spans every row and ``replay.gather`` collects the minibatch from the
+shards onto the first device, so the step equals the unsharded one bit
+for bit.
 """
 from __future__ import annotations
 
@@ -135,7 +142,7 @@ class OnlineTrainer:
         self.cfg = train_cfg if train_cfg is not None else default_train_cfg()
         self.device = predictor.device
         critic = critic_init(predictor.n_features,
-                             predictor.replay.actions.shape[-1],
+                             predictor.action_space.n,
                              device=self.device)
         # the critic never rides the decide carry; one optimizer state
         # covers the joint {policy, critic} tree

@@ -41,6 +41,10 @@ cases here that is not marked ``cuda``, on the CPU too (the contract
 holds on both devices); the elastic trees, ``add_batch(env_mask=)``,
 ``harmonize_interp`` and ``detect_mad`` on the card equal the CPU bit for
 bit.
+Env sharding: ``run_many_decide`` on 1, 2, 4 and 8 logical shards of the
+card gives every row the bits of the unsharded run (outputs, state, carry,
+ring) with N times the kernel launches; with two cards, every wrapper
+launches on its tensors' card and a mesh over both equals one card.
 Online training on the card: the train step twice from the same inputs
 and indices, bit for bit (no atomics in its backward); a step on an empty
 ring returns its inputs' bits; ``mlp`` and ``rwkv6`` decide on the card
@@ -825,3 +829,124 @@ def test_detect_mad_on_card_equals_cpu(card, rng):
         out.append((an.detect_mad(x, o).cpu(), an.nanmedian(masked).cpu()))
     assert torch.equal(out[0][0], out[1][0]) and bool(out[0][0].any())
     assert _bits_equal(out[1][1], out[0][1])
+
+
+# ----------------------------------------------------------- env sharding
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["rglru", "mlp"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_shard_rows_do_not_depend_on_shard_width(card, policy, n, rng):
+    """The sharding contract at the loop's shape (E = 256, S = 8, M = 32,
+    T = 8, the kernels on): ``run_many_decide`` on n logical shards of the
+    card (E/n rows each) gives every row the bits of the unsharded E-row
+    run — outputs, state, carry and ring — over two batches, the twin of
+    ``test_live_rows_do_not_depend_on_pool_width``. Each shard launches
+    locf and rglru_scan once and window_agg twice a window."""
+    from repro_torch.distribution import sharding as sh
+    E, S, M, T, K = 256, 8, 32, 8, 4
+    cfg = PipelineConfig(n_envs=E, n_streams=S, n_ticks=T, tick_s=60.0,
+                         max_samples=M, gap_strategy="locf",
+                         feature_agg="mean", use_kernel=True)
+    spec = PolicyConfig(policy, {"hidden": 16, "use_kernel": True}
+                        if policy == "rglru" else {"hidden": 16})
+    pred = Predictor(spec, energy_reward_spec(1, 0, 2),
+                     ActionSpace(np.array([-1.0, -1.0]),
+                                 np.array([1.0, 1.0])),
+                     E, cfg.n_features, replay_capacity=6, device=card)
+    decide = pred.make_decide_fn()
+    ref = pl.PerceptaPipeline(cfg, mode="scan_fused_decide", device=card,
+                              decide=decide)
+    pipe = pl.PerceptaPipeline(cfg, mode="scan_fused_decide_sharded",
+                               device=card, decide=decide,
+                               mesh=sh.env_mesh(E, [card] * n))
+    assert pipe.mesh.size == n
+    dstate = pred.decide_state()
+    shards = pipe.place_decide(tree.map_(lambda x: x.clone(), dstate))
+    state, sstate = ref.init_state(), pipe.init_state()
+    starts = torch.zeros((K, E), device=card)
+    g = np.random.RandomState(7)
+    for b in range(2):
+        raws = _big_window(g, K, E, S, M, T, 60.0, card)
+        with torch.no_grad():
+            state, dstate, out = ref.run_many_decide(state, dstate, raws,
+                                                     starts)
+            before = (locf_ops.LAUNCHES, wagg_ops.LAUNCHES,
+                      rglru_ops.LAUNCHES)
+            sstate, shards, sout = pipe.run_many_decide(sstate, shards,
+                                                        raws, starts)
+        got = (locf_ops.LAUNCHES - before[0], wagg_ops.LAUNCHES - before[1],
+               rglru_ops.LAUNCHES - before[2])
+        assert got == (n * K, 2 * n * K, n * K if policy == "rglru" else 0)
+        for name, x, y in zip(out._fields, out, sout):
+            assert torch.equal(x, y), (b, name)
+    assert _tree_bits_equal(state, pipe.gather_state(sstate))
+    assert _tree_bits_equal(dstate, pipe.gather_decide(shards))
+    assert sh.replicas_agree(shards, sh.decide_specs(shards[0], 0))
+
+
+@pytest.mark.cuda
+def test_kernels_and_shards_launch_on_a_second_card(card, rng):
+    """Every wrapper launches on the card of its tensors, not the current
+    one: with cuda:0 current, each kernel on cuda:1 tensors equals the same
+    call on cuda:0; then ``run_many_decide`` over a mesh of both cards
+    equals the unsharded engine on cuda:0 bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards: a launch on a card other than "
+                    "the current one can only be checked on a second card")
+    from repro_torch.distribution import sharding as sh
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(d0)
+    v = torch.from_numpy(rng.normal(0, 1, (4, 3, 8)).astype(np.float32))
+    m = torch.from_numpy(rng.rand(4, 3, 8) > 0.4)
+    c = torch.from_numpy(rng.normal(0, 1, (4, 3)).astype(np.float32))
+    h = torch.from_numpy(rng.rand(4, 3) > 0.5)
+    a = torch.from_numpy(rng.rand(4, 5, 16).astype(np.float32))
+    q = torch.from_numpy(rng.normal(0, 1, (1, 64, 2, 64)).astype(np.float32))
+    calls = [
+        lambda d: locf_ops.locf(v.to(d), m.to(d), c.to(d), h.to(d)),
+        lambda d: wagg_ops.window_agg(v.to(d), m.to(d), c.to(d),
+                                      c.abs().to(d)),
+        lambda d: rglru_ops.rglru_scan(a.to(d), a.to(d), a[:, 0].to(d)),
+        lambda d: hz_ops.harmonize(v.to(d), v.abs().to(d) * 60, m.to(d),
+                                   torch.zeros(4, device=d), tick_s=60.0,
+                                   n_ticks=4),
+        lambda d: (fa_ops.flash_attention(q.to(d), q.to(d), q.to(d)),),
+        lambda d: (fa_ops.flash_attention(q.to(d).bfloat16(),
+                                          q.to(d).bfloat16(),
+                                          q.to(d).bfloat16()),),
+    ]
+    for call in calls:
+        want, got = call(d0), call(d1)
+        torch.cuda.synchronize(d1)
+        for x, y in zip(want, got):
+            assert y.device == d1 and torch.equal(x, y.to(d0))
+    E, S, M, T, K = 16, 3, 32, 8, 4
+    cfg = PipelineConfig(n_envs=E, n_streams=S, n_ticks=T, tick_s=60.0,
+                         max_samples=M, gap_strategy="locf",
+                         feature_agg="mean", use_kernel=True)
+    pred = Predictor(PolicyConfig("rglru", {"hidden": 16,
+                                            "use_kernel": True}),
+                     energy_reward_spec(1, 0, 2),
+                     ActionSpace(np.array([-1.0, -1.0]),
+                                 np.array([1.0, 1.0])),
+                     E, cfg.n_features, replay_capacity=6, device=d0)
+    decide = pred.make_decide_fn()
+    ref = pl.PerceptaPipeline(cfg, mode="scan_fused_decide", device=d0,
+                              decide=decide)
+    pipe = pl.PerceptaPipeline(cfg, mode="scan_fused_decide_sharded",
+                               device=d0, decide=decide,
+                               mesh=sh.env_mesh(E, [d0, d1]))
+    dstate = pred.decide_state()
+    shards = pipe.place_decide(tree.map_(lambda x: x.clone(), dstate))
+    assert shards[1].policy["w_in"].device == d1
+    state, sstate = ref.init_state(), pipe.init_state()
+    starts = torch.zeros((K, E), device=d0)
+    for _ in range(2):
+        raws = _big_window(rng, K, E, S, M, T, 60.0, d0)
+        with torch.no_grad():
+            state, dstate, out = ref.run_many_decide(state, dstate, raws,
+                                                     starts)
+            sstate, shards, sout = pipe.run_many_decide(sstate, shards,
+                                                        raws, starts)
+        assert _tree_bits_equal(out, sout)
+    assert _tree_bits_equal(dstate, pipe.gather_decide(shards))

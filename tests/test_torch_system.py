@@ -161,6 +161,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.runtime.system, repro_torch.runtime.prefetch, "
             "repro_torch.runtime.trainer, repro_torch.train.checkpoint, "
             "repro_torch.distribution.elastic, "
+            "repro_torch.distribution.sharding, repro_torch.core.autotune, "
+            "repro_torch.analysis.certify, "
             "repro_torch.models, "
             "repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.configs.registry, "
@@ -193,12 +195,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="scan_fused_decide_sharded"), "not ported"),
-    (dict(mode="scan_async_sharded"), "not ported"),
     (dict(mode="scan", train="online"), "rides the fused decide carry"),
     (dict(elastic=True), "scan engine"),
     (dict(train="online"), "rides the fused decide carry"),
-    (dict(scan_k="auto"), "not ported"),
     (dict(mode="scan_fused_decide", train="online", policy="rwkv6"),
      "stateful"),
     (dict(mode="scan_fused_decide", train="online", policy="rglru"),
@@ -206,10 +205,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     (dict(mode="scan_fused_decide", train="offline"), "unknown train mode"),
 ])
 def test_unported_options_raise(kw, match):
-    """Options the port refuses: those not ported yet, and those the
-    reference refuses too (training outside the fused-decide modes, an
-    elastic pool on the per-window engine, a stateful policy with
-    training, an unknown train mode)."""
+    """Options the port refuses, as the reference does: training outside
+    the fused-decide modes, an elastic pool on the per-window engine, a
+    stateful policy with training, an unknown train mode."""
     cfg = PipelineConfig(**PCFG)
     pred = Predictor("linear", energy_reward_spec(1, 0, 2),
                      ActionSpace(*SPACE), E, cfg.n_features, device="cpu")
@@ -217,6 +215,37 @@ def test_unported_options_raise(kw, match):
         PerceptaSystem([f"e{i}" for i in range(E)],
                        _sources(SourceSpec, SimulatedDevice), cfg, pred,
                        device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="scan_sharded"), dict(mode="scan_async_sharded"),
+    dict(mode="scan_fused_decide_sharded"),
+    dict(mode="scan_fused_decide_async_sharded"),
+    dict(mode="scan", scan_k="auto",
+         autotune=dict(k_grid=(1, 2), reps=1)),
+    dict(mode="scan_fused_decide_sharded", scan_k="auto",
+         autotune=dict(k_grid=(1, 2), reps=1)),
+])
+def test_sharded_modes_and_autotune_run(kw, tmp_path):
+    """The four sharded modes and ``scan_k="auto"`` build and run (their
+    results are held bit for bit against the unsharded twins in
+    ``test_torch_sharded.py``)."""
+    cfg = PipelineConfig(**PCFG)
+    pred = Predictor("linear", energy_reward_spec(1, 0, 2),
+                     ActionSpace(*SPACE), E, cfg.n_features,
+                     replay_capacity=8, device="cpu")
+    system = PerceptaSystem([f"e{i}" for i in range(E)],
+                            _sources(SourceSpec, SimulatedDevice), cfg, pred,
+                            manual_time=True, device="cpu",
+                            **dict({"scan_k": 2}, **kw))
+    try:
+        got = system.run_windows(3)
+    finally:
+        system.stop()
+    assert [r["window"] for r in got] == [0, 1, 2]
+    assert all(np.isfinite(r["mean_reward"]) for r in got)
+    if kw.get("scan_k") == "auto":
+        assert system.scan_k == system.tuned.scan_k in (1, 2)
 
 
 def test_unknown_policy_raises():
