@@ -93,12 +93,31 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      weights): ``LM.prefill`` on 4 x 2048 tokens with one flash-attention
      launch per layer counted, decode against prefill, and a
      ``ServeEngine`` run at ``launch/serve.py``'s defaults.
+  8. lm_family_<arch> — every other family of the registry at its
+     published widths with seeded bfloat16 weights (``FAMILIES``):
+     recurrentgemma-2b (RG-LRU + local attention), rwkv6-1.6b (RWKV-6,
+     the chunked wkv timed beside the sequential one),
+     moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b (MoE; phi3.5 cut in
+     depth to what fits on the card, listed in its line), musicgen-medium
+     (``frames`` in) and internvl2-26b (256 patches before the tokens).
+     Each: prefill 4 x 2048 positions with its rglru_scan and
+     flash_attention launches counted against its layers, two prefills bit
+     for bit (MoE: the dropped share), decode against prefill reported
+     (MoE at batch 1 and a capacity that cannot drop), a ``ServeEngine``
+     drain for token input, profiled prefill and decode steps whose traces
+     must name the kernels counted; then a float32 twin (depth fitted to
+     the card) whose decode-vs-prefill and, for RWKV-6, chunked-vs-
+     sequential relations are checked. Phase 3 also holds rglru_scan and
+     flash_attention at recurrentgemma-2b's prefill shapes.
 The line before the last holds one JSON object with every kernel's
-numbers; the last line is ``{"ok": true, "device": {...}}``. Without a
+numbers (``launches`` summed over the paths, ``launches_by_path`` each
+path's, ``at_lm_shape`` the times at the LM prefill shape); the last line
+is ``{"ok": true, "device": {...}}``. Without a
 card the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -120,6 +139,9 @@ N_TICKS, TICK_S, MAX_SAMPLES, HIDDEN = 8, 60.0, 32, 16
 # tail, and launch/serve.py's defaults
 LM_ARCH, LM_B, LM_S, LM_TAIL = "qwen3-0.6b", 4, 2048, 8
 SERVE = dict(slots=4, max_seq=128, requests=8, prompt_len=8, new_tokens=16)
+# the kernel cases at the LM families' prefill shapes (phase 3), by kernel
+LM_SHAPE = {"rglru_scan": "lm_recurrentgemma",
+            "flash_attention": "lm_recurrentgemma"}
 # decode against prefill in bfloat16 over 28 layers: the two sides round
 # at other places (the flash kernel keeps p in float32, decode rounds it to
 # bfloat16; the products differ in shape and order), and the logits
@@ -238,7 +260,7 @@ def device_ms(fn, reps=20, warmup=3, tries=3, want=()):
     return None
 
 
-def traced_kernels(fn, want, reps=10, tries=3):
+def traced_kernels(fn, want, reps=10, tries=6):
     """Names of the device kernels containing ``want`` that ``reps`` calls
     of ``fn`` ran, from the profiler's trace (not from the wrappers'
     counters). A trace of a single call came back empty on the card, and
@@ -385,11 +407,14 @@ def kernel_cases(dev, g):
             bytes=R * t * 5 + R * 8 + R * 8 * 4 + R * t,
             ops=11 * R * t, library=None))
 
-    # B x T x W: the path (B=E, T=1, W=hidden), a fleet step (4096 envs)
-    # and a long sequence (64 x 1024 x 256)
+    # B x T x W: the path (B=E, T=1, W=hidden), a fleet step (4096 envs),
+    # a long sequence (64 x 1024 x 256) and recurrentgemma-2b's prefill
+    # (4 x 2048 x 2560: the RG-LRU block's scan over the sequence)
     for label, (b_, t, w_) in (("path", (E, 1, HIDDEN)),
                                ("fleet", (4096, 1, HIDDEN)),
-                               ("sequence", (64, 1024, 256))):
+                               ("sequence", (64, 1024, 256)),
+                               (LM_SHAPE["rglru_scan"],
+                                (LM_B, LM_S, 2560))):
         a = torch.rand((b_, t, w_), generator=g, device=dev) * 0.5 + 0.5
         b, h0 = rnd(b_, t, w_), rnd(b_, w_)
 
@@ -525,10 +550,11 @@ FA_KERNELS = {
 def flash_cases(dev, g):
     """qwen3-0.6b's prefill attention (B=4, 16 q / 8 kv heads, head dim
     128, S=2048) in bfloat16 and float32, a ragged S, a window and a
-    softcap; and gemma2-2b's (8 q / 4 kv heads, head dim 256, its 4096
-    window and attention cap of 50). Each case names the kernel it must
-    run (``ops.impl_for``), checked through ``LAUNCHES_BY_IMPL`` and the
-    kernel names in a profiler trace. Tolerances: float32 max abs err
+    softcap; gemma2-2b's (8 q / 4 kv heads, head dim 256, its 4096
+    window and attention cap of 50); and recurrentgemma-2b's (10 q heads
+    over 1 kv head, head dim 256, window 2048). Each case names the
+    kernel it must run (``ops.impl_for``), checked through
+    ``LAUNCHES_BY_IMPL`` and the kernel names in a profiler trace. Tolerances: float32 max abs err
     2e-3 (tests/test_kernels.py); bfloat16 one ulp of the plain output, |out - ref| <= 2^-7 |ref| + 1e-5
     per element, since both compute in float32 and round the output once
     (late rows attend to ~2048 keys and their outputs are ~0.04, so an
@@ -553,7 +579,11 @@ def flash_cases(dev, g):
             ("softcap", torch.bfloat16, LM_S, 0, 50.0, (16, 8, 128),
              "wgmma"),
             ("gemma_d256", torch.bfloat16, LM_S, 4096, 50.0, (8, 4, 256),
-             "wgmma")):
+             "wgmma"),
+            # recurrentgemma-2b's local attention: at S = 2048 its 2048
+            # window equals causal, so SDPA computes the same function
+            (LM_SHAPE["flash_attention"], torch.bfloat16, LM_S, 2048, 0.0,
+             (10, 1, 256), "wgmma")):
         check(fa_ops.impl_for(dtype, D) == impl,
               f"flash_attention {label}: impl_for gives "
               f"{fa_ops.impl_for(dtype, D)}, expected {impl}")
@@ -593,7 +623,7 @@ def flash_cases(dev, g):
             return err
 
         lib = None
-        if not window and not softcap:
+        if window in (0, S) and not softcap:
             lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True)
@@ -632,11 +662,11 @@ KERNEL_META = {
 
 def phase_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(0)
-    at_path = {}
+    at_path, at_lm = {}, {}
     for case in kernel_cases(dev, g):
         err = case["compare"]()
-        long_ = case["shape"] == "sequence" or case["name"] == \
-            "flash_attention"
+        long_ = case["shape"] in ("sequence", LM_SHAPE["rglru_scan"]) or \
+            case["name"] == "flash_attention"
         reps = 20 if long_ else 50
         calls = {k: call_ms(case[k], reps=reps) for k in
                  ("kernel", "plain", "library") if case[k] is not None}
@@ -663,7 +693,12 @@ def phase_kernels(dev):
                 **({"impl": impl} if impl else {}), max_abs_err=err,
                 timer=timer, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms)
-    return at_path
+        if case["shape"] == LM_SHAPE.get(case["name"]):
+            at_lm[case["name"]] = dict(
+                shape=case["shape"], **case["dims"], max_abs_err=err,
+                us=us(ms), plain_us=us(plain_ms), bound_us=us(bound_ms),
+                bound_by=bound_by, library_us=us(lib_ms))
+    return at_path, at_lm
 
 
 # --------------------------------------------------------------- system
@@ -1101,7 +1136,7 @@ def phase_async(dev, tmp, refs):
 
 
 # loop_order's depth: timed batches a mode (the first runs time BATCHES)
-LATE_BATCHES = 2
+LATE_BATCHES = 1
 
 
 def phase_loop_order(dev, tmp, first):
@@ -1996,16 +2031,50 @@ def _sync_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _serve_drain(model, tag):
+    """A ``ServeEngine`` drain at ``launch/serve.py``'s defaults (SERVE),
+    every engine step timed (host clock, synchronized). The timing hook
+    makes a cycle engine -> hook -> engine: the caller collects it."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = model.cfg
+    engine = ServeEngine(model, SERVE["slots"], SERVE["max_seq"])
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(
+                1, cfg.vocab_size, (SERVE["prompt_len"],)).astype(np.int32),
+                    max_new_tokens=SERVE["new_tokens"])
+            for i in range(SERVE["requests"])]
+    steps = []
+    step = engine._step_masked
+
+    def timed_step(tokens, mask):
+        out, ms = _sync_ms(lambda: step(tokens, mask))
+        steps.append(ms)
+        return out
+    engine._step_masked = timed_step
+    _, wall_ms = _sync_ms(lambda: engine.run_until_drained(reqs))
+    n_tok = sum(len(r.tokens) for r in reqs)
+    check(all(r.done and r.finish_reason == "length" and
+              len(r.tokens) == SERVE["new_tokens"] for r in reqs),
+          f"{tag}: a request did not complete")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+          f"{tag}: token out of range")
+    check(engine.stats["admitted"] == engine.stats["retired"] ==
+          SERVE["requests"] and engine.stats["timeouts"] == 0,
+          f"{tag}: stats {engine.stats}")
+    return {**SERVE, "completed": len(reqs), "tokens": n_tok,
+            "wall_s": wall_ms / 1e3, "tokens_per_s": n_tok / (wall_ms / 1e3),
+            "engine_ticks": engine.stats["ticks"], "decode_steps": len(steps),
+            "ms_per_decode_step": statistics.median(steps),
+            "stats": engine.stats}
+
+
 def phase_lm(dev):
     """qwen3-0.6b at full width: prefill, decode against prefill, and the
     serving engine. Returns the flash-attention launches of one prefill."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import LM
-    from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = get_config(LM_ARCH)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -2077,71 +2146,358 @@ def phase_lm(dev):
           "lm: decode and prefill disagree on a clear argmax")
     del cache
 
-    engine = ServeEngine(model, SERVE["slots"], SERVE["max_seq"])
-    rng = np.random.RandomState(0)
-    reqs = [Request(rid=i, prompt=rng.randint(
-                1, cfg.vocab_size, (SERVE["prompt_len"],)).astype(np.int32),
-                    max_new_tokens=SERVE["new_tokens"])
-            for i in range(SERVE["requests"])]
-    steps = []
-    step = engine._step_masked
-
-    def timed_step(tokens, mask):
-        out, ms = _sync_ms(lambda: step(tokens, mask))
-        steps.append(ms)
-        return out
-    engine._step_masked = timed_step
-    _, wall_ms = _sync_ms(lambda: engine.run_until_drained(reqs))
-    n_tok = sum(len(r.tokens) for r in reqs)
-    check(all(r.done and r.finish_reason == "length" and
-              len(r.tokens) == SERVE["new_tokens"] for r in reqs),
-          "serve: a request did not complete")
-    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
-          "serve: token out of range")
-    check(engine.stats["admitted"] == engine.stats["retired"] ==
-          SERVE["requests"] and engine.stats["timeouts"] == 0,
-          f"serve: stats {engine.stats}")
-    emit({"phase": "lm_serve", **SERVE, "completed": len(reqs),
-          "tokens": n_tok, "wall_s": wall_ms / 1e3,
-          "tokens_per_s": n_tok / (wall_ms / 1e3),
-          "engine_ticks": engine.stats["ticks"],
-          "decode_steps": len(steps),
-          "ms_per_decode_step": statistics.median(steps),
-          "stats": engine.stats})
-    del engine
+    emit({"phase": "lm_serve", **_serve_drain(model, "serve")})
+    gc.collect()   # the drain's timing hook held a cycle to the model
 
     # last, so that no timing above runs after a profiler session: where
     # one prefill's and one serving decode step's device time goes
     cache = model.init_cache(SERVE["slots"], SERVE["max_seq"])
     tok = torch.ones((SERVE["slots"], 1), dtype=torch.int32, device=dev)
-    for name, fn in (("prefill", lambda: model.prefill({"tokens": toks})),
-                     ("decode_step", lambda: model.decode_step(
-                         {"tokens": tok}, cache))):
+    for name, fn, want in (
+            ("prefill", lambda: model.prefill({"tokens": toks}),
+             {FA_KERNELS["wgmma"][1]: cfg.n_layers}),
+            ("decode_step", lambda: model.decode_step({"tokens": tok}, cache),
+             {})):
+        emit({"phase": f"lm_profile_{name}", **_profile_step(fn, "lm",
+                                                             want)})
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------- LM model families
+# every other family of the registry at its published widths (PERF.md §4)
+FAMILIES = ("recurrentgemma-2b", "rwkv6-1.6b", "moonshot-v1-16b-a3b",
+            "phi3.5-moe-42b-a6.6b", "musicgen-medium", "internvl2-26b")
+# rwkv6's chunked wkv length, timed beside the sequential recurrence
+RWKV_CHUNK = 64
+# the relations (decode against prefill; rwkv6's chunked against its
+# sequential wkv) are held to tests/test_models.py's bound per element,
+# |a - b| <= FAMILY_ATOL + FAMILY_RTOL * |b|, in a float32 twin of each
+# family (phase_f32_relations). In bfloat16 they are reported only: the
+# two sides round hidden states at other places by the reference's own
+# design (decode rounds p to bfloat16 before PV, prefill's conv rounds per
+# tap, decode contracts the taps at once), a near-tie of the MoE router
+# flips on such a rounding, and 26-48 layers amplify it (PERF.md §6)
+FAMILY_ATOL = FAMILY_RTOL = 2e-2
+# device memory left free beside a model's weights when its depth is fitted
+# to the card (phi3.5-moe's 83.7 GB in bfloat16 is more than the card; in
+# float32 most families are): the init's float32 draw of the largest leaf
+# (phi3.5-moe's expert stack, 1.7 GB), activations, caches, the MoE buffer,
+# and room for the profiler (at 10 GiB phi3.5 fitted 28 layers, and a
+# trace of its prefill lost a kernel)
+FIT_RESERVE_BYTES = 12 << 30
+
+
+def _fit_depth(cfg):
+    """``cfg`` with as many of its layers as fit in the card's free memory
+    beside FIT_RESERVE_BYTES (all of them where they fit), never less than
+    one whole period of its layer pattern."""
+    import dataclasses
+
+    from repro_torch.models import param as P
+    from repro_torch.models.model import param_defs
+    free = torch.cuda.mem_get_info()[0] - FIT_RESERVE_BYTES
+    n = cfg.n_layers
+    while n > len(cfg.layer_pattern) and P.bytes_of(param_defs(
+            dataclasses.replace(cfg, n_layers=n))) > free:
+        n -= 1
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def _family_inputs(cfg, g, dev, B, S):
+    """Seeded inputs of a prefill of S positions in the model's dtype:
+    frames for musicgen, 256 patches and S - 256 tokens for internvl2,
+    tokens otherwise."""
+    from repro_torch.models.layers import dtype_of
+    dt = dtype_of(cfg.dtype)
+    if cfg.frontend == "embeddings":
+        return {"frames": torch.randn((B, S, cfg.d_model), generator=g,
+                                      device=dev).to(dt)}
+    n_tok = S - (cfg.n_patches if cfg.frontend == "vlm" else 0)
+    out = {"tokens": torch.randint(1, cfg.vocab_size, (B, n_tok),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32)}
+    if cfg.frontend == "vlm":
+        out["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model),
+                                     generator=g, device=dev).to(dt)
+    return out
+
+
+def _seq_key(cfg):
+    return "frames" if cfg.frontend == "embeddings" else "tokens"
+
+
+def _moe_dropped(model, fn):
+    """Run ``fn`` with the model's MoE counts on; returns its output and
+    the (dropped, total) assignments over every MoE call it made."""
+    model.moe_counts = []
+    out = fn()
+    counts, model.moe_counts = model.moe_counts, None
+    if not counts:
+        return out, (0, 0)
+    dropped, total = torch.stack(counts).sum(0).tolist()
+    return out, (int(dropped), int(total))
+
+
+def _no_drop(cfg):
+    """MoE at a capacity that cannot drop (C = T whatever the routing):
+    decode (C = 1 at batch 1) equals prefill only where neither drops."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts /
+        cfg.moe.experts_per_token))
+
+
+def _relative_err(a, b):
+    """max |a - b| / (FAMILY_ATOL + FAMILY_RTOL |b|): <= 1 within the
+    bound."""
+    return ((a - b).abs() / (FAMILY_ATOL + FAMILY_RTOL * b.abs())).max() \
+        .item()
+
+
+def _decode_vs_prefill(model, sub, key):
+    """Prefill all but the last ``LM_TAIL`` positions of ``sub`` with room
+    for the rest, decode those one at a time, and compare the last step's
+    logits with the full prefill's: max abs difference, its ratio to the
+    bound, argmax agreement, the MoE assignments dropped on either side,
+    and the decode step's median wall ms."""
+    n = sub[key].shape[1]
+    (full, _), d_full = _moe_dropped(model, lambda: model.prefill(sub))
+    head = {**sub, key: sub[key][:, :n - LM_TAIL]}
+    (_, cache), d_head = _moe_dropped(
+        model, lambda: model.prefill(head, max_seq=LM_S + 1))
+    steps, dropped = [], d_full[0] + d_head[0]
+    for t in range(n - LM_TAIL, n):
+        ((logits, cache), d), ms = _sync_ms(lambda: _moe_dropped(
+            model, lambda: model.decode_step({key: sub[key][:, t:t + 1]},
+                                             cache)))
+        dropped += d[0]
+        steps.append(ms)
+    check(bool((cache["lengths"] == LM_S).all()), "decode lengths")
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    top2 = full.topk(2, dim=-1).values
+    return {"rows": full.shape[0], "prefill_positions": LM_S - LM_TAIL,
+            "decode_steps": LM_TAIL,
+            "max_abs_diff": (logits - full).abs().max().item(),
+            "err_over_bound": _relative_err(logits, full),
+            "argmax_agree": int((logits.argmax(-1) ==
+                                 full.argmax(-1)).sum()),
+            "top2_gap_min": (top2[:, 0] - top2[:, 1]).min().item(),
+            "max_abs_logit": full.abs().max().item(), "dropped": dropped,
+            "decode_ms_per_step": statistics.median(steps)}
+
+
+def phase_f32_relations(dev, tag, full_cfg):
+    """A float32 twin of the family (its own seeded draw) at the published
+    widths, its depth fitted to the card (listed in the line), at batch 1
+    and at a capacity that cannot drop: decode against prefill, and for
+    RWKV-6 the chunked wkv against the sequential one, each within the
+    bound. The bfloat16 model must be freed first."""
+    import dataclasses
+
+    from repro_torch.models import LM
+    cfg = _fit_depth(_no_drop(dataclasses.replace(
+        full_cfg, dtype="float32", param_dtype="float32")))
+    rwkv = "rwkv" in cfg.layer_pattern
+    model = LM(cfg, device=dev, seed=0, rwkv_chunk=RWKV_CHUNK if rwkv else 0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    sub = _family_inputs(cfg, g, dev, 1, LM_S)
+    key = _seq_key(cfg)
+    rel = _decode_vs_prefill(model, sub, key)
+    out = {"phase": tag, "step": "f32_relations",
+           "layers": f"{cfg.n_layers} of {full_cfg.n_layers}",
+           "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+           "bound": f"{FAMILY_ATOL} + {FAMILY_RTOL} |prefill|",
+           "decode_vs_prefill": rel}
+    if rwkv:
+        chunked, _ = model.prefill(sub)
+        model.rwkv_chunk = 0
+        seq, _ = model.prefill(sub)
+        out["chunked_vs_sequential"] = {
+            "max_abs_diff": (chunked - seq).abs().max().item(),
+            "err_over_bound": _relative_err(chunked, seq)}
+    emit(out)
+    check(rel["dropped"] == 0, f"{tag}: float32 decode vs prefill dropped "
+          f"{rel['dropped']} assignments")
+    check(rel["err_over_bound"] <= 1.0, f"{tag}: float32 decode vs prefill "
+          f"{rel['err_over_bound']} x the bound")
+    if rwkv:
+        ratio = out["chunked_vs_sequential"]["err_over_bound"]
+        check(ratio <= 1.0, f"{tag}: float32 chunked vs sequential {ratio} "
+              "x the bound")
+
+
+def _profile_step(fn, name, want, tries=3):
+    """One profiled call (device activity only: host-side tracing of a
+    prefill's ~30,000 launches cost ~25 s and inflated the wall): wall,
+    device busy ms and idle share, kernel count and the largest device
+    items; ``want`` maps a kernel-name part to the launches the trace must
+    show of it. The caching allocator's free blocks are released first
+    (with the card nearly full a trace lost one of 28 kernels). A
+    trace that lost kernels launched through the ctypes library (PERF.md
+    §7) is taken again, up to ``tries`` times, then the check fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall = _sync_ms(fn)
         devs = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
-        top = sorted(devs, key=lambda e: -e.self_device_time_total)[:6]
-        busy = _device_us(devs) / 1e3
-        fa_names = [e.key for e in devs if "flash_attention" in e.key]
-        if name == "prefill":
-            check(len(fa_names) == 1 and FA_KERNELS["wgmma"][1] in
-                  fa_names[0] and sum(e.count for e in devs if e.key in
-                                      fa_names) == cfg.n_layers,
-                  f"lm: the prefill trace shows flash kernels {fa_names}, "
-                  f"expected {cfg.n_layers} launches of the wgmma kernel")
-        emit({"phase": f"lm_profile_{name}", "wall_ms": wall,
-              "flash_attention_kernels": fa_names,
-              "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
-              "device_kernels": sum(e.count for e in devs),
-              "flash_attention_device_ms": sum(
-                  e.self_device_time_total for e in devs
-                  if "flash_attention" in e.key) / 1e3,
-              "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                                for e in top}})
-    del model, cache
+        traced = {}
+        for part in want:
+            hits = [e for e in devs if part in e.key]
+            traced[part] = {"kernels": sorted({e.key for e in hits}),
+                            "launches": sum(e.count for e in hits),
+                            "device_ms": sum(e.self_device_time_total
+                                             for e in hits) / 1e3}
+        if all(traced[p]["launches"] == n for p, n in want.items()):
+            break
+    for part, n in want.items():
+        check(traced[part]["launches"] == n,
+              f"{name}: the trace shows {traced[part]['launches']} "
+              f"launches of {part} kernels ({traced[part]['kernels']}), "
+              f"expected {n}")
+    top = sorted(devs, key=lambda e: -e.self_device_time_total)[:6]
+    busy = _device_us(devs) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "traces": attempt,
+            "device_idle_share": 1 - busy / wall,
+            "device_kernels": sum(e.count for e in devs), "traced": traced,
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}}
+
+
+def phase_lm_family(dev, arch):
+    """One model family at its published widths with seeded bfloat16
+    weights, its depth fitted to the card (``_fit_depth``): prefill 4 x
+    2048 positions with its kernel launches counted (checked against its
+    layers and in a profiler trace), two prefills bit for bit (MoE: the
+    dropped share), decode against prefill (reported), a ServeEngine
+    drain for token input and a profiled decode step; then the float32
+    twin's relations (checked). Returns the prefill's launches per
+    kernel."""
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.models import LM
+
+    tag = f"lm_family_{arch}"
+    full = get_config(arch)
+    check(full.dtype == "bfloat16", f"{tag}: dtype {full.dtype}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = _fit_depth(full)
+    kinds = cfg.layer_kinds
+    n_attn = sum(k in (ATTN_GLOBAL, ATTN_LOCAL) for k in kinds)
+    n_rglru = sum(k == RGLRU for k in kinds)
+    moe = cfg.moe is not None
+    model, init_ms = _sync_ms(lambda: LM(
+        cfg, device=dev, seed=0,
+        rwkv_chunk=RWKV_CHUNK if "rwkv" in cfg.layer_pattern else 0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == model.param_count(), f"{tag}: parameter count")
+    emit({"phase": tag, "step": "init", "source": cfg.source,
+          "layers": f"{cfg.n_layers} of {full.n_layers}",
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "experts": cfg.moe.n_experts if moe else None,
+          "experts_per_token": cfg.moe.experts_per_token if moe else None,
+          "frontend": cfg.frontend, "dtype": cfg.dtype, "params": n_params,
+          "param_bytes": model.param_bytes(), "init_ms": init_ms,
+          "device_bytes_before": before,
+          "device_bytes_allocated": torch.cuda.memory_allocated()})
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    inputs = _family_inputs(cfg, g, dev, LM_B, LM_S)
+    key = _seq_key(cfg)
+    # warm-up on a short prompt (library handles, the kernels' first load)
+    model.prefill({**inputs, key: inputs[key][:, :256]})
+    fa_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    rglru_ops.LAUNCHES = 0
+    (first, dropped), first_ms = _sync_ms(
+        lambda: _moe_dropped(model, lambda: model.prefill(inputs)))
+    launches = {"flash_attention": fa_ops.LAUNCHES,
+                "rglru_scan": rglru_ops.LAUNCHES}
+    check(launches == {"flash_attention": n_attn, "rglru_scan": n_rglru},
+          f"{tag}: prefill launches {launches}, expected {n_attn} "
+          f"flash_attention and {n_rglru} rglru_scan")
+    check(fa_ops.LAUNCHES_BY_IMPL == {"wgmma": n_attn, "scalar": 0},
+          f"{tag}: flash_attention by impl {fa_ops.LAUNCHES_BY_IMPL}")
+    logits, cache = first
+    check(logits.shape == (LM_B, cfg.vocab_size) and bool(
+        torch.isfinite(logits).all()), f"{tag}: prefill logits")
+    check(bool((cache["lengths"] == LM_S).all()), f"{tag}: lengths")
+    runs = []
+    for _ in range(3):
+        out, ms = _sync_ms(lambda: model.prefill(inputs))
+        runs.append(ms)
+    check(tree_bits_equal(first, out), f"{tag}: two prefills differ")
+    del out, first, cache
+    wall = statistics.median(runs)
+    line = {"phase": tag, "step": "prefill", "batch": LM_B, "seq": LM_S,
+            "launches": launches, "first_wall_ms": first_ms,
+            "wall_ms": wall, "wall_ms_runs": runs,
+            "tokens_per_s": LM_B * LM_S / (wall / 1e3),
+            "bit_equal_twice": True}
+    if moe:
+        line.update(dropped_assignments=dropped[0], assignments=dropped[1],
+                    dropped_share=dropped[0] / dropped[1])
+    if model.rwkv_chunk:
+        # the sequential recurrence beside the chunked one
+        model.rwkv_chunk = 0
+        (seq, _), seq_ms = _sync_ms(lambda: model.prefill(inputs))
+        model.rwkv_chunk = RWKV_CHUNK
+        line.update(chunk=RWKV_CHUNK, sequential_wall_ms=seq_ms,
+                    chunked_vs_sequential_max_abs=(
+                        seq - logits).abs().max().item())
+        del seq
+    emit(line)
+
+    # decode against prefill in bfloat16, reported (see FAMILY_ATOL); MoE
+    # at batch 1 and at a capacity that cannot drop
+    model.cfg = _no_drop(cfg)
+    rows = slice(0, 1) if moe else slice(0, LM_B)
+    rel = _decode_vs_prefill(model, {k: v[rows] for k, v in inputs.items()},
+                             key)
+    model.cfg = cfg
+    check(rel["dropped"] == 0, f"{tag}: decode vs prefill dropped "
+          f"{rel['dropped']} assignments")
+    emit({"phase": tag, "step": "decode_vs_prefill", **rel,
+          "capacity_factor": model.cfg.moe.capacity_factor if moe else None,
+          "checked": False})
+
+    if cfg.frontend != "embeddings":
+        emit({"phase": tag, "step": "serve", **_serve_drain(model, tag)})
+        gc.collect()   # the drain's timing hook held a cycle to the model
+
+    # last, so that no timing above runs after the profiler has run
+    want = {}
+    if n_attn:
+        want[FA_KERNELS["wgmma"][1]] = n_attn
+    if n_rglru:
+        want["rglru_scan_kernel"] = n_rglru
+    prof = _profile_step(lambda: model.prefill(inputs), tag, want)
+    emit({"phase": tag, "step": "profile_prefill", **prof})
+    cache = model.init_cache(SERVE["slots"], SERVE["max_seq"])
+    one = _family_inputs(cfg, g, dev, SERVE["slots"], 1) if key == \
+        "frames" else {"tokens": torch.randint(
+            1, cfg.vocab_size, (SERVE["slots"], 1), generator=g, device=dev,
+            dtype=torch.int32)}
+    prof = _profile_step(lambda: model.decode_step(one, cache), tag, {})
+    emit({"phase": tag, "step": "profile_decode_step", **prof})
+    del model, cache, inputs, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_f32_relations(dev, tag, full)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -2173,7 +2529,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "library": str(_build.LIB_PATH.relative_to(REPO))})
 
-    at_path = phase_kernels(dev)
+    at_path, at_lm = phase_kernels(dev)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         launches, raw, scan_ref = phase_scan(dev, tmp)
         launches["harmonize"] = phase_harmonize(raw)
@@ -2191,17 +2547,27 @@ def main() -> int:
         phase_modular(dev, tmp, fused_run)
         del fused_run
     del raw
-    launches["flash_attention"] = phase_lm(dev)
+    # launches per path: the decision loop's kernels (harmonize: its op
+    # entry point), then each LM's prefill
+    by_path = {name: ({"harmonize_op": n} if name == "harmonize" else
+                      {"decision_loop": n}) for name, n in launches.items()}
+    by_path["flash_attention"] = {f"lm_{LM_ARCH}": phase_lm(dev)}
+    for arch in FAMILIES:
+        for name, n in phase_lm_family(dev, arch).items():
+            if n:
+                by_path[name][f"lm_{arch}"] = n
 
     def entry(name):
         t = at_path[name]
         us = {f"{k[:-3]}_us": (None if t[k] is None else t[k] * 1e3)
               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         us["us"] = us.pop("_us")
+        extra = {"at_lm_shape": at_lm[name]} if name in at_lm else {}
         return dict(name=name, route="cuda", parity="ok",
                     source=KERNEL_META[name][0],
-                    replaces=KERNEL_META[name][1], launches=launches[name],
-                    **t, **us)
+                    replaces=KERNEL_META[name][1],
+                    launches=sum(by_path[name].values()),
+                    launches_by_path=by_path[name], **t, **us, **extra)
 
     emit({"kernels": [entry(name) for name in KERNEL_META]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -140,8 +140,10 @@ def _map(tree, fn):
 
 def lm_params_from_numpy(params, cfg, device="cpu") -> dict:
     """A reference ``LM``'s params (numpy leaves) -> the port layout
-    ``{"embed": {...}, "layers": [{"attn": {...}, "ffn": {...}}, ...]}``
-    for ``repro_torch.models.LM(cfg, params=...)``."""
+    ``{"embed": {...}, "layers": [layer, ...]}`` for
+    ``repro_torch.models.LM(cfg, params=...)``, a layer being ``{"attn",
+    "ffn"}``, ``{"rglru", "ffn"}`` or ``{"rwkv"}`` by its kind (``ffn``
+    the dense MLP or the MoE FFN), in model order whatever the pattern."""
     leaf = lambda x: _t(x, device)
     return {"embed": _map(params["embed"], leaf),
             "layers": _per_layer(params, cfg, leaf)}
@@ -149,7 +151,9 @@ def lm_params_from_numpy(params, cfg, device="cpu") -> dict:
 
 def lm_cache_from_numpy(cache, cfg, device="cpu") -> dict:
     """A reference decode cache (numpy leaves) -> the port's
-    ``{"lengths": (B,) int32, "layers": [{"k", "v"}, ...]}``."""
+    ``{"lengths": (B,) int32, "layers": [layer, ...]}``, a layer being
+    ``{"k", "v"}``, ``{"conv", "h"}`` (RG-LRU) or ``{"shift", "wkv",
+    "cm_shift"}`` (RWKV) by its kind."""
     leaf = lambda x: _t(x, device)
     return {"lengths": _t(np.asarray(cache["lengths"], np.int32), device),
             "layers": _per_layer(cache, cfg, leaf)}

@@ -2,7 +2,10 @@
 port of ``repro.launch.serve``.
 
 ``python -m repro_torch.launch.serve --arch qwen3-0.6b`` (on the card;
-``--device cpu`` runs on the CPU). Weights are random, drawn from a
+``--device cpu`` runs on the CPU). Every token-input architecture of the
+registry serves (dense, RG-LRU, RWKV-6, MoE and ``vlm``, whose requests
+carry tokens only); ``musicgen-medium`` takes frame embeddings, which the
+engine refuses. Weights are random, drawn from a
 ``torch.Generator`` seeded with 0; prompts come from ``numpy``'s
 ``RandomState(0)`` as in the reference. Prints one JSON object.
 """

@@ -1,6 +1,6 @@
-"""Decode-time KV caches (global + local ring) — port of
-``repro.models.cache`` (the attention caches; the RG-LRU and RWKV state
-caches come with their blocks).
+"""Decode-time state: KV caches (global + local ring) and the RG-LRU and
+RWKV recurrent states — port of ``repro.models.cache``. Every leaf leads
+with the batch, so a serving engine selects each per slot.
 
 Slot/position conventions (L = tokens written so far, per sample):
   * global cache: slot j holds absolute position j; valid iff j < L.
@@ -24,6 +24,29 @@ def kv_cache_defs(cfg, batch: int, max_seq: int, *, window: int = 0) -> dict:
     return {
         "k": ParamDef((batch, size, hkv, dh), dims, dt, "zeros"),
         "v": ParamDef((batch, size, hkv, dh), dims, dt, "zeros"),
+    }
+
+
+def rglru_cache_defs(cfg, batch: int) -> dict:
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "conv": ParamDef((batch, cfg.conv_width - 1, w),
+                         ("batch", "conv", "lru_width"), dtype_of(cfg.dtype),
+                         "zeros"),
+        "h": ParamDef((batch, w), ("batch", "lru_width"), torch.float32,
+                      "zeros"),
+    }
+
+
+def rwkv_cache_defs(cfg, batch: int) -> dict:
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    dt = dtype_of(cfg.dtype)
+    return {
+        "shift": ParamDef((batch, d), ("batch", "d_model"), dt, "zeros"),
+        "wkv": ParamDef((batch, d // hd, hd, hd),
+                        ("batch", "rwkv_heads", "head_dim", "head_dim2"),
+                        torch.float32, "zeros"),
+        "cm_shift": ParamDef((batch, d), ("batch", "d_model"), dt, "zeros"),
     }
 
 

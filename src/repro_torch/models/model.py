@@ -3,18 +3,22 @@
 ``LM`` is an ``nn.Module`` holding its weights; the config's
 ``layer_pattern`` picks each layer's block. Two entry points, the
 reference's serving pair:
-  * ``prefill(inputs, max_seq=None)`` — the whole prompt at once, one
-    flash-attention launch per attention layer; returns the last
-    position's logits and a filled cache;
+  * ``prefill(inputs, max_seq=None)`` — the whole prompt at once (one
+    flash-attention launch per attention layer, one ``rglru_scan`` launch
+    per RG-LRU layer); returns the last position's logits and a filled
+    cache;
   * ``decode_step(inputs, cache)`` — one token per sample against the
     cache.
-Layers are an ``nn.ModuleList`` in model order, where the reference scans
-over stacked pattern groups and runs the remainder as ``tail`` layers
-(``convert.lm_params_from_numpy`` maps one layout onto the other). Global
-and local (ring-cache) attention with the dense SwiGLU MLP are ported; MoE,
-RG-LRU and RWKV blocks and the ``embeddings``/``vlm`` frontends raise
-``NotImplementedError`` until their slice. The ``loss`` entry point waits
-for the training slice; sharding hooks are not carried over.
+Every block of the reference serves: global and local (ring-cache)
+attention, the RG-LRU block, the RWKV-6 block (its channel-mix in place of
+the FFN; ``rwkv_chunk`` picks the sequential or the chunked wkv at
+prefill), the dense SwiGLU MLP and the MoE FFN, with the ``embeddings``
+(``frames`` in) and ``vlm`` (``patches`` before the tokens at prefill)
+frontends. Layers are an ``nn.ModuleList`` in model order, where the
+reference scans over stacked pattern groups and runs the remainder as
+``tail`` layers (``convert.lm_params_from_numpy`` maps one layout onto the
+other). The ``loss`` entry point waits for the training slice; sharding
+hooks are not carried over.
 """
 from __future__ import annotations
 
@@ -27,23 +31,38 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import layers as L
 from repro_torch.models import param as P
+from repro_torch.models.moe import moe_apply, moe_defs
+from repro_torch.models.rglru import rglru_apply, rglru_defs, rglru_step
+from repro_torch.models.rwkv6 import (channel_mix, rwkv_defs, time_mix,
+                                      time_mix_step)
 
-_LATER = "not ported yet (ROADMAP.md, port queue: the MoE/RG-LRU/RWKV " \
-         "blocks and the model frontends)"
+_FRONTENDS = ("none", "embeddings", "vlm")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def _check_config(cfg: ModelConfig) -> None:
     for kind in set(cfg.layer_kinds):
-        if kind in (RGLRU, RWKV):
-            raise NotImplementedError(f"{cfg.name}: {kind} blocks are "
-                                      f"{_LATER}")
-        if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
+        if kind not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV):
             raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are {_LATER}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} "
-                                  f"frontend is {_LATER}")
+    if cfg.frontend not in _FRONTENDS:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+
+
+def layer_defs(cfg: ModelConfig, kind: str) -> dict:
+    """One layer's param defs: ``{"attn", "ffn"}``, ``{"rglru", "ffn"}``
+    or ``{"rwkv"}`` (its channel-mix included), ``ffn`` the dense MLP or
+    the MoE FFN."""
+    if kind == RWKV:
+        return {"rwkv": rwkv_defs(cfg)}
+    d = {"rglru": rglru_defs(cfg)} if kind == RGLRU else \
+        {"attn": L.attention_defs(cfg)}
+    d["ffn"] = moe_defs(cfg) if cfg.moe is not None else L.mlp_defs(cfg)
+    return d
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """The LM's param defs in the port layout (layers in model order)."""
+    return {"embed": L.embed_defs(cfg),
+            "layers": [layer_defs(cfg, k) for k in cfg.layer_kinds]}
 
 
 def _frozen(tree: dict) -> nn.ParameterDict:
@@ -56,14 +75,20 @@ class LM(nn.Module):
 
     Weights come from ``params`` (the port layout, e.g. from
     ``convert.lm_params_from_numpy``) or, without it, are drawn from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``.
+    ``torch.Generator`` on ``device`` seeded with ``seed``. ``rwkv_chunk``
+    > 1 runs the RWKV wkv chunkwise at prefill (0: the exact sequential
+    recurrence), as the reference's constructor. ``moe_counts``, when set
+    to a list, receives each MoE call's (dropped, total) assignment counts
+    as device tensors.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, params=None,
-                 seed: int = 0):
+                 seed: int = 0, rwkv_chunk: int = 0):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
+        self.rwkv_chunk = rwkv_chunk
+        self.moe_counts = None
         self.device = resolve_device(device)
         defs = self.param_defs()
         if params is None:
@@ -80,12 +105,7 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------ params
     def param_defs(self) -> dict:
-        # every ported layer kind is attention + the dense MLP
-        cfg = self.cfg
-        return {"embed": L.embed_defs(cfg),
-                "layers": [{"attn": L.attention_defs(cfg),
-                            "ffn": L.mlp_defs(cfg)}
-                           for _ in cfg.layer_kinds]}
+        return param_defs(self.cfg)
 
     def param_count(self) -> int:
         return P.count(self.param_defs())
@@ -97,12 +117,19 @@ class LM(nn.Module):
     def _window(self, kind: str) -> int:
         return self.cfg.local_window if kind == ATTN_LOCAL else 0
 
+    def _layer_cache_defs(self, kind: str, batch: int, max_seq: int):
+        if kind == RGLRU:
+            return cache_lib.rglru_cache_defs(self.cfg, batch)
+        if kind == RWKV:
+            return cache_lib.rwkv_cache_defs(self.cfg, batch)
+        return cache_lib.kv_cache_defs(self.cfg, batch, max_seq,
+                                       window=self._window(kind))
+
     def cache_defs(self, batch: int, max_seq: int) -> dict:
         return {
             "lengths": P.ParamDef((batch,), ("batch",), torch.int32,
                                   "zeros"),
-            "layers": [cache_lib.kv_cache_defs(self.cfg, batch, max_seq,
-                                               window=self._window(k))
+            "layers": [self._layer_cache_defs(k, batch, max_seq)
                        for k in self.cfg.layer_kinds],
         }
 
@@ -143,27 +170,76 @@ class LM(nn.Module):
         return x + out, new_cache
 
     def _ffn_block(self, p, x):
+        """The dense MLP or the MoE FFN (whose aux loss serving drops, as
+        the reference's serving path does)."""
         cfg = self.cfg
-        out = L.mlp_apply(p, L.rms_norm(x, p["norm"], cfg.norm_eps))
+        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        if cfg.moe is not None:
+            out, _ = moe_apply(p, h, cfg, counts=self.moe_counts)
+        else:
+            out = L.mlp_apply(p, h)
         if cfg.post_norms and "post_norm" in p:
             out = L.rms_norm(out, p["post_norm"], cfg.norm_eps)
         return x + out
 
+    def _rglru_block(self, p, x, mode, slot):
+        h = L.rms_norm(x, p["norm"], self.cfg.norm_eps)
+        if mode == "decode":
+            out, (conv, hstate) = rglru_step(p, h, self.cfg, slot["conv"],
+                                             slot["h"])
+        else:
+            out, (conv, hstate) = rglru_apply(p, h, self.cfg,
+                                              return_state=True)
+        return x + out, {"conv": conv, "h": hstate}
+
+    def _rwkv_block(self, p, x, mode, slot):
+        cfg = self.cfg
+        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        if mode == "decode":
+            out, tm = time_mix_step(p, h, cfg, {"shift": slot["shift"],
+                                                "wkv": slot["wkv"]})
+            cm_state = slot["cm_shift"]
+        else:
+            out, tm = time_mix(p, h, cfg, None, chunk=self.rwkv_chunk,
+                               return_state=True)
+            cm_state = None
+        x = x + out
+        h2 = L.rms_norm(x, p["cm_norm"], cfg.norm_eps)
+        out2, cm = channel_mix(p, h2, cfg, cm_state, return_state=True)
+        return x + out2, {"shift": tm["shift"], "wkv": tm["wkv"],
+                          "cm_shift": cm}
+
     def backbone(self, x, positions, mode, caches, lengths):
-        """x: (B, S, d). ``caches``: per layer, the slot cache (decode) or
-        the cache size to fill (prefill). Returns (x, new per-layer caches)."""
+        """x: (B, S, d). ``caches``: per layer, the slot cache (decode) or,
+        for an attention layer at prefill, the cache size to fill. Returns
+        (x, new per-layer caches)."""
         new = []
         for kind, layer, c in zip(self.cfg.layer_kinds, self.layers, caches):
-            x, nc = self._attn_block(layer["attn"], x, kind, positions, mode,
-                                     c, lengths)
+            if kind == RWKV:
+                x, nc = self._rwkv_block(layer["rwkv"], x, mode, c)
+                new.append(nc)
+                continue
+            if kind == RGLRU:
+                x, nc = self._rglru_block(layer["rglru"], x, mode, c)
+            else:
+                x, nc = self._attn_block(layer["attn"], x, kind, positions,
+                                         mode, c, lengths)
             x = self._ffn_block(layer["ffn"], x)
             new.append(nc)
         return L.rms_norm(x, self.embed["final_norm"], self.cfg.norm_eps), new
 
     def _embed_inputs(self, inputs, start_positions=None):
-        tokens = inputs["tokens"]
-        x = L.embed_tokens(self.embed, tokens, self.cfg)
-        B, S = tokens.shape
+        """``frames`` (B, S, d) for the ``embeddings`` frontend; ``tokens``
+        (B, S) otherwise, with ``patches`` (B, P, d) before them for
+        ``vlm`` when given (decode steps carry tokens only)."""
+        cfg = self.cfg
+        if cfg.frontend == "embeddings":
+            x = inputs["frames"].to(L.dtype_of(cfg.dtype))
+        else:
+            x = L.embed_tokens(self.embed, inputs["tokens"], cfg)
+            if cfg.frontend == "vlm" and "patches" in inputs:
+                x = torch.cat([inputs["patches"].to(x.dtype), x], dim=1)
+        B, S = x.shape[:2]
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
         if start_positions is not None:
             pos = pos + start_positions[:, None]
@@ -172,12 +248,14 @@ class LM(nn.Module):
     # ------------------------------------------------------------- serve
     @torch.no_grad()
     def prefill(self, inputs, max_seq=None):
-        """inputs: {"tokens": (B, S) int32}. ``max_seq`` sizes the cache
-        (>= prompt + planned generation; default the prompt length).
-        Returns (last-position logits (B, V) float32, cache)."""
+        """inputs: {"tokens": (B, S) int32} (``vlm``: also {"patches":
+        (B, P, d)}, placed first; ``embeddings``: {"frames": (B, S, d)}).
+        ``max_seq`` sizes the cache (>= prompt + planned generation;
+        default the prompt length). Returns (last-position logits (B, V)
+        float32, cache)."""
         x, positions = self._embed_inputs(inputs)
         B, S = x.shape[:2]
-        sizes = [d["k"].shape[1]
+        sizes = [d["k"].shape[1] if "k" in d else None
                  for d in self.cache_defs(B, max_seq or S)["layers"]]
         x, layers = self.backbone(x, positions, "prefill", sizes, None)
         logits = L.lm_head(self.embed, x[:, -1:], self.cfg)[:, 0]
@@ -186,8 +264,9 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, inputs, cache):
-        """inputs: {"tokens": (B, 1) int32}. Returns (logits (B, V) float32,
-        the cache advanced by one token per sample)."""
+        """inputs: {"tokens": (B, 1) int32} ({"frames": (B, 1, d)} for
+        ``embeddings``). Returns (logits (B, V) float32, the cache advanced
+        by one token per sample)."""
         lengths = cache["lengths"]
         x, positions = self._embed_inputs(inputs, start_positions=lengths)
         x, layers = self.backbone(x, positions, "decode", cache["layers"],

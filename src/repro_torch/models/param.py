@@ -4,9 +4,12 @@ Models declare parameters as nested dicts of :class:`ParamDef` carrying the
 shape, torch dtype, initializer and the logical dimension names of every
 axis (kept for parity with the reference; the port does not shard yet).
 ``init`` draws every leaf from one ``torch.Generator``, in the order of
-the flattened tree. JAX's threefry draws cannot be reproduced in torch, so
-tests carry the reference's weights across with
-``repro_torch.convert.lm_params_from_numpy`` instead.
+the flattened tree. Initializers: ``normal`` (times ``scale``), ``zeros``
+and ``uniform`` on [``low``, ``high``) (the reference's ``custom`` uniform
+draws: RG-LRU ``lam``, RWKV ``mu``, ``cm_mu`` and ``decay_base``).
+JAX's threefry draws cannot be reproduced in torch, so tests carry the
+reference's weights across with ``repro_torch.convert.lm_params_from_numpy``
+instead.
 """
 from __future__ import annotations
 
@@ -21,8 +24,10 @@ class ParamDef:
     shape: tuple
     dims: tuple                 # logical dim name per axis, len == len(shape)
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"        # normal | zeros (the reference's others
-    scale: float = 0.02         # come with the blocks that use them)
+    init: str = "normal"        # normal | zeros | uniform
+    scale: float = 0.02
+    low: float = 0.0            # uniform's range [low, high)
+    high: float = 1.0
 
     def __post_init__(self):
         if len(self.shape) != len(self.dims):
@@ -32,8 +37,12 @@ class ParamDef:
     def materialize(self, generator: torch.Generator, device) -> torch.Tensor:
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "uniform":
+            x = torch.rand(self.shape, generator=generator, device=device,
+                           dtype=torch.float32)
+            return (x * (self.high - self.low) + self.low).to(self.dtype)
         if self.init != "normal":
-            raise ValueError(f"init {self.init!r} is not ported")
+            raise ValueError(f"unknown init {self.init!r}")
         x = torch.randn(self.shape, generator=generator, device=device,
                         dtype=torch.float32)
         return (x * self.scale).to(self.dtype)

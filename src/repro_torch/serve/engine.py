@@ -10,9 +10,14 @@ past their deadline retire with partial output, so one stuck request
 cannot hold a slot.
 
 Each step merges the advanced cache into the old one per slot with a
-``torch.where`` over every batch-leading leaf: slots that do not advance
-keep their cache rows and lengths. Greedy decoding is ``torch.argmax``
-(first index on ties, like ``jnp.argmax``); sampling draws from a
+``torch.where`` over every batch-leading leaf (K/V, and the RG-LRU and
+RWKV states): slots that do not advance keep their cache rows and
+lengths. Admission resets a slot's ``lengths`` only, as the reference's
+does, so a reused slot of a recurrent model starts from the state its
+last request left. The engine feeds token ids, so a model whose frontend
+takes ``frames`` (``embeddings``) is refused. Greedy decoding is
+``torch.argmax`` (first index on ties, like ``jnp.argmax``); sampling
+draws from a
 ``torch.Generator`` seeded with ``seed`` and does not reproduce JAX's
 draws.
 """
@@ -52,6 +57,10 @@ def _merge(old, new, adv):
 class ServeEngine:
     def __init__(self, model, batch_slots: int, max_seq: int, *,
                  greedy: bool = True, seed: int = 0):
+        if model.cfg.frontend == "embeddings":
+            raise ValueError(
+                f"{model.cfg.name}: the engine feeds token ids, and this "
+                "model takes frame embeddings (frontend 'embeddings')")
         self.model = model
         self.device = model.device
         self.B = batch_slots

@@ -950,3 +950,106 @@ def test_kernels_and_shards_launch_on_a_second_card(card, rng):
                                                         raws, starts)
         assert _tree_bits_equal(out, sout)
     assert _tree_bits_equal(dstate, pipe.gather_decide(shards))
+
+
+# ----------------------------------------------------- LM model families
+@pytest.mark.cuda
+def test_rglru_scan_long_t_bit_equal_on_card(card, rng):
+    """The kernel at recurrentgemma-2b's prefill shape (4 x 2048 x 2560,
+    the RG-LRU block's scan over the sequence) equals its plain version bit
+    for bit."""
+    B, T, W = 4, 2048, 2560
+    g = torch.Generator(device=card).manual_seed(0)
+    a = torch.rand((B, T, W), generator=g, device=card) * 0.5 + 0.5
+    b = torch.randn((B, T, W), generator=g, device=card)
+    h0 = torch.zeros((B, W), device=card)
+    before = rglru_ops.LAUNCHES
+    hs, h = rglru_ops.rglru_scan(a, b, h0)
+    assert rglru_ops.LAUNCHES == before + 1
+    ref_hs, ref_h = rglru_scan_ref(a, b, h0)
+    assert torch.equal(hs, ref_hs) and torch.equal(h, ref_h)
+
+
+def _family_lm(arch, card, **overrides):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config(arch + ":smoke"), **overrides)
+    return cfg, LM(cfg, device=card, seed=0)
+
+
+@pytest.mark.cuda
+def test_moe_apply_is_deterministic_on_card(card, rng):
+    """Two MoE calls on the same card tensors give the same bits (no
+    atomics: the buffer is written by assignment and the k contributions
+    of a token are summed in a fixed order), in bfloat16 at moonshot's 64
+    experts, top 6, where the capacity drops assignments; the float32 call
+    matches the CPU within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as pmoe
+    from repro_torch.models import param as P
+    for dt in ("bfloat16", "float32"):
+        cfg, _ = _family_lm("moonshot-v1-16b-a3b", "cpu")
+        cfg = dataclasses.replace(cfg, d_model=256, dtype=dt,
+                                  param_dtype=dt,
+                                  moe=MoEConfig(64, 6, 128))
+        defs = pmoe.moe_defs(cfg)
+        p = P.init(defs, torch.Generator(device=card).manual_seed(0), card)
+        x = torch.randn((4, 512, 256), generator=torch.Generator(
+            device=card).manual_seed(1), device=card).to(p["router"].dtype)
+        counts = []
+        out1, aux1 = pmoe.moe_apply(p, x, cfg, counts=counts)
+        out2, aux2 = pmoe.moe_apply(p, x, cfg)
+        assert torch.equal(out1, out2) and torch.equal(aux1, aux2)
+        assert int(counts[0][0]) > 0
+        if dt == "float32":
+            cpu = pmoe.moe_apply({k: v.cpu() for k, v in p.items()},
+                                 x.cpu(), cfg)[0]
+            assert_allclose(out1.cpu().numpy(), cpu.numpy(), rtol=1e-4,
+                            atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rwkv_chunked_matches_scan_on_card(card, rng):
+    """The RWKV-6 prefill's chunked wkv (L = 16, S = 100: the pad path
+    runs) against the sequential one on the card, float32, within 1e-4 on
+    the logits and the carried state."""
+    cfg, scan = _family_lm("rwkv6-1.6b", card)
+    from repro_torch.models import LM
+    chunked = LM(cfg, device=card, seed=0, rwkv_chunk=16)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 100))
+                            .astype(np.int32)).to(card)
+    want, wcache = scan.prefill({"tokens": toks})
+    got, gcache = chunked.prefill({"tokens": toks})
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                    atol=1e-4)
+    for w, g in zip(wcache["layers"], gcache["layers"]):
+        assert_allclose(g["wkv"].cpu().numpy(), w["wkv"].cpu().numpy(),
+                        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_recurrent_prefill_launches_its_kernels_on_card(card, rng):
+    """recurrentgemma at 5 layers in bfloat16 with head dim 64: one
+    rglru_scan launch per RG-LRU layer (4) and one flash-attention launch
+    (wgmma) per attention layer (1) in a prefill; decode launches
+    neither, and lands on the prefill's logits."""
+    cfg, lm = _family_lm("recurrentgemma-2b", card, n_layers=5,
+                         dtype="bfloat16", param_dtype="bfloat16",
+                         head_dim=64)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40))
+                            .astype(np.int32)).to(card)
+    r0, f0 = rglru_ops.LAUNCHES, dict(fa_ops.LAUNCHES_BY_IMPL)
+    full, _ = lm.prefill({"tokens": toks})
+    assert rglru_ops.LAUNCHES - r0 == 4
+    assert fa_ops.LAUNCHES_BY_IMPL["wgmma"] - f0["wgmma"] == 1
+    _, cache = lm.prefill({"tokens": toks[:, :32]}, max_seq=41)
+    r1 = rglru_ops.LAUNCHES
+    for t in range(32, 40):
+        logits, cache = lm.decode_step({"tokens": toks[:, t:t + 1]}, cache)
+    assert rglru_ops.LAUNCHES == r1
+    assert_allclose(logits.float().cpu().numpy(), full.float().cpu().numpy(),
+                    rtol=2e-2, atol=2e-2)

@@ -218,14 +218,6 @@ def test_blockwise_attention_matches_jax(window, softcap, rng):
         assert np.abs(uncapped.numpy() - np.asarray(want)).max() > 1e-2
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1.6b",
-                                  "phi3.5-moe-42b-a6.6b", "musicgen-medium",
-                                  "internvl2-26b"])
-def test_unported_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LM(preg.get_config(arch + ":smoke"), device="cpu")
-
-
 def test_lm_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")

@@ -1,7 +1,9 @@
 """The port's ServeEngine and launcher against the JAX package's, on the CPU.
 
 Both engines serve the same ``:smoke`` model (the reference's params moved
-across with ``convert.lm_params_from_numpy``) on the same requests. Greedy
+across with ``convert.lm_params_from_numpy``) on the same requests: dense
+attention (qwen3, gemma2), the recurrent families (recurrentgemma, rwkv6)
+and MoE (moonshot). Greedy
 tokens can flip between frameworks on near-ties (summation order differs,
 as ``tests/test_train_serve.py`` warns within JAX), so every engine step's
 logits are also held within 1e-4, and token equality is asserted where the
@@ -21,7 +23,7 @@ from repro.configs import registry as jreg
 from repro.models import LM as JaxLM
 from repro.serve import engine as jengine
 from repro_torch.configs import registry as preg
-from repro_torch.convert import lm_params_from_numpy
+from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.models import LM
 from repro_torch.serve import engine as pengine
 
@@ -50,8 +52,15 @@ def _requests(mod, rng, vocab, n, prompt_len, new_tokens):
 
 @pytest.mark.parametrize("arch,seed", [("qwen3-0.6b:smoke", 0),
                                        ("qwen3-0.6b:smoke", 1),
-                                       ("gemma2-2b:smoke", 0)])
+                                       ("gemma2-2b:smoke", 0),
+                                       ("recurrentgemma-2b:smoke", 0),
+                                       ("rwkv6-1.6b:smoke", 1),
+                                       ("moonshot-v1-16b-a3b:smoke", 0)])
 def test_engine_matches_jax(arch, seed):
+    """7 requests on 3 slots, so slots are reused: a reused slot of a
+    recurrent model keeps the RG-LRU/RWKV state its last request left
+    (admission resets ``lengths`` only, in both engines), and the MoE
+    decode routes 3 slots at a capacity of 1 per expert."""
     jcfg, pcfg = jreg.get_config(arch), preg.get_config(arch)
     jm = JaxLM(jcfg, remat_policy="none")
     jp = jm.init(jax.random.PRNGKey(seed))
@@ -81,6 +90,15 @@ def test_engine_matches_jax(arch, seed):
     assert preqs[-1].finish_reason == "timeout"
     assert pe.stats == je.stats
     assert pe.stats["timeouts"] == 1 and pe.stats["admitted"] == 7
+    # the caches the engines end with: every slot's rows, reused slots'
+    # recurrent states included
+    want = lm_cache_from_numpy(jax.tree.map(np.asarray, je.cache), pcfg)
+    assert torch.equal(want["lengths"], pe.cache["lengths"])
+    for w, g in zip(want["layers"], pe.cache["layers"]):
+        assert set(w) == set(g)
+        for key in w:
+            assert_allclose(g[key].numpy(), w[key].numpy(), rtol=TOL,
+                            atol=TOL)
 
 
 def test_engine_continuous_batching(rng):
@@ -109,10 +127,12 @@ def test_engine_sampling_is_seeded():
     assert outs[0] == outs[1] and len(outs[0]) == 8
 
 
-def test_launcher_matches_reference_stats(capsys, monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen3-0.6b:smoke",
+                                  "recurrentgemma-2b:smoke"])
+def test_launcher_matches_reference_stats(arch, capsys, monkeypatch):
     from repro.launch import serve as jserve
     from repro_torch.launch import serve as pserve
-    args = ["--arch", "qwen3-0.6b:smoke", "--requests", "5",
+    args = ["--arch", arch, "--requests", "5",
             "--new-tokens", "4"]
     monkeypatch.setattr(sys, "argv", ["serve", *args])
     jserve.main()
