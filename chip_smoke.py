@@ -109,6 +109,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      the card) whose decode-vs-prefill and, for RWKV-6, chunked-vs-
      sequential relations are checked. Phase 3 also holds rglru_scan and
      flash_attention at recurrentgemma-2b's prefill shapes.
+  9. lm_train — qwen3-0.6b training at full width (``phase_lm_train``):
+     train_4k's sequence of 4096 at a global batch of 4 (cut from 256 for
+     one card) in 2 microbatches, full remat, seeded bfloat16 weights and
+     AdamW from zeros, one synthetic batch repeated. ``FlashAttentionFn``
+     (the kernel forward, a plain-attention recompute backward) against
+     autograd through ``attention_ref`` at the microbatch's shape; the
+     step's flash launches (28 a microbatch, twice under the remat); two
+     steps from one state bit for bit; the loss falling over 5 steps; a
+     profiled step. Step ms, tokens/s, idle share, peak memory and the
+     model-FLOP share of the bf16 peak.
+ 10. lm_train_rglru — recurrentgemma-2b training at full width, 2 x 2048
+     (``phase_lm_train_rglru``): ``RGLRUScanFn`` (the kernel forward, one
+     reversed kernel scan backward) against autograd through the plain
+     loop at the step's shape; the step's rglru_scan and flash launches;
+     two steps from one state compared by digest; the loss falling on the
+     next step; a profiled step.
+  Phases 9 and 10 run in a child process of the script (``--train``),
+  which it waits for (see ``train_in_child``).
 The line before the last holds one JSON object with every kernel's
 numbers (``launches`` summed over the paths, ``launches_by_path`` each
 path's, ``at_lm_shape`` the times at the LM prefill shape); the last line
@@ -2187,17 +2205,23 @@ FAMILY_ATOL = FAMILY_RTOL = 2e-2
 # and room for the profiler (at 10 GiB phi3.5 fitted 28 layers, and a
 # trace of its prefill lost a kernel)
 FIT_RESERVE_BYTES = 12 << 30
+# the free memory beside the weights at which a family's prefill is
+# profiled: with 12 GiB (phi3.5 at 27 layers) three traces of its prefill
+# each lost one of 27 flash kernels in one run of two; at 16 GiB (25
+# layers) none did. The profile drops trailing layers to make this room;
+# the checks and timings above it run at the depth FIT_RESERVE_BYTES allows
+PROFILE_RESERVE_BYTES = 16 << 30
 
 
-def _fit_depth(cfg):
+def _fit_depth(cfg, reserve=FIT_RESERVE_BYTES):
     """``cfg`` with as many of its layers as fit in the card's free memory
-    beside FIT_RESERVE_BYTES (all of them where they fit), never less than
-    one whole period of its layer pattern."""
+    beside ``reserve`` (all of them where they fit), never less than one
+    whole period of its layer pattern."""
     import dataclasses
 
     from repro_torch.models import param as P
     from repro_torch.models.model import param_defs
-    free = torch.cuda.mem_get_info()[0] - FIT_RESERVE_BYTES
+    free = torch.cuda.mem_get_info()[0] - reserve
     n = cfg.n_layers
     while n > len(cfg.layer_pattern) and P.bytes_of(param_defs(
             dataclasses.replace(cfg, n_layers=n))) > free:
@@ -2338,14 +2362,18 @@ def _profile_step(fn, name, want, tries=3):
     show of it. The caching allocator's free blocks are released first
     (with the card nearly full a trace lost one of 28 kernels). A
     trace that lost kernels launched through the ctypes library (PERF.md
-    §7) is taken again, up to ``tries`` times, then the check fails."""
+    §7) is taken again, up to ``tries`` times, then the check fails;
+    ``traced_by_attempt`` has each trace's launches of ``want``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    by_attempt = []
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, wall = _sync_ms(fn)
+            # [1]: the call's output is dropped before a retry runs (a
+            # train step's new state is 27 GB at recurrentgemma-2b)
+            wall = _sync_ms(fn)[1]
         devs = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         traced = {}
@@ -2355,6 +2383,7 @@ def _profile_step(fn, name, want, tries=3):
                             "launches": sum(e.count for e in hits),
                             "device_ms": sum(e.self_device_time_total
                                              for e in hits) / 1e3}
+        by_attempt.append({p: traced[p]["launches"] for p in want})
         if all(traced[p]["launches"] == n for p, n in want.items()):
             break
     for part, n in want.items():
@@ -2365,6 +2394,7 @@ def _profile_step(fn, name, want, tries=3):
     top = sorted(devs, key=lambda e: -e.self_device_time_total)[:6]
     busy = _device_us(devs) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "traces": attempt,
+            "traced_by_attempt": by_attempt,
             "device_idle_share": 1 - busy / wall,
             "device_kernels": sum(e.count for e in devs), "traced": traced,
             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
@@ -2393,6 +2423,7 @@ def phase_lm_family(dev, arch):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     cfg = _fit_depth(full)
+    prof_cfg = _fit_depth(full, PROFILE_RESERVE_BYTES)
     kinds = cfg.layer_kinds
     n_attn = sum(k in (ATTN_GLOBAL, ATTN_LOCAL) for k in kinds)
     n_rglru = sum(k == RGLRU for k in kinds)
@@ -2478,14 +2509,24 @@ def phase_lm_family(dev, arch):
         emit({"phase": tag, "step": "serve", **_serve_drain(model, tag)})
         gc.collect()   # the drain's timing hook held a cycle to the model
 
-    # last, so that no timing above runs after the profiler has run
+    # last, so that no timing above runs after the profiler has run; at
+    # the depth with the profiler's room (PROFILE_RESERVE_BYTES): the
+    # trailing layers beyond it are dropped from the model
+    if prof_cfg.n_layers < cfg.n_layers:
+        del model.layers[prof_cfg.n_layers:]
+        model.cfg = prof_cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+    kinds = prof_cfg.layer_kinds
     want = {}
     if n_attn:
-        want[FA_KERNELS["wgmma"][1]] = n_attn
+        want[FA_KERNELS["wgmma"][1]] = sum(
+            k in (ATTN_GLOBAL, ATTN_LOCAL) for k in kinds)
     if n_rglru:
-        want["rglru_scan_kernel"] = n_rglru
+        want["rglru_scan_kernel"] = sum(k == RGLRU for k in kinds)
     prof = _profile_step(lambda: model.prefill(inputs), tag, want)
-    emit({"phase": tag, "step": "profile_prefill", **prof})
+    emit({"phase": tag, "step": "profile_prefill",
+          "layers": f"{prof_cfg.n_layers} of {full.n_layers}", **prof})
     cache = model.init_cache(SERVE["slots"], SERVE["max_seq"])
     one = _family_inputs(cfg, g, dev, SERVE["slots"], 1) if key == \
         "frames" else {"tokens": torch.randint(
@@ -2500,6 +2541,373 @@ def phase_lm_family(dev, arch):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# LM training (phases 9 and 10): qwen3-0.6b at train_4k's sequence, the
+# global batch cut from 256 to 4 (one card, and the script's time: 8 took
+# ~55 s of a ~850 s run) in 2 microbatches of 2; recurrentgemma-2b at
+# 2 x 2048 in one microbatch. Both full remat, AdamW from the seeded
+# init, the same batch repeated (so the loss must fall)
+TRAIN = dict(arch="qwen3-0.6b", seq=4096, batch=4, micro=2, steps=5)
+TRAIN_RG = dict(arch="recurrentgemma-2b", seq=2048, batch=2, micro=1)
+TRAIN_LR = 1e-3
+# FlashAttentionFn's and RGLRUScanFn's gradients against autograd through
+# their plain versions on the card: each within this share of the
+# gradient's largest magnitude (the same ops on the same inputs; expected
+# bit-equal)
+TRAIN_GRAD_REL = 1e-6
+
+
+def _max_rel(got, want):
+    return max((g.float() - w.float()).abs().max().item()
+               / max(w.float().abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+def tree_digest(t, chunk=1 << 24):
+    """Two int64 sums per leaf over its raw bits (plain, and weighted by
+    the position mod 65521), taken in chunks: equal trees give equal
+    digests, and a changed bit changes them; compares two trees too large
+    to hold at once."""
+    from repro_torch.train import tree
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for x in tree.leaves(t):
+        flat = x.detach().contiguous().view(ints[x.element_size()]).reshape(-1)
+        a = b = 0
+        for i in range(0, flat.numel(), chunk):
+            c = flat[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 65521
+            a += int(c.sum())
+            b += int((c * w).sum())
+        out.append((a, b))
+    return out
+
+
+def _train_setup(dev, spec):
+    """The train step at full width (``launch.steps.build_train_step``),
+    its params and AdamW state, and one batch of the synthetic stream on
+    the card."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree
+
+    cfg = get_config(spec["arch"])
+    shape = ShapeConfig("train", spec["seq"], spec["batch"], "train")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=100, microbatches=spec["micro"],
+                       remat_policy="full")
+    (step, model), init_ms = _sync_ms(
+        lambda: build_train_step(cfg, shape, tcfg, dev))
+    params = tree.map_(lambda x: x.detach(), model.params())
+    state = opt.init(params)
+    batch = to_device(SyntheticLMStream(
+        cfg.vocab_size, spec["batch"], spec["seq"], seed=0).make_batch(0),
+        dev)
+    return cfg, step, model, params, state, batch, init_ms
+
+
+def _train_readings(cfg, spec, n_params, step_ms, prof):
+    tokens = spec["batch"] * spec["seq"]
+    return {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "device_kernels": prof["device_kernels"],
+            "traces": prof["traces"],
+            "top_device_ms": prof["top_device_ms"],
+            # a reading, not a claim: 6 N tokens over the step time, as a
+            # share of the bf16 dense peak
+            "model_flop_share_of_bf16_peak":
+                6 * n_params * tokens / (step_ms / 1e3) / BF16_OPS_PER_S}
+
+
+def phase_lm_train(dev):
+    """qwen3-0.6b training at full width (TRAIN): (a) FlashAttentionFn at
+    the microbatch's shape against autograd through ``attention_ref`` on
+    the card, forward within the one-ulp bound and (dq, dk, dv) within
+    TRAIN_GRAD_REL; then the train step: its flash-attention launches
+    counted (28 a microbatch, and 28 again for the full remat's
+    recompute), (b) a second step from the same state and batch bit for
+    bit, (c) the loss falling over TRAIN["steps"] steps on the batch, (d)
+    a profiled step whose trace names the kernel as often as counted.
+    Readings: step ms, tokens/s, device busy ms and idle share, peak
+    memory, the model-FLOP share of the bf16 peak. Returns the step's
+    launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import FlashAttentionFn
+
+    tag = "lm_train"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, step, model, params, state, batch, init_ms = _train_setup(
+        dev, TRAIN)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+           cfg.param_dtype) == (28, 1024, 151936, "bfloat16", "bfloat16"),
+          f"{tag}: not the full-width config")
+    n_params = model.param_count()
+    emit({"phase": tag, "step": "init", "arch": TRAIN["arch"],
+          "source": cfg.source, "params": n_params,
+          "param_bytes": model.param_bytes(), "init_ms": init_ms,
+          "seq": TRAIN["seq"], "global_batch": TRAIN["batch"],
+          "microbatches": TRAIN["micro"], "remat_policy": "full",
+          "reduced": f"global batch 256 -> {TRAIN['batch']} (one card)"})
+
+    # (a) the kernel against its plain version at the microbatch's shape
+    mb = TRAIN["batch"] // TRAIN["micro"]
+    H, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((mb, TRAIN["seq"], h, D), generator=g,
+                           device=dev).to(torch.bfloat16) for h in
+               (H, HKV, HKV))
+    q = (q * D ** -0.5).requires_grad_()
+    k, v = k.requires_grad_(), v.requires_grad_()
+    dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    out = FlashAttentionFn.apply(q, k, v, 0, 0.0)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ref = attention_ref(q, k, v, scale=1.0)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    fwd = ((out.float() - ref.float()).abs()
+           / (2.0 ** -7 * ref.float().abs() + 1e-5)).max().item()
+    grad_rel = _max_rel(got, want)
+    check(fwd <= 1.0, f"{tag}: FlashAttentionFn forward {fwd} x the "
+          "one-ulp bound")
+    check(grad_rel <= TRAIN_GRAD_REL, f"{tag}: FlashAttentionFn (dq, dk, "
+          f"dv) {grad_rel} of their max from autograd through attention_ref")
+    emit({"phase": tag, "step": "flash_attention_fn", "shape": list(q.shape),
+          "kv_heads": HKV, "forward_err_over_one_ulp": fwd,
+          "grad_max_rel_err": grad_rel, "grad_bound": TRAIN_GRAD_REL,
+          "grad_max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, want))})
+    del q, k, v, dout, out, got, ref, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the path: one step with the launches counted
+    fa_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    first, first_ms = _sync_ms(lambda: step(params, state, batch))
+    launches = fa_ops.LAUNCHES
+    per_step = 2 * cfg.n_layers * TRAIN["micro"]
+    check(launches == per_step and fa_ops.LAUNCHES_BY_IMPL ==
+          {"wgmma": per_step, "scalar": 0},
+          f"{tag}: {fa_ops.LAUNCHES_BY_IMPL} flash_attention launches in "
+          f"one step, expected {per_step} on wgmma (forward + remat)")
+    losses = [first[2]["loss"].item()]
+    check(all(bool(torch.isfinite(x).all()) for x in first[2].values()),
+          f"{tag}: metrics not finite {first[2]}")
+    # (b) the same state and batch once more: the same bits
+    second = step(params, state, batch)
+    check(tree_bits_equal(first, second), f"{tag}: two steps from one "
+          "state and batch differ")
+    del second
+    # (c) the loss falls on the repeated batch; the module follows the
+    # params (``load_params``), so the weights it was built with are freed
+    params, state = first[0], first[1]
+    model.load_params(params)
+    del first
+    walls = []
+    for _ in range(TRAIN["steps"] - 1):
+        (params, state, met), ms = _sync_ms(
+            lambda: step(params, state, batch))
+        model.load_params(params)
+        walls.append(ms)
+        losses.append(met["loss"].item())
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall over "
+          f"{TRAIN['steps']} steps: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    # (d) the kernels in a trace of one step
+    prof = _profile_step(lambda: step(params, state, batch), tag,
+                         {FA_KERNELS["wgmma"][1]: per_step})
+    step_ms = statistics.median(walls)
+    emit({"phase": tag, "step": "train", "launches_per_step":
+          {"flash_attention": launches}, "first_step_ms": first_ms,
+          "step_ms_runs": walls, "losses": losses, "bit_equal_twice": True,
+          "peak_device_bytes": peak, "grad_norm": met["grad_norm"].item(),
+          **_train_readings(cfg, TRAIN, n_params, step_ms, prof)})
+    del model, step, params, state, batch, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
+def phase_lm_train_rglru(dev):
+    """recurrentgemma-2b training at full width (TRAIN_RG): (a)
+    RGLRUScanFn at the step's shape, forward bit for bit against the plain
+    loop and (da, db, dh0) within TRAIN_GRAD_REL of autograd through it on
+    the card; the step with its rglru_scan launches counted (18 forward,
+    16 again for the remat of the 8 pattern groups (the 2 tail layers are
+    not rematted, as in the reference), 18 reversed scans in the backward)
+    and its flash-attention launches (8 + 8); (b) two steps from one state
+    and batch with equal losses and equal digests of the new params and
+    AdamW state (the card holds one new state beside the old, not two);
+    (c) the loss falling on the next step over the same batch; (d) a
+    profiled step naming both kernels as often as counted. Returns the
+    step's launches."""
+    from repro_torch.configs.base import ATTN_LOCAL, RGLRU
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models.rglru import RGLRUScanFn
+
+    tag = "lm_train_rglru"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg, step, model, params, state, batch, init_ms = _train_setup(
+        dev, TRAIN_RG)
+    check((cfg.n_layers, cfg.d_model, cfg.lru_width, cfg.dtype) ==
+          (26, 2560, 2560, "bfloat16"), f"{tag}: not the full-width config")
+    kinds = cfg.layer_kinds
+    n_pat = len(cfg.layer_pattern)
+    grouped = kinds[:cfg.n_groups * n_pat]
+    n_rg, n_rg_g = kinds.count(RGLRU), grouped.count(RGLRU)
+    n_fa, n_fa_g = kinds.count(ATTN_LOCAL), grouped.count(ATTN_LOCAL)
+    n_params = model.param_count()
+    emit({"phase": tag, "step": "init", "arch": TRAIN_RG["arch"],
+          "source": cfg.source, "params": n_params,
+          "param_bytes": model.param_bytes(), "init_ms": init_ms,
+          "seq": TRAIN_RG["seq"], "global_batch": TRAIN_RG["batch"],
+          "microbatches": TRAIN_RG["micro"], "remat_policy": "full",
+          "rglru_layers": n_rg, "rglru_layers_in_groups": n_rg_g,
+          "attention_layers": n_fa, "device_bytes_before": before})
+
+    # (a) the scan against its plain loop at the step's shape
+    B, T, W = TRAIN_RG["batch"], TRAIN_RG["seq"], cfg.lru_width
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.rand((B, T, W), generator=g, device=dev).requires_grad_()
+    b = (0.1 * torch.randn((B, T, W), generator=g, device=dev)
+         ).requires_grad_()
+    h0 = torch.randn((B, W), generator=g, device=dev).requires_grad_()
+    w1 = torch.randn((B, T, W), generator=g, device=dev)
+    w2 = torch.randn((B, W), generator=g, device=dev)
+    hs, hl = RGLRUScanFn.apply(a, b, h0)
+    got = torch.autograd.grad((hs * w1).sum() + (hl * w2).sum(), (a, b, h0))
+    hs2, hl2 = rglru_scan_ref(a, b, h0)
+    check(torch.equal(hs, hs2) and torch.equal(hl, hl2),
+          f"{tag}: RGLRUScanFn forward differs from the plain loop")
+    want = torch.autograd.grad((hs2 * w1).sum() + (hl2 * w2).sum(),
+                               (a, b, h0))
+    grad_rel = _max_rel(got, want)
+    check(grad_rel <= TRAIN_GRAD_REL, f"{tag}: RGLRUScanFn (da, db, dh0) "
+          f"{grad_rel} of their max from autograd through the plain loop")
+    emit({"phase": tag, "step": "rglru_scan_fn", "shape": [B, T, W],
+          "forward_bit_equal": True, "grad_max_rel_err": grad_rel,
+          "grad_bound": TRAIN_GRAD_REL,
+          "grad_bit_equal": all(torch.equal(x, y)
+                                for x, y in zip(got, want))})
+    del a, b, h0, w1, w2, hs, hl, hs2, hl2, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rglru_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    once, first_ms = _sync_ms(lambda: step(params, state, batch))
+    launches = {"rglru_scan": rglru_ops.LAUNCHES,
+                "flash_attention": fa_ops.LAUNCHES}
+    expect = {"rglru_scan": 2 * n_rg + n_rg_g,
+              "flash_attention": n_fa + n_fa_g}
+    check(launches == expect and fa_ops.LAUNCHES_BY_IMPL["wgmma"] ==
+          expect["flash_attention"], f"{tag}: launches {launches} "
+          f"({fa_ops.LAUNCHES_BY_IMPL}) in one step, expected {expect}")
+    # (b) one state and batch twice: compared by digest (two new states
+    # beside the old one would not fit)
+    digest, loss0 = tree_digest(once[:2]), once[2]["loss"].item()
+    check(all(bool(torch.isfinite(x).all()) for x in once[2].values()),
+          f"{tag}: metrics not finite")
+    del once
+    gc.collect()
+    first, ms = _sync_ms(lambda: step(params, state, batch))
+    walls = [ms]
+    check(first[2]["loss"].item() == loss0 and
+          tree_digest(first[:2]) == digest,
+          f"{tag}: two steps from one state and batch differ")
+    # (c) the next step on the same batch lowers the loss; the module
+    # follows the params, so the weights it was built with are freed
+    params, state = first[0], first[1]
+    model.load_params(params)
+    del first
+    (params, state, met), ms = _sync_ms(lambda: step(params, state, batch))
+    model.load_params(params)
+    walls.append(ms)
+    losses = [loss0, met["loss"].item()]
+    check(losses[1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_step(lambda: step(params, state, batch), tag,
+                         {"rglru_scan_kernel": expect["rglru_scan"],
+                          FA_KERNELS["wgmma"][1]: expect["flash_attention"]})
+    step_ms = statistics.median(walls)
+    emit({"phase": tag, "step": "train", "launches_per_step": launches,
+          "first_step_ms": first_ms, "step_ms_runs": walls,
+          "losses": losses, "digest_equal_twice": True,
+          "peak_device_bytes": peak,
+          **_train_readings(cfg, TRAIN_RG, n_params, step_ms, prof)})
+    del model, step, params, state, batch, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The two LM training phases run in a child process of this script
+# (``--train``), which the parent waits for: in the script's own process,
+# after the families' phases, three runs each traced 51 of the 52
+# rglru_scan launches of recurrentgemma-2b's train step in every retry
+# (the counters showed 52), while the phase alone in a fresh process traced
+# all 52 (PERF.md §7). The child's lines pass through; its last line gives
+# its launches.
+TRAIN_CHILD_TIMEOUT_S = 400
+
+
+def run_train_phases(dev):
+    """The LM training phases; returns {kernel: {path: launches}}."""
+    by_path = {}
+    for arch, phase in ((TRAIN["arch"], phase_lm_train),
+                        (TRAIN_RG["arch"], phase_lm_train_rglru)):
+        for name, n in phase(dev).items():
+            by_path.setdefault(name, {})[f"train_{arch}"] = n
+    return by_path
+
+
+def train_in_child():
+    """run_train_phases in a child process on the same card, the parent's
+    cached device memory released first; returns its launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--train",
+         str(time.perf_counter() - T_START)],
+        stdout=subprocess.PIPE, text=True, timeout=TRAIN_CHILD_TIMEOUT_S)
+    launches = None
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"train_launches"'):
+            launches = json.loads(line)["train_launches"]
+        else:
+            print(line, flush=True)
+    check(proc.returncode == 0 and launches is not None,
+          f"the training phases' process exited {proc.returncode}")
+    return launches
+
+
+def train_main(offset_s: float) -> int:
+    """The child of train_in_child: its phase lines' ``at_s`` go on from
+    the parent's ``offset_s``."""
+    global T_START
+    T_START -= offset_s
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    print(json.dumps({"train_launches": run_train_phases(
+        torch.device("cuda"))}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2556,6 +2964,8 @@ def main() -> int:
         for name, n in phase_lm_family(dev, arch).items():
             if n:
                 by_path[name][f"lm_{arch}"] = n
+    for name, paths in train_in_child().items():
+        by_path[name].update(paths)
 
     def entry(name):
         t = at_path[name]
@@ -2577,4 +2987,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_main(float(sys.argv[2])))
     sys.exit(main())

@@ -1,2 +1,4 @@
-# Behavioural contract checks of the port (``certify``): the env half of
-# the reference's ``repro.analysis``, run as probes instead of a jaxpr walk.
+# The port's contract gate, the counterpart of the reference's
+# repro.analysis: the policy certificate (certify), the decision loop's and
+# the train step's checks as behavioural probes (check), and the AST lint
+# of host code (lint).

@@ -25,9 +25,11 @@ Three families, each named by the reference's rule id
     row count (an E-sized weight, in params or in a closure, fails
     there), since ``sharding.decide_specs`` replicates the params.
 
-A probe can only see what its inputs exercise; it is no proof. The time
-rules, callbacks and the host-code lint stay with the reference (ROADMAP
-queue 1 item 14). A :class:`PolicyCertificate` records what was checked,
+A probe can only see what its inputs exercise; it is no proof. The rows
+probes (:func:`rows_exchange`, :func:`rows_split`, :func:`rows_permute`)
+serve ``analysis.check`` too, over custom reward fns and the whole decide
+step; the time and callback rules live there, the host-code rules in
+``analysis.lint``. A :class:`PolicyCertificate` records what was checked,
 and certificates are cached by key, so a repeated build skips the probes.
 """
 from __future__ import annotations
@@ -143,6 +145,73 @@ def _rows(tree, idx):
     return None if tree is None else tr.map_(lambda x: x[idx], tree)
 
 
+# --- the rows probes, over any call whose inputs and outputs are (E, ...) ---
+# ``call(rows) -> outputs``: ``rows`` and ``outputs`` are lists of tensors
+# indexed by env row on dim 0; whatever else the call reads it closes over.
+# The policy certificate below and ``analysis.check`` (reward fns, the
+# decide step and its bank) run the same three probes.
+
+def _halves(E: int):
+    return (torch.arange(E) < E // 2, torch.arange(E) >= E // 2) \
+        if E > 1 else ()
+
+
+def rows_exchange(call, rows, others, full=None) -> bool:
+    """True when the rows exchange values: for either half of the E rows,
+    putting ``others[i]``'s rows in place of ``rows[i]``'s (where
+    ``others[i]`` is not None) changes the OTHER half's outputs."""
+    full = call(rows) if full is None else full
+    E = rows[0].shape[0]
+
+    def swap(t, o, half):
+        if o is None:
+            return t
+        m = half.to(t.device).reshape((E,) + (1,) * (t.dim() - 1))
+        return torch.where(m, o, t)
+
+    for half in _halves(E):
+        got = call([swap(t, o, half) for t, o in zip(rows, others)])
+        if not all(_same(_sel(a, ~half), _sel(b, ~half))
+                   for a, b in zip(full, got)):
+            return True
+    return False
+
+
+def rows_split(call, rows, widths, full):
+    """Each block of ``w`` rows, for every ``w`` in ``widths`` (proper
+    divisors of E), called alone must give the full call's rows. Returns
+    None, or ``(kind, w, block, detail)``: kind ``"sized"`` when the call
+    fails or returns other shapes at w rows (something in it is sized by
+    E), ``"rounding"`` when the rows get other bits (env-gemm-rows)."""
+    E = rows[0].shape[0]
+    for w in widths:
+        if w < 1 or E % w or w == E:
+            continue
+        for b in range(E // w):
+            sl = slice(b * w, (b + 1) * w)
+            try:
+                part = call([t[sl] for t in rows])
+            except (RuntimeError, ValueError, IndexError) as e:
+                return ("sized", w, b, f"{type(e).__name__}: "
+                        f"{str(e).splitlines()[0][:120]}")
+            if any(a[sl].shape != p.shape for a, p in zip(full, part)):
+                return ("sized", w, b, "other shapes")
+            if not all(_same(a[sl], p) for a, p in zip(full, part)):
+                return ("rounding", w, b, "")
+    return None
+
+
+def rows_permute(call, rows, perm, full) -> bool:
+    """True when permuted input rows give the permuted output rows."""
+    got = call([t[perm.to(t.device)] for t in rows])
+    return all(_same(a[perm.to(a.device)], g) for a, g in zip(full, got))
+
+
+def default_widths(E: int) -> Tuple[int, ...]:
+    """Every proper divisor of E: the row counts a shard may hold."""
+    return tuple(w for w in range(1, E) if E % w == 0)
+
+
 def certify_policy(builder, probe_shapes: Sequence = DEFAULT_PROBES, *,
                    name: Optional[str] = None, rules: Rules = CERTIFY_RULES,
                    shard_widths: Optional[Sequence[int]] = None,
@@ -235,77 +304,57 @@ def certify_policy(builder, probe_shapes: Sequence = DEFAULT_PROBES, *,
 
             c0 = tr.map_(noise, carry_e)
             c_other = tr.map_(noise, carry_e)
-        full = _flat(step(x, c0))
-        h = E // 2
-        halves = (torch.arange(E) < h, torch.arange(E) >= h) if E > 1 else ()
+        c_flat, c_def = tr.flatten(c0)
 
-        def swap(t, other, rows):
-            m = rows.to(t.device).reshape((E,) + (1,) * (t.dim() - 1))
-            return torch.where(m, other, t)
+        def call(rows):
+            return _flat(step(rows[0], tr.unflatten(c_def, rows[1:])))
 
+        rows = [x] + c_flat
+        full = call(rows)
         if rules.env:
             checked.update(("env-reduce", "env-gemm-rows"))
             # row independence: change one half's features, read the other
-            if any(not all(_same(_sel(a, ~rows), _sel(b, ~rows))
-                           for a, b in zip(full, _flat(step(
-                               swap(x, x_other, rows), c0))))
-                   for rows in halves):
+            if rows_exchange(call, rows, [x_other] + [None] * len(c_flat),
+                             full):
                 add("env-reduce",
                     "rows exchange values: changing some rows' features "
                     "changed the other rows' actions or carry (a reduction "
                     "or contraction over the env axis)")
                 continue
-        if rules.carry and c0 is not None and any(
-                not all(_same(_sel(a, ~rows), _sel(b, ~rows)) for a, b in zip(
-                    full, _flat(step(x, tr.map_(
-                        lambda t, o: swap(t, o, rows), c0, c_other)))))
-                for rows in halves):
+        if rules.carry and c0 is not None and rows_exchange(
+                call, rows, [None] + tr.leaves(c_other), full):
             add("carry-env-mix",
                 "a row's step reads another row's carry: changing some "
                 "rows' carry changed the other rows' actions or carry")
             continue
         if rules.env:
             widths = (tuple(shard_widths) if shard_widths is not None
-                      else tuple(w for w in range(1, E) if E % w == 0))
-            for w in widths:
-                if w < 1 or E % w or w == E:
-                    continue
-                widths_seen.add(int(w))
-                for b in range(E // w):
-                    sl = slice(b * w, (b + 1) * w)
-                    try:
-                        part = _flat(step(x[sl], _rows(c0, sl)))
-                    except (RuntimeError, ValueError, IndexError) as e:
-                        add("param-replication",
-                            f"the step fails at a shard's {w} rows of "
-                            f"E={E} ({type(e).__name__}: "
-                            f"{str(e).splitlines()[0][:120]}): something "
-                            "in the policy is sized by E, and "
-                            "sharding.decide_specs replicates params whole")
-                        break
-                    if any(a[sl].shape != p.shape
-                           for a, p in zip(full, part)):
-                        add("param-replication",
-                            f"a call of {w} rows of E={E} returns other "
-                            "shapes than the rows of the full call: "
-                            "something in the policy is sized by E, and "
-                            "sharding.decide_specs replicates params whole")
-                        break
-                    if not all(_same(a[sl], p) for a, p in zip(full, part)):
-                        add("env-gemm-rows",
-                            f"rows {b * w}..{(b + 1) * w - 1} get other "
-                            f"bits in a call of {w} rows than in one of "
-                            f"{E}: rounding depends on the row count")
-                        break
-                if found:
-                    break
-            if found:
+                      else default_widths(E))
+            bad = rows_split(call, rows, widths, full)
+            if bad is not None:
+                kind, w, blk, detail = bad
+                if kind == "rounding":
+                    add("env-gemm-rows",
+                        f"rows {blk * w}..{(blk + 1) * w - 1} get other "
+                        f"bits in a call of {w} rows than in one of "
+                        f"{E}: rounding depends on the row count")
+                elif detail == "other shapes":
+                    add("param-replication",
+                        f"a call of {w} rows of E={E} returns other "
+                        "shapes than the rows of the full call: "
+                        "something in the policy is sized by E, and "
+                        "sharding.decide_specs replicates params whole")
+                else:
+                    add("param-replication",
+                        f"the step fails at a shard's {w} rows of "
+                        f"E={E} ({detail}): something "
+                        "in the policy is sized by E, and "
+                        "sharding.decide_specs replicates params whole")
                 continue
+            widths_seen.update(int(w) for w in widths
+                               if 1 <= w < E and E % w == 0)
             perm = torch.from_numpy(rng.permutation(E))
-            got = _flat(step(x[perm.to(device)],
-                             _rows(c0, perm.to(device))))
-            if not all(_same(a[perm.to(a.device)], g)
-                       for a, g in zip(full, got)):
+            if not rows_permute(call, rows, perm, full):
                 add("env-reduce",
                     "permuted rows do not give the permuted outputs: a "
                     "row's result depends on its position among the rows")

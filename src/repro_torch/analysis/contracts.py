@@ -1,9 +1,11 @@
 """The port's contract violations, named by the reference's rule ids.
 
 ``repro.analysis.contracts`` declares every rule of the reference's jaxpr
-checker and lint. The port checks the env-axis rules by behaviour
-(``analysis.certify``), so it keeps the ids of those rules only, with what
-a probe observes when each is broken.
+checker and lint. The port checks its rules by behaviour
+(``analysis.certify``, ``analysis.check``) and with an AST lint over
+torch code (``analysis.lint``), so it keeps the ids of those rules only,
+with what a probe or the lint observes when each is broken. ``RULES`` are
+the probes', ``LINT_RULES`` the lint's.
 """
 from __future__ import annotations
 
@@ -29,6 +31,33 @@ RULES = {
         "policy params are replicated on the env mesh "
         "(sharding.decide_specs): no param leaf may be sized by E, and the "
         "policy must run at a shard's row count",
+    "reward-shape":
+        "custom reward fns return one reward per env row: (E,) for (E, F) "
+        "features, at every env count the fn is called with",
+    "callback-in-scan":
+        "no host read inside the decide step or the train step (Tensor.cpu, "
+        ".item, .tolist, .numpy, bool/int/float of a tensor) — it hides a "
+        "host sync in the per-window hot loop and cannot be captured in a "
+        "CUDA graph",
+    "time-cast":
+        "no float32 (or narrower) cast of an absolute time: moving the time "
+        "inputs (the int32 tick counter, the replay's tick_idx) by 2^24 must "
+        "leave every other output's bits unchanged — float32 absolute "
+        "ticks quantize past 2^24; rebase (subtract a time) before "
+        "narrowing",
+}
+
+LINT_RULES = {
+    "state-leaf-alias":
+        "host code never aliases system.state leaves (system.state.norm "
+        "etc.) outside runtime/system.py — the sharded modes hold a tuple "
+        "of per-shard trees there and the engines replace the tree each "
+        "batch; use the snapshot accessors (snapshot_state / snapshot_norm "
+        "/ export_replay)",
+    "lock-multi-acquire":
+        "runtime/ locks are one-acquire-per-call: no with-lock inside a "
+        "loop, no nested acquire of the same lock, no call to a sibling "
+        "method that re-acquires the held lock (batch first, lock once)",
 }
 
 
@@ -38,6 +67,7 @@ class Violation:
     rule: str
     message: str
     label: str = ""
+    source: str = ""
 
     def format(self) -> str:
         return f"[{self.rule}]: {self.message}"

@@ -13,7 +13,12 @@ Everything arrives as numpy arrays (the reference's leaves converted with
   * :func:`lm_params_from_numpy` / :func:`lm_cache_from_numpy` — an LM's
     param tree (for ``LM(params=)``) and its decode cache, with the
     reference's stacked pattern groups and ``tail`` layers split into the
-    port's per-layer list.
+    port's per-layer list;
+  * :func:`lm_train_state_from_numpy` — an LM train step's AdamW state
+    (``m``, ``v``, ``step``), so that both packages can take a step from
+    the same state. The port's LM checkpoints (``train.loop``) keep the
+    port's per-layer layout and do not restore into the reference, whose
+    layers are stacked; the online trainer's checkpoints do.
 Dtypes are kept as the reference has them: float32 or bfloat16 values,
 int32 counters (``tick_index``, ``tick_idx``, ``version``, ``cursor``,
 ``lengths``, ``tick``) and bool flags (``valid``, ``have_prev``).
@@ -157,3 +162,13 @@ def lm_cache_from_numpy(cache, cfg, device="cpu") -> dict:
     leaf = lambda x: _t(x, device)
     return {"lengths": _t(np.asarray(cache["lengths"], np.int32), device),
             "layers": _per_layer(cache, cfg, leaf)}
+
+
+def lm_train_state_from_numpy(opt_state, cfg, device="cpu") -> dict:
+    """A reference LM train step's optimizer state (numpy leaves: ``m``
+    and ``v`` float32 over the params' tree, ``step`` int32) -> the port's
+    ``{"m", "v", "step"}`` over the ``LM.params`` layout, for
+    ``launch.steps.build_train_step``'s step."""
+    return {"m": lm_params_from_numpy(opt_state["m"], cfg, device),
+            "v": lm_params_from_numpy(opt_state["v"], cfg, device),
+            "step": _t(np.asarray(opt_state["step"], np.int32), device)}

@@ -6,6 +6,7 @@ environments per tick. ``custom`` takes any function of torch tensors.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -59,8 +60,31 @@ class RewardTerm:
 @dataclass(frozen=True)
 class RewardSpec:
     """A reward program: weighted terms summed per env per tick. The total
-    is a left fold of adds over the term stack, in term order."""
+    is a left fold of adds over the term stack, in term order.
+
+    Custom terms are checked at construction against the per-env row-wise
+    contract (``analysis.check.check_reward_terms``: one reward per row,
+    no reduction over the env axis, no rounding that moves with the row
+    count, no host read). ``unchecked=True`` skips the check (logged) for
+    fns the probe cannot run at spec time; they are still checked at true
+    shapes when a fused or sharded ``PerceptaSystem`` is built.
+    """
     terms: tuple
+    unchecked: bool = False
+
+    def __post_init__(self):
+        if self.unchecked:
+            logging.getLogger(__name__).info(
+                "RewardSpec(unchecked=True): skipping the contract check "
+                "on %d term(s); custom fns will still be checked at "
+                "system construction for sharded/fused modes",
+                len(self.terms))
+            return
+        if any(t.kind == "custom" for t in self.terms):
+            # lazy import: the checks import the runtime, which imports
+            # this module
+            from repro_torch.analysis.check import check_reward_terms
+            check_reward_terms(self.terms)
 
     def compute(self, features, actions, prev_actions=None):
         """features (..., E, F), actions (..., E, A) ->

@@ -13,6 +13,14 @@ within summation order and bfloat16 runs round at the same places:
 RoPE uses interleaved (even, odd) pairs. GQA never repeats KV heads: q is
 laid out (kv_head, q_per_kv) along its flat head axis, so q head
 h = kv * G + g reads kv head h // G.
+
+Training: ``blockwise_attention`` goes through :class:`FlashAttentionFn`,
+whose forward is the kernel (the plain version on the CPU) and whose
+backward recomputes the plain version under autograd: no backward kernel
+exists in either package (the reference trains through jnp attention and
+its Pallas kernel has no ``custom_vjp``). :func:`chunked_cross_entropy`
+is the reference's loss over sequence chunks, each checkpointed, so the
+(B, S, V) logits never exist.
 """
 from __future__ import annotations
 
@@ -20,8 +28,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.param import ParamDef
 
 NEG_INF = -1e30
@@ -75,6 +85,34 @@ def _softcap(scores, cap: float):
     return scores
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal GQA attention with the flash-attention kernel as its forward
+    (``fa_ops.flash_attention``: the kernel on a CUDA tensor, the plain
+    version on a CPU one) and, as its backward, autograd through the plain
+    version (``attention_ref``) recomputed from the saved (q, k, v). The
+    recompute holds the (B, H, S, S) float32 scores of one layer for the
+    length of its backward. ``scale`` is 1.0 here: callers scale q first.
+    Under ``torch.no_grad`` (serving) ``apply`` is the forward alone, so
+    serving keeps its bits and its launch counts."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, softcap: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.softcap = window, softcap
+        return fa_ops.flash_attention(q, k, v, window=window,
+                                      softcap=softcap, scale=1.0)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_ref(*qkv, window=ctx.window,
+                                softcap=ctx.softcap, scale=1.0)
+            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        return dq, dk, dv, None, None
+
+
 def blockwise_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
                         scale=None):
     """Causal (optionally sliding-window) attention of a prefill: queries
@@ -87,8 +125,8 @@ def blockwise_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     B, S, Hkv, G, Dh = q.shape
     scale = 1.0 / math.sqrt(Dh) if scale is None else scale
     q = scale_by(q, scale).reshape(B, S, Hkv * G, Dh)
-    out = fa_ops.flash_attention(q, k.contiguous(), v.contiguous(),
-                                 window=window, softcap=softcap, scale=1.0)
+    out = FlashAttentionFn.apply(q, k.contiguous(), v.contiguous(),
+                                 int(window), float(softcap))
     return out.reshape(B, S, Hkv, G, Dh)
 
 
@@ -213,3 +251,35 @@ def lm_head(p, x, cfg):
     w = p["head"] if "head" in p else p["table"].T
     logits = x @ w.to(x.dtype)
     return _softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def chunked_cross_entropy(p, x, targets, cfg, chunk: int = 256, mask=None):
+    """Mean next-token cross entropy over (B, S) positions, without a
+    (B, S, V) buffer: per sequence chunk, the float32 logits (softcapped
+    as ``lm_head``'s), their logsumexp minus the target's logit, masked
+    and summed; the total over ``max(count, 1)``. Each chunk runs under
+    ``torch.utils.checkpoint``, so its logits are recomputed in the
+    backward and only (B, chunk) values stay. The reference pads S to a
+    multiple of ``chunk`` with masked positions; here the last chunk is
+    short, which sums the same terms."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    w = p["head"] if "head" in p else p["table"].T
+
+    def step(xc, tc, mc, w):
+        logits = (xc @ w.to(xc.dtype)).float()
+        if cfg.final_logit_softcap:
+            logits = _softcap(logits, cfg.final_logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+        return ((lse - picked) * mc.float()).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        sl = slice(i, i + chunk)
+        tot = tot + checkpoint(step, x[:, sl], targets[:, sl], mask[:, sl],
+                               w, use_reentrant=False)
+    cnt = mask.float().sum()
+    return tot / torch.clamp(cnt, min=1.0)

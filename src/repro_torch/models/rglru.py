@@ -10,9 +10,10 @@ RG-LRU recurrence (per channel):
     a_t = exp(-c * softplus(Lambda) * r_t)          (data-dependent decay)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence over the whole sequence through
+Prefill and training run the recurrence over the whole sequence through
 ``kernels/rglru_scan`` (one launch a layer on the card, its plain
-sequential version on the CPU), where the reference runs
+sequential version on the CPU; training adds one reversed launch a layer
+in the backward, :class:`RGLRUScanFn`), where the reference runs
 ``jax.lax.associative_scan``: the two agree within float32 rounding, not
 bit for bit. Decode is the reference's single elementwise update in
 plain torch. As in the reference, prefill's temporal conv sums its taps
@@ -91,14 +92,51 @@ def _conv_full(p, x, conv_state=None):
     return out + p["conv_b"].to(x.dtype), new_state
 
 
+class RGLRUScanFn(torch.autograd.Function):
+    """The linear scan h_t = a_t h_{t-1} + b_t with the ``rglru_scan``
+    kernel as its forward (``rglru_ops.rglru_scan``: the kernel on a CUDA
+    tensor, the plain loop on a CPU one) and a backward that is the same
+    scan run in reverse, so it is one more launch of the same kernel:
+
+        g_t = dh_t + a_{t+1} g_{t+1}     (g over the whole sequence, the
+                                          last step also taking dh_T of
+                                          the returned h_T)
+        db_t = g_t,   da_t = g_t h_{t-1} (h_{-1} = h0),   dh0 = a_0 g_0.
+
+    Reversed in time, g is the scan of the flipped dh with the flipped,
+    shifted a (a_{t+1}, zero past the end) from a zero start. Under
+    ``torch.no_grad`` (serving) ``apply`` is the forward alone."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        hs, h_last = rglru_ops.rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, hs)
+        return hs, h_last
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        a, h0, hs = ctx.saved_tensors
+        dhs = torch.zeros_like(hs) if dhs is None else dhs
+        if dh_last is not None:
+            dhs = torch.cat([dhs[:, :-1], (dhs[:, -1] + dh_last)[:, None]],
+                            dim=1)
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g_rev, _ = rglru_ops.rglru_scan(
+            a_next.flip(1).contiguous(), dhs.flip(1).contiguous(),
+            torch.zeros_like(h0))
+        g = g_rev.flip(1)
+        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        return g * h_prev, g, a[:, 0] * g[:, 0]
+
+
 def rglru_scan(a, b, h0=None):
     """h_t = a_t h_{t-1} + b_t over axis 1. a, b: (B, S, w) float32; h0:
-    (B, w) or None (zeros). Returns (all h_t, h_S): the kernel's wrapper
-    (a CPU tensor takes its plain sequential loop)."""
+    (B, w) or None (zeros). Returns (all h_t, h_S) through
+    :class:`RGLRUScanFn` (a CPU tensor takes the plain sequential loop)."""
     if h0 is None:
         h0 = a.new_zeros((a.shape[0], a.shape[2]))
-    return rglru_ops.rglru_scan(a.contiguous(), b.contiguous(),
-                                h0.float().contiguous())
+    return RGLRUScanFn.apply(a.contiguous(), b.contiguous(),
+                             h0.float().contiguous())
 
 
 def rglru_apply(p, x, cfg, conv_state=None, h_state=None, *,

@@ -105,6 +105,15 @@ at the batch boundary; an elastic pool's :meth:`resize` re-chooses the
 mesh (``elastic.next_pool_size`` rounds the pool to the device count) and
 places the grown trees on it.
 
+Every fused or sharded build first runs ``analysis.check.check_system``
+(``contract_check=True``, the default), where the reference runs its
+jaxpr checker: the decide step (with its reward terms) and its bank are
+probed for host reads and float32 casts of the tick, and in the sharded
+fused modes for rows that exchange values or round by the row count;
+``scan_sharded`` checks the policy and the custom reward terms at their
+true shapes. A recurrent policy passes in ``scan_sharded`` (the reference
+refuses it there; its static reader has only a stateless view).
+
 The fused-decide modes will not start without a
 ``analysis.certify.PolicyCertificate`` (``contract_check=True``, the
 default): a registry policy brings one from its build; any other model is
@@ -283,10 +292,12 @@ class PerceptaSystem:
             else:
                 self._active_dev, self._prev_ok_dev = act, ok
         visible = sh.visible_devices(self.device)
-        # the policy gate, before anything is tuned or placed
+        # the contract gate, before anything is tuned or placed: the
+        # decision path's checks (analysis.check), then the policy
+        # certificate (analysis.certify)
         self.contract_check = bool(contract_check)
         self.policy_certificate = None
-        if self.contract_check and self.fused_decide:
+        if self.contract_check and (self.fused_decide or self._sharded):
             E = pipeline_cfg.n_envs
             if not self._sharded:
                 counts = [1]
@@ -297,6 +308,15 @@ class PerceptaSystem:
                     candidate_device_counts(E, len(visible))
             else:
                 counts = [sh.env_mesh(E, visible).size]
+            from repro_torch.analysis.check import check_system
+            # env rules bind only where the decision math itself runs in
+            # the env-sharded dispatch (fused + sharded); scan_sharded's
+            # Predictor consumes on the host, unsharded
+            check_system(predictor, decide=decide, dstate=self._dstate,
+                         sharded=self.fused_decide and self._sharded,
+                         label=f"PerceptaSystem(mode={mode!r})",
+                         shard_widths=_widths(E, counts))
+        if self.contract_check and self.fused_decide:
             self.policy_certificate = self._certify(predictor, E, counts)
         # scan_k="auto": a measured grid over K x mesh split
         self.tuned = None
@@ -391,8 +411,7 @@ class PerceptaSystem:
         cert = getattr(predictor.model, "certificate", None)
         if cert is not None and not self._sharded:
             return cert
-        widths = tuple(sorted({E // n for n in counts if n > 1
-                               and E % n == 0}))
+        widths = _widths(E, counts)
         found = certify.certify_policy(
             predictor.model,
             ((E, predictor.n_features, predictor.action_space.n),),
@@ -1208,6 +1227,11 @@ class PerceptaSystem:
                             for t in self.translators.values()},
             "predictor": self.predictor.stats,
         }
+
+
+def _widths(E: int, counts) -> tuple:
+    """The rows a shard holds on each mesh of ``counts`` devices."""
+    return tuple(sorted({E // n for n in counts if n > 1 and E % n == 0}))
 
 
 def _clone(tree):

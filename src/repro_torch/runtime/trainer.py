@@ -39,10 +39,12 @@ Host reads: :meth:`OnlineTrainer.apply_pending` reads one scalar,
 until :meth:`OnlineTrainer.train_stats` reads them. The step itself reads
 nothing back.
 
-The reference checks the train step against its jaxpr contracts
-(``contract_check``); the port certifies the policy only
-(``analysis.certify``), and the train step's check waits for ROADMAP.md
-queue 1 item 14, so there is no such argument here.
+Contract gate: ``contract_check=True`` (the default) runs
+``analysis.check.check_train_step`` on the step at construction, as the
+reference runs its jaxpr check: no host read inside the step, and no
+float32 cast of the replay's absolute ``tick_idx`` (the env family is off:
+the loss reduces over the minibatch by design). It probes a seeded full
+ring of the Predictor's layout, since the real ring is still empty.
 
 Sharded systems hand :meth:`OnlineTrainer.dispatch` shard 0's carry with
 the shard rings as one sharded ring (a tuple, in row order): the draw
@@ -129,7 +131,7 @@ class OnlineTrainer:
     def __init__(self, predictor, batch_size: int = 128,
                  train_cfg: Optional[TrainConfig] = None, seed: int = 0,
                  checkpoint_dir: Optional[str] = None,
-                 checkpoint_every: int = 0):
+                 checkpoint_every: int = 0, contract_check: bool = True):
         apply_fn, params = policy_call(predictor.model)
         if not tree.leaves(params):
             raise ValueError(
@@ -156,6 +158,11 @@ class OnlineTrainer:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._pending = None
         self._apply_fn = apply_fn
+        if contract_check:
+            from repro_torch.analysis.check import check_train_step
+            check_train_step(
+                self.step_fn, params, self.train_state, predictor.replay,
+                batch=self.batch_size, label="OnlineTrainer.step_fn")
         self._ckpt = None
         self.checkpoint_every = int(checkpoint_every)
         if checkpoint_dir is not None:

@@ -9,7 +9,9 @@
 
 Leaves are numbered in ``jax.tree.flatten``'s order (``train.tree``: dicts
 by sorted key), so a checkpoint written by either package restores in the
-other, bit for bit.
+other, bit for bit. numpy has no bfloat16: the port saves such a leaf (an
+LM's weights) as its raw 16-bit words, dtype ``bfloat16`` in the manifest,
+and restores it by that name.
 
 Fault-tolerance contract:
   * the atomic rename means a crash mid-write never corrupts the latest
@@ -44,9 +46,21 @@ def _leaf_name(i: int) -> str:
     return f"leaf_{i:05d}.npy"
 
 
-def _host(x: torch.Tensor) -> np.ndarray:
-    """A private host copy of one leaf."""
-    return x.detach().cpu().numpy().copy()
+def _host(x: torch.Tensor):
+    """A private host copy of one leaf and its dtype's name. numpy has no
+    bfloat16: such a leaf is saved as its raw 16-bit words and named
+    ``bfloat16`` in the manifest."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16).copy(), "bfloat16"
+    arr = x.numpy().copy()
+    return arr, str(arr.dtype)
+
+
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class Checkpointer:
@@ -99,11 +113,11 @@ class Checkpointer:
         tmp.mkdir(parents=True)
         manifest = {"step": step, "time": time.time(), "leaves": [],
                     "extra": extra}
-        for i, arr in enumerate(host_leaves):
+        for i, (arr, dtype) in enumerate(host_leaves):
             np.save(tmp / _leaf_name(i), arr)
             manifest["leaves"].append({"file": _leaf_name(i),
                                        "shape": list(arr.shape),
-                                       "dtype": str(arr.dtype)})
+                                       "dtype": dtype})
         with open(tmp / "manifest.json", "w") as fh:
             json.dump(manifest, fh)
         if final.exists():
@@ -140,7 +154,7 @@ class Checkpointer:
             if list(arr.shape) != list(ref.shape):
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, "
                                  f"tree shape {tuple(ref.shape)}")
-            out.append(torch.from_numpy(arr).to(ref.device))
+            out.append(_tensor(arr, meta["dtype"]).to(ref.device))
         return tree.unflatten(treedef, out), manifest["extra"]
 
     def flush(self):

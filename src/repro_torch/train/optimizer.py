@@ -57,16 +57,27 @@ def global_norm(t):
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+def _clip_scale(norm, max_norm: float):
+    return torch.clamp(torch.full_like(norm, max_norm)
+                       / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
-    scale = torch.clamp(torch.full_like(norm, max_norm)
-                        / torch.clamp(norm, min=1e-12), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree.map_(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 def update(grads, opt_state, params, cfg: TrainConfig):
-    """One AdamW step. Returns ``(new_params, new_opt_state, grad_norm)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """One AdamW step. Returns ``(new_params, new_opt_state, grad_norm)``.
+
+    The clip and the update run leaf by leaf, each temporary dropped as
+    soon as it is used, so the step's peak holds about three float32
+    copies of the largest leaf besides the state (a 2.7 B-param model's
+    embedding is 2.6 GB in float32); the arithmetic is
+    :func:`clip_by_global_norm`'s and the reference's, op for op."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.grad_clip)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -74,13 +85,12 @@ def update(grads, opt_state, params, cfg: TrainConfig):
     c2 = 1.0 - torch.pow(b2, step.to(torch.float32))
 
     def upd(p, g, m, v):
-        g = g.to(torch.float32)
+        g = (g * scale.to(g.dtype)).to(torch.float32)
         m = b1 * m + (1.0 - b1) * g
         v = b2 * v + (1.0 - b2) * torch.square(g)
-        mhat = m / c1
-        vhat = v / c2
+        del g
         p32 = p.to(torch.float32)
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+        delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps) \
             + cfg.weight_decay * p32
         return (p32 - lr * delta).to(p.dtype), m, v
 

@@ -51,6 +51,18 @@ ring returns its inputs' bits; ``mlp`` and ``rwkv6`` decide on the card
 against the same call on the CPU, rtol = atol = 1e-5 (the repo's
 single-module bound; the two devices round ``exp``, ``tanh`` and the
 row sums differently).
+LM training's autograd Functions on the card: ``FlashAttentionFn``'s
+forward is the kernel (the flash bounds above against ``attention_ref``)
+and its (dq, dk, dv) autograd through ``attention_ref`` recomputed on the
+card, which must equal autograd through ``attention_ref`` called directly
+within 1e-6 of each gradient's largest magnitude (the same ops on the
+same inputs); ``RGLRUScanFn``'s forward bit for bit against the plain
+loop and its (da, db, dh0), one reversed launch of the kernel, against
+autograd through the plain loop within 1e-6 of each gradient's largest
+magnitude (the kernel adds g_t = dh_t + a_{t+1} g_{t+1} in the order
+autograd accumulates it). A float32 train step repeated from the same
+state and batch gives the same loss and params bit for bit, with the
+kernels' launch counts of a ``full``-remat step.
 """
 import numpy as np
 import pytest
@@ -1053,3 +1065,84 @@ def test_recurrent_prefill_launches_its_kernels_on_card(card, rng):
     assert rglru_ops.LAUNCHES == r1
     assert_allclose(logits.float().cpu().numpy(), full.float().cpu().numpy(),
                     rtol=2e-2, atol=2e-2)
+
+
+# -------------------------------------------------------------- LM training
+def _max_rel(got, want):
+    return max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,impl", [(torch.bfloat16, 128, "wgmma"),
+                                          (torch.float32, 64, "scalar")])
+def test_flash_attention_fn_forward_backward_on_card(card, dtype, D, impl):
+    from repro_torch.models.layers import FlashAttentionFn
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn((2, 256, h, D), generator=g, device=card)
+               .to(dtype).requires_grad_() for h in (8, 4, 4))
+    dout = torch.randn((2, 256, 8, D), generator=g, device=card).to(dtype)
+    before = dict(fa_ops.LAUNCHES_BY_IMPL)
+    out = FlashAttentionFn.apply(q, k, v, 0, 0.0)
+    assert fa_ops.LAUNCHES_BY_IMPL[impl] == before[impl] + 1
+    ref = attention_ref(q, k, v, scale=1.0)
+    err = (out.float() - ref.float()).abs().detach()
+    if dtype == torch.bfloat16:
+        assert bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all())
+    else:
+        assert float(err.max()) <= 2e-3
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    assert fa_ops.LAUNCHES_BY_IMPL[impl] == before[impl] + 1
+    assert all(x.dtype == dtype for x in got)
+    assert _max_rel(got, want) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_rglru_scan_fn_forward_backward_on_card(card):
+    from repro_torch.models.rglru import RGLRUScanFn
+    g = torch.Generator(device=card).manual_seed(0)
+    B, T, W = 2, 300, 96
+    a = torch.rand((B, T, W), generator=g, device=card).requires_grad_()
+    b = torch.randn((B, T, W), generator=g, device=card).requires_grad_()
+    h0 = torch.randn((B, W), generator=g, device=card).requires_grad_()
+    w1 = torch.randn((B, T, W), generator=g, device=card)
+    w2 = torch.randn((B, W), generator=g, device=card)
+    n0 = rglru_ops.LAUNCHES
+    hs, hl = RGLRUScanFn.apply(a, b, h0)
+    got = torch.autograd.grad((hs * w1).sum() + (hl * w2).sum(), (a, b, h0))
+    assert rglru_ops.LAUNCHES == n0 + 2          # forward, reversed scan
+    hs2, hl2 = rglru_scan_ref(a, b, h0)
+    assert torch.equal(hs, hs2) and torch.equal(hl, hl2)
+    want = torch.autograd.grad((hs2 * w1).sum() + (hl2 * w2).sum(),
+                               (a, b, h0))
+    assert _max_rel(got, want) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_lm_train_step_repeats_bit_for_bit_on_card(card):
+    """qwen3 at 2 layers, head dim 64 (the scalar flash kernel in float32):
+    two steps from one state and batch are bit-equal, and a ``full``-remat
+    step launches flash attention twice a layer (forward, recompute)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.train import optimizer as opt
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b:smoke"), head_dim=64)
+    shape = ShapeConfig("t", 64, 4, "train")
+    step, model = build_train_step(cfg, shape, TrainConfig(microbatches=2),
+                                   card)
+    params = tree.map_(lambda x: x.detach(), model.params())
+    state = opt.init(params)
+    batch = to_device(SyntheticLMStream(cfg.vocab_size, 4, 64)
+                      .make_batch(0), card)
+    n0 = fa_ops.LAUNCHES
+    a = step(params, state, batch)
+    assert fa_ops.LAUNCHES - n0 == 2 * cfg.n_layers * 2   # x 2 microbatches
+    b = step(params, state, batch)
+    assert _tree_bits_equal(a, b)
+    assert bool(torch.isfinite(a[2]["loss"]))
+    assert not _tree_bits_equal(a[0], params)
