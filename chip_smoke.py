@@ -125,7 +125,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      loop at the step's shape; the step's rglru_scan and flash launches;
      two steps from one state compared by digest; the loss falling on the
      next step; a profiled step.
-  Phases 9 and 10 run in a child process of the script (``--train``),
+ 11. lm_sharded — the LM on meshes of logical shards of the card
+     (``phase_lm_sharded``, the comment above ``SHARD_QWEN``).
+  Phases 9 to 11 run in a child process of the script (``--train``),
   which it waits for (see ``train_in_child``).
 The line before the last holds one JSON object with every kernel's
 numbers (``launches`` summed over the paths, ``launches_by_path`` each
@@ -148,9 +150,6 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12         # H100 SXM bfloat16 tensor cores, dense
 E, K, BATCHES, CAPACITY = 256, 32, 4, 4096
 N_TICKS, TICK_S, MAX_SAMPLES, HIDDEN = 8, 60.0, 32, 16
 # the LM side-car: prefill batch and prompt length, the decode-vs-prefill
@@ -306,12 +305,13 @@ def traced_kernels(fn, want, reps=10, tries=6):
     return names
 
 
-def bound(bytes_moved, ops, ops_rate=FP32_OPS_PER_S):
+def bound(bytes_moved, ops, ops_rate=None):
     """Least time the card could take: the larger of bytes over the HBM
     rate and operations over the peak rate of their type (float32 outside
-    the tensor cores by default)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
+    the tensor cores by default), the peaks ``launch.roofline``'s."""
+    from repro_torch.launch import roofline
+    t_bytes = bytes_moved / roofline.HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (ops_rate or roofline.F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -584,6 +584,7 @@ def flash_cases(dev, g):
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import roofline
 
     B = LM_B
     cases = []
@@ -658,8 +659,8 @@ def flash_cases(dev, g):
             # read q, k, v, write out; QK^T and PV, 2 flops per MAC each
             bytes=2 * B * S * (H + HKV) * D * q.element_size(),
             ops=4 * B * H * D * pairs,
-            ops_rate=(BF16_OPS_PER_S if dtype == torch.bfloat16
-                      else FP32_OPS_PER_S),
+            ops_rate=(roofline.BF16_FLOPS if dtype == torch.bfloat16
+                      else roofline.F32_FLOPS),
             library=lib))
     return cases
 
@@ -695,7 +696,7 @@ def phase_kernels(dev):
         t = dev_ms if timer == "profiler" else calls
         ms, plain_ms, lib_ms = t["kernel"], t["plain"], t.get("library")
         bound_ms, bound_by = bound(case["bytes"], case["ops"],
-                                   case.get("ops_rate", FP32_OPS_PER_S))
+                                   case.get("ops_rate"))
         us = lambda x: None if x is None else x * 1e3
         emit(dict(kernel=case["name"], shape=case["shape"], **case["dims"],
                   parity="ok", max_abs_err=err, **case.get("info", {}),
@@ -2611,6 +2612,8 @@ def _train_setup(dev, spec):
 
 
 def _train_readings(cfg, spec, n_params, step_ms, prof):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
     tokens = spec["batch"] * spec["seq"]
     return {"step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
             "device_busy_ms": prof["device_busy_ms"],
@@ -2618,10 +2621,12 @@ def _train_readings(cfg, spec, n_params, step_ms, prof):
             "device_kernels": prof["device_kernels"],
             "traces": prof["traces"],
             "top_device_ms": prof["top_device_ms"],
-            # a reading, not a claim: 6 N tokens over the step time, as a
+            # a reading, not a claim: the reference's MODEL_FLOPS (6 N D,
+            # N without the input embedding) over the step time, as a
             # share of the bf16 dense peak
-            "model_flop_share_of_bf16_peak":
-                6 * n_params * tokens / (step_ms / 1e3) / BF16_OPS_PER_S}
+            "model_flop_share_of_bf16_peak": roofline.flop_share(
+                cfg, ShapeConfig("train", spec["seq"], spec["batch"],
+                                 "train"), step_ms / 1e3)}
 
 
 def phase_lm_train(dev):
@@ -2854,6 +2859,585 @@ def phase_lm_train_rglru(dev):
     return launches
 
 
+# The model-sharding phase (phase 11): the LM on (data, model) meshes of
+# logical shards of the card (a mesh naming the card 8 or 4 times), at
+# published widths. qwen3-0.6b on (2, 4): a ZeRO-3 train step at 4 x 2048
+# (one microbatch, full remat, bf16), two steps from one state, the float32
+# twin against the unsharded float32 step (at SHARD_F32's shape), a
+# sharded prefill; phi3.5-moe-42b-a6.6b on (2, 4), its depth cut to what
+# fits a train step (~24 bytes a param: params, AdamW state, grads, the new
+# state, the dense twin's), at a capacity that cannot drop, against the
+# dense unsharded step, in bf16 and in a float32 twin; recurrentgemma-2b
+# on (2, 2) in float32: a sharded prefill and SHARD_DECODE decode steps
+# with the cache's slots split over model, against the unsharded model
+SHARD_QWEN = dict(arch="qwen3-0.6b", mesh=(2, 4), seq=2048, batch=4)
+SHARD_F32 = dict(seq=512, batch=4)
+SHARD_MOE = dict(arch="phi3.5-moe-42b-a6.6b", mesh=(2, 4), seq=1024,
+                 batch=2)
+SHARD_RG = dict(arch="recurrentgemma-2b", mesh=(2, 2), prompt=504,
+                max_seq=512, batch=4)
+SHARD_DECODE = 8
+SHARD_TRAIN_BYTES_PER_PARAM = 24
+# tests/test_torch_model_sharded_steps.py's bounds (lr 1e-3, warmup 2):
+# the loss within rtol 1e-5; AdamW's m (the first step's (1 - b1) g)
+# within 1e-4 of its largest magnitude; the new params within ADAM_BOUND
+# elementwise (that file's adam_bound: the gap lr |F_got - F_want| that
+# the two new AdamW states give in exact arithmetic, F = m^ / (sqrt(v^) +
+# eps), plus the two updates' roundings counted from their ops, eps32 (lr
+# (8 max |F| + 4 wd |p|) + |p|))
+SHARD_LOSS_RTOL = 1e-5
+SHARD_GRAD_REL = 1e-4
+# the float32 twin's params, absolute: a guard against a gross fault, set
+# after this phase's first run read 1.494e-5 (the largest gaps sit where
+# |g| is near AdamW's eps, where F's slope is 1 / eps); ADAM_BOUND is the
+# elementwise check
+SHARD_F32_PARAM_ATOL = 2e-5
+# float32 logits of a sharded serving step against the unsharded one:
+# |d| <= atol + rtol |ref|
+SHARD_F32_ATOL = SHARD_F32_RTOL = 1e-3
+# the MoE step against the dense one, in bf16 and in a float32 twin: the
+# cross entropy within 1e-3 (bf16) or SHARD_LOSS_RTOL (float32), the grad
+# norm within 1e-3 (this phase's first bf16 run read 8.6e-5 and 1.0e-4;
+# the grad norm carries the aux loss, which differs by construction, the
+# sharded one averaging the data shards' load terms); in float32, AdamW's
+# m of every leaf the aux loss does not reach (the last layer's experts,
+# the final norm, the head) within SHARD_GRAD_REL of the leaf's largest.
+# bf16 reports its m only: a bf16 rounding of an activation can flip a
+# token's top-2 experts where router logits nearly tie, moving that
+# token's whole gradient between experts (the likely cause of the
+# 0.20-0.27 that the phase's second run read); the float32 twin checks
+SHARD_MOE_CE_RTOL = SHARD_MOE_GNORM_RTOL = 1e-3
+
+
+def _zero_counts():
+    from repro_torch.distribution import collectives as col
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    fa_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    rglru_ops.LAUNCHES = 0
+    for k in col.CALLS:
+        col.CALLS[k] = 0
+
+
+def _read_counts():
+    from repro_torch.distribution import collectives as col
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    return {"flash_attention": fa_ops.LAUNCHES,
+            "flash_by_impl": dict(fa_ops.LAUNCHES_BY_IMPL),
+            "rglru_scan": rglru_ops.LAUNCHES, "collectives": dict(col.CALLS)}
+
+
+def _logical_mesh(dev, shape):
+    from repro_torch.launch.mesh import make_mesh
+    n = shape[0] * shape[1]
+    return make_mesh(shape, devices=[dev] * n)
+
+
+def _sharded_train(cfg, shape, tcfg, mesh, params, batch, perf=None):
+    """The sharded step, its model, its layouts and its inputs placed on
+    ``mesh``."""
+    from repro_torch.configs.base import ShardingConfig
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import steps
+    perf = perf or ShardingConfig()
+    step, model = steps.build_train_step(
+        cfg, shape, tcfg, mesh=mesh, perf=perf,
+        model=steps.make_model(cfg, perf, mesh, params=params))
+    lay = step.layouts
+    ps = shd.place_tree(params, lay["params"], mesh)
+    os_ = steps.init_opt_state(params, mesh, lay)
+    bs = shd.place_tree(batch, lay["batch"](batch), mesh)
+    return step, model, lay, ps, os_, bs
+
+
+def _plain_train(cfg, shape, tcfg, dev, params):
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import LM
+    from repro_torch.train import optimizer as opt
+    step, _ = build_train_step(cfg, shape, tcfg, dev,
+                               model=LM(cfg, device=dev, params=params))
+    return step, opt.init(params)
+
+
+def _max_abs(a, b):
+    from repro_torch.train import tree
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def _adam_ratio(p_got, p_want, p_old, o_got, o_want, lr, tcfg):
+    """The largest |dp| over ADAM_BOUND (<= 1 within it) of an AdamW step
+    from the new states ``o_got`` and ``o_want``
+    (tests/test_torch_model_sharded_steps.py::adam_bound: lr |F_got -
+    F_want| + R, R = eps32 (lr (8 max |F| + 4 wd |p|) + |p|)), the largest
+    share of R that a gap takes beyond its exact part, and the worst
+    element's terms."""
+    from repro_torch.train import tree
+    f32 = lambda x: float(np.float32(x))
+    t = o_want["step"].float().cpu()
+    c1 = float(1.0 - torch.pow(tcfg.beta1, t))
+    c2 = float(1.0 - torch.pow(tcfg.beta2, t))
+    eps, wd = f32(tcfg.eps), f32(tcfg.weight_decay)
+    ulp = torch.finfo(torch.float32).eps
+    worst, excess = (0.0, {}), 0.0
+    for pg, pw, po, mg, mw, vg, vw in zip(
+            tree.leaves(p_got), tree.leaves(p_want), tree.leaves(p_old),
+            tree.leaves(o_got["m"]), tree.leaves(o_want["m"]),
+            tree.leaves(o_got["v"]), tree.leaves(o_want["v"])):
+        fg = (mg.double() / c1) / (torch.sqrt(vg.double() / c2) + eps)
+        fw = (mw.double() / c1) / (torch.sqrt(vw.double() / c2) + eps)
+        exact = lr * (fg - fw).abs()
+        del mg, vg
+        p = po.double().abs()
+        rnd = ulp * (lr * (8 * torch.maximum(fg.abs(), fw.abs()) + 4 * wd * p)
+                     + p)
+        dp = (pg.double() - pw.double()).abs()
+        r = (dp / (exact + rnd)).reshape(-1)
+        excess = max(excess, ((dp - exact) / rnd).max().item())
+        j = int(r.argmax())
+        if r[j].item() > worst[0]:
+            at = lambda x: x.reshape(-1)[j].item()
+            worst = (r[j].item(), {"dp": at(dp), "exact": at(exact),
+                                   "rounding": at(rnd), "F": at(fw),
+                                   "g": at(mw) / (1.0 - tcfg.beta1),
+                                   "p": at(po), "shape": list(pg.shape)})
+        del fg, fw, exact, p, rnd, dp, r
+    return worst[0], excess, worst[1]
+
+
+def _f32_ratio(got, want):
+    return ((got - want).abs() / (SHARD_F32_ATOL + SHARD_F32_RTOL
+                                  * want.abs())).max().item()
+
+
+def _shard_qwen(dev):
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import roofline
+    from repro_torch.launch.steps import build_prefill_step, make_model
+    from repro_torch.models import LM
+    from repro_torch.train import tree
+
+    tag = "lm_sharded_qwen3"
+    spec = SHARD_QWEN
+    cfg = get_config(spec["arch"])
+    mesh = _logical_mesh(dev, spec["mesh"])
+    n_sh = mesh.size
+    shape = ShapeConfig("train", spec["seq"], spec["batch"], "train")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=100, remat_policy="full")
+    params = tree.map_(lambda x: x.detach(),
+                       LM(cfg, device=dev, seed=0).params())
+    batch = to_device(SyntheticLMStream(cfg.vocab_size, spec["batch"],
+                                        spec["seq"], seed=0).make_batch(0),
+                      dev)
+    torch.cuda.reset_peak_memory_stats()
+    step, _, lay, ps, os_, bs = _sharded_train(cfg, shape, tcfg, mesh, params,
+                                            batch)
+    per_step = n_sh * cfg.n_layers * 2
+    _zero_counts()
+    first, first_ms = _sync_ms(lambda: step(ps, os_, bs))
+    counts = _read_counts()
+    check(counts["flash_attention"] == per_step and
+          counts["flash_by_impl"] == {"wgmma": per_step, "scalar": 0},
+          f"{tag}: {counts['flash_by_impl']} flash_attention launches in a "
+          f"step on {n_sh} shards, expected {per_step} on wgmma")
+    check(all(bool(torch.isfinite(v).all()) for v in first[2].values()),
+          f"{tag}: metrics not finite {first[2]}")
+    digest, loss0 = tree_digest(first[:2]), first[2]["loss"].item()
+    del first
+    second, ms = _sync_ms(lambda: step(ps, os_, bs))
+    walls = [ms]
+    check(second[2]["loss"].item() == loss0 and
+          tree_digest(second[:2]) == digest,
+          f"{tag}: two sharded steps from one state differ")
+    del second
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_step(lambda: step(ps, os_, bs), tag,
+                         {FA_KERNELS["wgmma"][1]: per_step})
+    del step, ps, os_, bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, opt0 = _plain_train(cfg, shape, tcfg, dev, params)
+    plain_walls = [_sync_ms(lambda: plain(params, opt0, batch))[1]
+                   for _ in range(2)][1:]
+    del plain, opt0
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(walls)
+    plain_ms = statistics.median(plain_walls)
+    emit({"phase": tag, "step": "train", "arch": spec["arch"],
+          "mesh": dict(zip(("data", "model"), spec["mesh"])),
+          "logical_shards": n_sh, "layout": "zero3", "seq": spec["seq"],
+          "global_batch": spec["batch"], "microbatches": 1,
+          "remat_policy": "full", "dtype": cfg.dtype,
+          "flash_shape_per_shard": [spec["batch"] // spec["mesh"][0],
+                                    spec["seq"],
+                                    cfg.n_heads // spec["mesh"][1],
+                                    cfg.resolved_head_dim],
+          "kv_heads_per_shard": cfg.n_kv_heads // spec["mesh"][1],
+          "launches_per_step": {"flash_attention": counts["flash_attention"]},
+          "collective_calls_per_step": counts["collectives"],
+          "first_step_ms": first_ms, "step_ms_runs": walls,
+          "step_ms": step_ms, "unsharded_step_ms_runs": plain_walls,
+          "unsharded_step_ms": plain_ms,
+          "sharded_over_unsharded": step_ms / plain_ms,
+          "bit_equal_twice": True, "loss": loss0,
+          "peak_device_bytes": peak,
+          "device_busy_ms": prof["device_busy_ms"],
+          "device_idle_share": prof["device_idle_share"],
+          "device_kernels": prof["device_kernels"], "traces": prof["traces"],
+          "model_flop_share_of_bf16_peak":
+              roofline.flop_share(cfg, shape, step_ms / 1e3)})
+
+    # the float32 twin (TF32 off) at full depth against the unsharded step
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    shape32 = ShapeConfig("train", SHARD_F32["seq"], SHARD_F32["batch"],
+                          "train")
+    tcfg32 = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    p32 = tree.map_(lambda x: x.detach(),
+                    LM(cfg32, device=dev, seed=0).params())
+    b32 = {k: v[:SHARD_F32["batch"], :SHARD_F32["seq"]]
+           for k, v in batch.items()}
+    step, _, lay, ps, os_, bs = _sharded_train(cfg32, shape32, tcfg32, mesh,
+                                            p32, b32)
+    got = step(ps, os_, bs)
+    got_p = shd.gather_tree(got[0], lay["params"], mesh)
+    got_o = shd.gather_tree(got[1], lay["opt"], mesh)
+    got_loss = got[2]["loss"].item()
+    del step, ps, os_, bs, got
+    plain, opt0 = _plain_train(cfg32, shape32, tcfg32, dev, p32)
+    want = plain(p32, opt0, b32)
+    loss_rel = abs(got_loss - want[2]["loss"].item()) / abs(
+        want[2]["loss"].item())
+    param_err = _max_abs(got_p, want[0])
+    grad_rel = _max_rel(tree.leaves(got_o["m"]), tree.leaves(want[1]["m"]))
+    adam_ratio, adam_excess, adam_worst = _adam_ratio(
+        got_p, want[0], p32, got_o, want[1], want[2]["lr"].item(), tcfg32)
+    check(loss_rel <= SHARD_LOSS_RTOL, f"{tag}: float32 sharded loss "
+          f"{got_loss} vs unsharded {want[2]['loss'].item()}")
+    check(grad_rel <= SHARD_GRAD_REL, f"{tag}: float32 sharded AdamW m "
+          f"{grad_rel} of its max from the unsharded step's")
+    check(adam_ratio <= 1.0, f"{tag}: float32 sharded params {adam_ratio} x "
+          "ADAM_BOUND from the unsharded step's")
+    check(param_err <= SHARD_F32_PARAM_ATOL, f"{tag}: float32 sharded params "
+          f"{param_err} from the unsharded step's")
+    del plain, opt0, want, got_p, got_o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # prefill: bfloat16 (launches counted, error reported) and float32
+    # (held to the bound)
+    pshape = ShapeConfig("prefill", spec["seq"], spec["batch"], "prefill")
+    pstep, pm = build_prefill_step(cfg, pshape, mesh, model=make_model(
+        cfg, mesh=mesh, params=params))
+    pl = pstep.layouts
+    pps = shd.place_tree(params, pl["params"], mesh)
+    tok = {"tokens": batch["tokens"]}
+    pbs = shd.place_tree(tok, pl["batch"](tok), mesh)
+    _zero_counts()
+    (lgs, _), pre_ms = _sync_ms(lambda: pstep(pps, pbs))
+    pcounts = _read_counts()
+    check(pcounts["flash_attention"] == n_sh * cfg.n_layers and
+          pcounts["flash_by_impl"]["wgmma"] == n_sh * cfg.n_layers,
+          f"{tag}: {pcounts['flash_by_impl']} flash_attention launches in "
+          f"the sharded prefill, expected {n_sh * cfg.n_layers}")
+    lg = shd.gather_tree(lgs, [pl["logits"]], mesh)
+    del lgs, pps
+    plain_m = LM(cfg, device=dev, params=params)
+    (ref, _), plain_pre_ms = _sync_ms(lambda: plain_m.prefill(tok))
+    check(bool(torch.isfinite(lg).all()), f"{tag}: prefill logits")
+    bf16_err = (lg - ref).abs().max().item()
+    bf16_argmax = (lg.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    del plain_m, lg, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok32 = {"tokens": b32["tokens"]}
+    pstep32, _ = build_prefill_step(cfg32, ShapeConfig(
+        "prefill", SHARD_F32["seq"], SHARD_F32["batch"], "prefill"), mesh,
+        model=make_model(cfg32, mesh=mesh, params=p32))
+    l32 = pstep32.layouts
+    lg32 = shd.gather_tree(pstep32(shd.place_tree(p32, l32["params"], mesh),
+                                   shd.place_tree(tok32, l32["batch"](tok32),
+                                                  mesh))[0],
+                           [l32["logits"]], mesh)
+    ref32 = LM(cfg32, device=dev, params=p32).prefill(tok32)[0]
+    f32_ratio = _f32_ratio(lg32, ref32)
+    check(f32_ratio <= 1.0, f"{tag}: float32 sharded prefill logits "
+          f"{f32_ratio} x the bound from the unsharded prefill's")
+    emit({"phase": tag, "step": "twins", "f32_shape": SHARD_F32,
+          "f32_loss_rel_err": loss_rel, "f32_loss_bound": SHARD_LOSS_RTOL,
+          "f32_param_max_abs_err": param_err,
+          "f32_param_atol": SHARD_F32_PARAM_ATOL,
+          "f32_param_err_over_adam_bound": adam_ratio,
+          "f32_param_rounding_share_of_r": adam_excess,
+          "f32_adam_worst": adam_worst,
+          "f32_m_max_rel_err": grad_rel, "f32_m_bound": SHARD_GRAD_REL,
+          "prefill_launches": {"flash_attention": pcounts["flash_attention"]},
+          "prefill_collective_calls": pcounts["collectives"],
+          "prefill_ms": pre_ms, "unsharded_prefill_ms": plain_pre_ms,
+          "prefill_bf16_max_abs_err": bf16_err,
+          "prefill_bf16_argmax_agree": bf16_argmax,
+          "prefill_f32_err_over_bound": f32_ratio,
+          "prefill_f32_bound": [SHARD_F32_ATOL, SHARD_F32_RTOL]})
+    del p32, params, batch, lg32, ref32, pstep, pstep32, pm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": {
+        f"sharded_train_{spec['arch']}": counts["flash_attention"],
+        f"sharded_prefill_{spec['arch']}": pcounts["flash_attention"]}}
+
+
+def _aux_free(m):
+    """The leaves of an LM tree that the MoE aux loss does not reach (its
+    gradient flows into each router and all that feeds it): the last
+    layer's experts, the final norm and the head, by name."""
+    out = {f"embed.{k}": v for k, v in m["embed"].items()
+           if k in ("final_norm", "head")}
+    last = len(m["layers"]) - 1
+    for k in ("w_gate", "w_up", "w_down"):
+        out[f"layers.{last}.ffn.{k}"] = m["layers"][last]["ffn"][k]
+    return out
+
+
+def _moe_twins(cfg, mesh, shape, tcfg, dev, batch):
+    """One sharded train step of ``cfg`` on ``mesh`` and the dense
+    unsharded step from the same weights (seed 0) and batch: (counts of
+    the sharded step, its dropped assignments, both steps' metrics, both
+    steps' ms, both AdamW m of the leaves :func:`_aux_free` names, peak
+    device bytes)."""
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.models import LM
+    from repro_torch.train import tree
+    torch.cuda.reset_peak_memory_stats()
+    params = tree.map_(lambda x: x.detach(),
+                       LM(cfg, device=dev, seed=0).params())
+    step, model, lay, ps, os_, bs = _sharded_train(cfg, shape, tcfg, mesh,
+                                                   params, batch)
+    _zero_counts()
+    model.moe_counts = counts_moe = []
+    got, ms = _sync_ms(lambda: step(ps, os_, bs))
+    model.moe_counts = None
+    counts = _read_counts()
+    dropped = sum(int(c[0]) for c in counts_moe)
+    got_met = {k: v.item() for k, v in got[2].items()}
+    got_m = _aux_free(shd.gather_tree([o["m"] for o in got[1]],
+                                      lay["opt"]["m"], mesh))
+    del got, step, model, ps, os_, bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, opt0 = _plain_train(cfg, shape, tcfg, dev, params)
+    want, plain_ms = _sync_ms(lambda: plain(params, opt0, batch))
+    want_met = {k: v.item() for k, v in want[2].items()}
+    want_m = _aux_free(want[1]["m"])
+    peak = torch.cuda.max_memory_allocated()
+    del plain, opt0, want, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (counts, dropped, got_met, want_met, ms, plain_ms, got_m, want_m,
+            peak)
+
+
+def _shard_moe(dev):
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.models import param as P
+    from repro_torch.models.model import param_defs
+
+    tag = "lm_sharded_moe"
+    spec = SHARD_MOE
+    full = get_config(spec["arch"])
+    free = torch.cuda.mem_get_info()[0] - FIT_RESERVE_BYTES
+    n = full.n_layers
+    while n > 1 and SHARD_TRAIN_BYTES_PER_PARAM // 2 * P.bytes_of(
+            param_defs(dataclasses.replace(full, n_layers=n))) > free:
+        n -= 1
+    cfg = _no_drop(dataclasses.replace(full, n_layers=n))
+    mesh = _logical_mesh(dev, spec["mesh"])
+    shape = ShapeConfig("train", spec["seq"], spec["batch"], "train")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=100, remat_policy="full")
+    batch = to_device(SyntheticLMStream(cfg.vocab_size, spec["batch"],
+                                        spec["seq"], seed=0).make_batch(0),
+                      dev)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    out = {}
+    for dtype in (cfg.dtype, "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+        (counts, dropped, got_met, want_met, ms, plain_ms, got_m, want_m,
+         peak) = _moe_twins(c, mesh, shape, tcfg, dev, batch)
+        want_fa = mesh.size * cfg.n_layers * 2
+        check(counts["flash_attention"] == want_fa, f"{tag} {dtype}: "
+              f"{counts['flash_attention']} flash launches, expected "
+              f"{want_fa}")
+        check(dropped == 0, f"{tag} {dtype}: {dropped} assignments dropped")
+        ce_rel = rel(got_met["ce"], want_met["ce"])
+        gn_rel = rel(got_met["grad_norm"], want_met["grad_norm"])
+        m_rel = {k: _max_rel([got_m[k]], [want_m[k]]) for k in want_m}
+        del got_m, want_m
+        f32 = dtype == "float32"
+        ce_tol = SHARD_LOSS_RTOL if f32 else SHARD_MOE_CE_RTOL
+        check(ce_rel <= ce_tol and gn_rel <= SHARD_MOE_GNORM_RTOL,
+              f"{tag} {dtype}: sharded ce/grad norm {got_met} vs dense "
+              f"{want_met}")
+        if f32:
+            check(max(m_rel.values()) <= SHARD_GRAD_REL, f"{tag} float32: "
+                  f"sharded AdamW m {m_rel} of each leaf's largest from the "
+                  "dense step's")
+        out[dtype] = {
+            "launches_per_step": {"flash_attention":
+                                  counts["flash_attention"]},
+            "collective_calls_per_step": counts["collectives"],
+            "dropped": dropped, "sharded": got_met, "dense": want_met,
+            "ce_rel_err": ce_rel, "ce_rtol": ce_tol,
+            "grad_norm_rel_err": gn_rel,
+            "grad_norm_rtol": SHARD_MOE_GNORM_RTOL,
+            "m_rel_err_by_leaf": m_rel,
+            "m_rel_bound": SHARD_GRAD_REL if f32 else None,
+            "step_ms": ms, "dense_step_ms": plain_ms,
+            "peak_device_bytes": peak}
+    emit({"phase": tag, "step": "train", "arch": spec["arch"],
+          "source": full.source,
+          "mesh": dict(zip(("data", "model"), spec["mesh"])),
+          "experts_per_shard": cfg.moe.n_experts // spec["mesh"][1],
+          "seq": spec["seq"], "global_batch": spec["batch"],
+          "reduced": {"n_layers": f"{full.n_layers} -> {n} (a train step "
+                                  f"and its dense twin at "
+                                  f"{SHARD_TRAIN_BYTES_PER_PARAM} bytes a "
+                                  "param)",
+                      "capacity_factor": f"{full.moe.capacity_factor} -> "
+                                         f"{cfg.moe.capacity_factor} "
+                                         "(no drop)"},
+          "lr": TRAIN_LR, "by_dtype": out})
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": {
+        f"sharded_train_{spec['arch']}":
+        out[cfg.dtype]["launches_per_step"]["flash_attention"]}}
+
+
+def _shard_rg(dev):
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch.steps import build_decode_step, make_model
+    from repro_torch.models import LM
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.train import tree
+
+    tag = "lm_sharded_recurrentgemma"
+    spec = SHARD_RG
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32")
+    mesh = _logical_mesh(dev, spec["mesh"])
+    params = tree.map_(lambda x: x.detach(),
+                       LM(cfg, device=dev, seed=0).params())
+    g = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size, (spec["batch"], spec["prompt"]
+                                             + SHARD_DECODE), generator=g,
+                         device=dev, dtype=torch.int32)
+    dstep, model = build_decode_step(
+        cfg, ShapeConfig("decode", spec["max_seq"], spec["batch"], "decode"),
+        mesh, model=make_model(cfg, mesh=mesh, params=params))
+    lay = dstep.layouts
+    ps = shd.place_tree(params, lay["params"], mesh)
+    head = {"tokens": toks[:, :spec["prompt"]]}
+    widths = []
+    orig = rglru_mod.rglru_ops.rglru_scan
+
+    def scan(a, b, h0):
+        widths.append(a.shape[-1])
+        return orig(a, b, h0)
+
+    _zero_counts()
+    rglru_mod.rglru_ops.rglru_scan = scan
+    try:
+        (lgs, cs), pre_ms = _sync_ms(lambda: model.prefill(
+            shd.place_tree(head, lay["batch"](head), mesh),
+            max_seq=spec["max_seq"], params=ps))
+    finally:
+        rglru_mod.rglru_ops.rglru_scan = orig
+    counts = _read_counts()
+    n_rg = cfg.layer_kinds.count("rglru")
+    n_fa = len(cfg.layer_kinds) - n_rg
+    check(counts["rglru_scan"] == mesh.size * n_rg and
+          set(widths) == {cfg.lru_width // spec["mesh"][1]},
+          f"{tag}: rglru_scan {counts['rglru_scan']} launches at widths "
+          f"{sorted(set(widths))}, expected {mesh.size * n_rg} at "
+          f"{cfg.lru_width // spec['mesh'][1]}")
+    check(counts["flash_attention"] == mesh.size * n_fa, f"{tag}: "
+          f"{counts['flash_attention']} flash launches, expected "
+          f"{mesh.size * n_fa}")
+    plain = LM(cfg, device=dev, params=params)
+    (ref, cache), plain_pre_ms = _sync_ms(lambda: plain.prefill(
+        head, max_seq=spec["max_seq"]))
+    ratios = [_f32_ratio(shd.gather_tree(lgs, [lay["logits"]], mesh), ref)]
+    dec_ms, plain_dec_ms = [], []
+    _zero_counts()
+    for t in range(spec["prompt"], spec["prompt"] + SHARD_DECODE):
+        b = {"tokens": toks[:, t:t + 1]}
+        (lgs, cs), ms = _sync_ms(lambda: dstep(
+            ps, shd.place_tree(b, lay["batch"](b), mesh), cs))
+        (ref, cache), pms = _sync_ms(lambda: plain.decode_step(b, cache))
+        dec_ms.append(ms)
+        plain_dec_ms.append(pms)
+        ratios.append(_f32_ratio(shd.gather_tree(lgs, [lay["logits"]], mesh),
+                                 ref))
+    dcounts = _read_counts()
+    got_c = shd.gather_tree(cs, lay["cache"], mesh)
+    cache_err = _max_abs(got_c, cache)
+    check(max(ratios) <= 1.0, f"{tag}: sharded logits {ratios} x the bound "
+          "from the unsharded model's")
+    emit({"phase": tag, "step": "serve", "arch": spec["arch"],
+          "mesh": dict(zip(("data", "model"), spec["mesh"])),
+          "dtype": "float32", "prompt": spec["prompt"],
+          "max_seq": spec["max_seq"], "batch": spec["batch"],
+          "cache_spec_kv": list(lay["cache"]["layers"][2]["k"]),
+          "prefill_launches": {"rglru_scan": counts["rglru_scan"],
+                               "flash_attention": counts["flash_attention"]},
+          "rglru_width_per_shard": sorted(set(widths)),
+          "prefill_collective_calls": counts["collectives"],
+          "decode_collective_calls_per_step":
+              {k: v / SHARD_DECODE for k, v in dcounts["collectives"].items()},
+          "logits_err_over_bound": ratios,
+          "bound": [SHARD_F32_ATOL, SHARD_F32_RTOL],
+          "cache_max_abs_err": cache_err, "prefill_ms": pre_ms,
+          "unsharded_prefill_ms": plain_pre_ms, "decode_ms": dec_ms,
+          "unsharded_decode_ms": plain_dec_ms})
+    del plain, params, ps, cs, cache, got_c, model, dstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rglru_scan": {f"sharded_prefill_{spec['arch']}":
+                           counts["rglru_scan"]},
+            "flash_attention": {f"sharded_prefill_{spec['arch']}":
+                                counts["flash_attention"]}}
+
+
+def phase_lm_sharded(dev):
+    """Phase 11: the LM on meshes of logical shards of the card (the
+    SHARD_* constants above); returns {kernel: {path: launches}}."""
+    t0 = time.perf_counter()
+    out = {}
+    for part in (_shard_qwen, _shard_moe, _shard_rg):
+        for name, paths in part(dev).items():
+            out.setdefault(name, {}).update(paths)
+    emit({"phase": "lm_sharded", "step": "done",
+          "seconds": time.perf_counter() - t0, "launches_by_path": out})
+    return out
+
+
 # The two LM training phases run in a child process of this script
 # (``--train``), which the parent waits for: in the script's own process,
 # after the families' phases, three runs each traced 51 of the 52
@@ -2871,6 +3455,8 @@ def run_train_phases(dev):
                         (TRAIN_RG["arch"], phase_lm_train_rglru)):
         for name, n in phase(dev).items():
             by_path.setdefault(name, {})[f"train_{arch}"] = n
+    for name, paths in phase_lm_sharded(dev).items():
+        by_path.setdefault(name, {}).update(paths)
     return by_path
 
 

@@ -90,13 +90,17 @@ class Prefetcher:
     staged to ``device``) on a thread while the caller runs the previous
     one. :meth:`next` returns it and advances the cursor; on a card the
     caller's stream first waits for the copy (an event recorded after
-    it). ``device=None`` hands out the numpy arrays."""
+    it). ``device=None`` hands out the numpy arrays. ``place``: a function
+    of the staged batch, e.g. its split over a mesh's data axes
+    (``sharding.place_tree`` with the step's batch layout), applied on the
+    thread too."""
 
     def __init__(self, stream: SyntheticLMStream, cursor: StreamCursor,
-                 device=None):
+                 device=None, place=None):
         self.stream = stream
         self.cursor = cursor
         self.device = None if device is None else torch.device(device)
+        self.place = place
         self._next = None
         self._event = None
         self._error: Optional[BaseException] = None
@@ -108,6 +112,8 @@ class Prefetcher:
         if self.device is None:
             return batch
         batch = to_device(batch, self.device)
+        if self.place is not None:
+            batch = self.place(batch)
         if self.device.type == "cuda":
             self._event = torch.cuda.Event()
             self._event.record()

@@ -1,13 +1,15 @@
-"""Training launcher — port of ``repro.launch.train`` on one device:
+"""Training launcher — port of ``repro.launch.train``:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b:smoke [--device cpu]
 
 Trains on the synthetic LM stream (``data.pipeline``), checkpointing into
 ``--ckpt-dir``; run again with the same directory, it resumes from the
 newest complete checkpoint at the saved batch. The card is the default;
-``--device cpu`` asks for the CPU. ``--production-mesh`` and ``--set``
-(the reference's pod mesh and sharding overrides) are the model-sharding
-half of the port, not there yet, and are refused. Prints one JSON object.
+``--device cpu`` asks for the CPU. As the reference, it trains on the
+smoke mesh ((1, 1) over the device), or with ``--production-mesh`` on the
+(16, 16) pod mesh, which needs 256 devices and raises ``RuntimeError``
+with fewer; ``--set key=value`` overrides a ``ShardingConfig`` field
+(``--set layout=tp``). Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -33,21 +35,22 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="refused: the model-sharding half of the port")
+                    help="use the 16x16 pod mesh (needs 256 devices)")
     ap.add_argument("--set", action="append", default=[],
-                    help="refused: ShardingConfig overrides")
+                    help="ShardingConfig override key=value")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.set:
-        ap.error("--production-mesh and --set shard the model over a mesh; "
-                 "the port trains on one device (the model-sharding half "
-                 "is not ported yet)")
 
-    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.base import (ShapeConfig, ShardingConfig,
+                                          TrainConfig, apply_overrides)
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
     from repro_torch.train.loop import train
 
     cfg = get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    mesh = make_production_mesh(device=args.device) if args.production_mesh \
+        else make_smoke_mesh(device=args.device)
+    perf = apply_overrides(ShardingConfig(remat_policy=args.remat), args.set)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 10, 1),
                        checkpoint_every=args.ckpt_every,
@@ -60,7 +63,7 @@ def main(argv=None):
                   f"lr {metrics['lr']:.2e} gnorm {metrics['grad_norm']:.3f} "
                   f"{metrics['time_s']*1e3:.0f} ms", flush=True)
 
-    res = train(cfg, shape, tcfg=tcfg, device=args.device, on_step=log)
+    res = train(cfg, shape, mesh, perf=perf, tcfg=tcfg, on_step=log)
     print(json.dumps({
         "steps_run": res.steps_run, "final_step": res.final_step,
         "first_loss": res.losses[0] if res.losses else None,

@@ -65,19 +65,71 @@ def slot_positions(lengths, cache_size: int, window: int = 0):
     return pos, valid
 
 
-def write_token(buf, new, lengths, window: int = 0):
+def write_index(lengths, size: int, window: int = 0):
+    """The slot a decode step writes for each sample: ``lengths`` mod the
+    ring's size, or clamped into a global cache."""
+    L = lengths.to(torch.int64)
+    return torch.remainder(L, size) if window else L.clamp(0, size - 1)
+
+
+def write_token(buf, new, lengths, window: int = 0, shard=None):
     """Write one token's k/v into a copy of the cache. buf: (B, S, H, D);
     new: (B, 1, H, D); lengths: (B,) tokens already present (the write
     position). The copy keeps the reference's value semantics: a serving
     engine merges old and new caches per slot, and a ring slot written in
-    place would clobber a live key of a slot that does not advance."""
+    place would clobber a live key of a slot that does not advance.
+
+    ``shard=(mesh, dp_axes)`` with a cache whose seq dim splits over the
+    mesh's ``model`` axis: the cache is split so (batch over the data axes
+    where it divides), each shard writes its own block and only the owner
+    of a sample's slot writes it (:func:`write_local`), and the blocks are
+    gathered back; the same values as the unsharded write."""
     size = buf.shape[1]
-    L = lengths.to(torch.int64)
-    idx = torch.remainder(L, size) if window else L.clamp(0, size - 1)
+    idx = write_index(lengths, size, window)
+    if shard is not None:
+        mesh, dp_axes = shard
+        msize = mesh.shape.get("model", 1)
+        if msize > 1 and size % msize == 0:
+            return _write_sharded(buf, new, idx, mesh, dp_axes)
     out = buf.clone()
     out[torch.arange(buf.shape[0], device=buf.device), idx] = \
         new[:, 0].to(buf.dtype)
     return out
+
+
+def write_local(buf, new, idx, offset: int):
+    """A copy of one shard's cache block ``buf`` (B, s_loc, H, D), which
+    holds the slots ``offset`` .. ``offset + s_loc - 1``, with ``new``
+    (B, 1, H, D) written at each sample's slot ``idx`` (B,) where the
+    block owns it; every other sample's block is left as it was. No host
+    read: the owner test is a ``where`` on the device."""
+    s_loc = buf.shape[1]
+    li = idx - offset
+    ok = (li >= 0) & (li < s_loc)
+    lc = li.clamp(0, s_loc - 1)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    out = buf.clone()
+    cur = out[rows, lc]
+    out[rows, lc] = torch.where(ok[:, None, None], new[:, 0].to(buf.dtype),
+                                cur)
+    return out
+
+
+def _write_sharded(buf, new, idx, mesh, dp_axes):
+    from repro_torch.distribution import sharding as shd
+    dp = tuple(a for a in dp_axes if a in mesh.axis_names)
+    B = buf.shape[0]
+    bspec = shd.spec_entry(dp) if dp and B % shd.axis_size(mesh, dp) == 0 \
+        else None
+    cspec = (bspec, "model")
+    s_loc = buf.shape[1] // mesh.shape["model"]
+    outs = []
+    for i in range(mesh.size):
+        b = shd.take_block(buf, cspec, mesh, i)
+        n = shd.take_block(new, (bspec,), mesh, i)
+        j = shd.take_block(idx, (bspec,), mesh, i)
+        outs.append(write_local(b, n, j, mesh.axis_index(i, "model") * s_loc))
+    return shd.gather_tree(tuple(outs), [cspec], mesh)
 
 
 def fill_from_prefill(kv, cache_size: int, window: int = 0):

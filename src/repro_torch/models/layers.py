@@ -153,6 +153,43 @@ def decode_attention(q, k, v, *, kv_positions, kv_valid, q_position,
     return out.to(q.dtype)
 
 
+def decode_attention_partial(q, k, v, *, kv_positions, kv_valid,
+                             q_position, window: int = 0,
+                             softcap: float = 0.0, scale=None):
+    """:func:`decode_attention` over one shard's block of cache slots,
+    unnormalised: returns (o, mx, l), o the float32 sum of exp(s - mx)
+    times v over the block's valid slots, mx the block's largest score
+    (``NEG_INF`` where it holds none) and l the sum of the weights, each
+    (B, 1, Hkv, G, ...). :func:`combine_partials` merges the shards'."""
+    Dh = q.shape[-1]
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
+    s = torch.einsum("bqhgd,bkhd->bqhgk", scale_by(q, scale).float(),
+                     k.float())
+    s = _softcap(s, softcap)
+    mask = kv_valid & (kv_positions <= q_position[:, None])
+    if window and window > 0:
+        mask &= (q_position[:, None] - kv_positions) < window
+    mask = mask[:, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    mx = s.max(dim=-1, keepdim=True).values
+    p = torch.where(mask, torch.exp(s - mx), 0.0)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o, mx, p.sum(dim=-1, keepdim=True)
+
+
+def combine_partials(mxs, os, ls):
+    """One shard's merge of every shard's :func:`decode_attention_partial`
+    (each list in the shards' order): the softmax over all their slots,
+    float32."""
+    M = torch.stack(mxs).max(dim=0).values
+    num = den = None
+    for o, mx, l in zip(os, mxs, ls):
+        w = torch.exp(mx - M)
+        num = o * w if num is None else num + o * w
+        den = l * w if den is None else den + l * w
+    return num / den
+
+
 def attention_defs(cfg) -> dict:
     """Attention projections with flattened head dims; the q flat layout is
     (kv_group, q_per_kv, head_dim) row-major."""
@@ -180,9 +217,12 @@ def attention_defs(cfg) -> dict:
 
 
 def attention_qkv(p, x, cfg, positions):
-    """Project + rope. Returns q (B,S,H,Dh), k, v (B,S,Hkv,Dh)."""
+    """Project + rope. Returns q (B,S,H,Dh), k, v (B,S,Hkv,Dh); H and Hkv
+    are the heads the projections hold (a shard's block of them on a
+    mesh, all of them otherwise)."""
     B, S = x.shape[:2]
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    Dh = cfg.resolved_head_dim
+    H, Hkv = p["wq"].shape[1] // Dh, p["wk"].shape[1] // Dh
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
     k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, Dh)
     v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, Dh)
@@ -247,10 +287,21 @@ def embed_tokens(p, tokens, cfg):
     return x
 
 
-def lm_head(p, x, cfg):
-    w = p["head"] if "head" in p else p["table"].T
+def head_weight(p):
+    """The (d, V) output projection: ``head``, or the tied table's
+    transpose."""
+    return p["head"] if "head" in p else p["table"].T
+
+
+def head_logits(w, x, cfg):
+    """float32 logits of ``x`` against the (d, V') weight ``w``,
+    softcapped."""
     logits = x @ w.to(x.dtype)
     return _softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def lm_head(p, x, cfg):
+    return head_logits(head_weight(p), x, cfg)
 
 
 def chunked_cross_entropy(p, x, targets, cfg, chunk: int = 256, mask=None):
@@ -262,24 +313,47 @@ def chunked_cross_entropy(p, x, targets, cfg, chunk: int = 256, mask=None):
     backward and only (B, chunk) values stay. The reference pads S to a
     multiple of ``chunk`` with masked positions; here the last chunk is
     short, which sums the same terms."""
+    tot, cnt = ce_sums(head_weight(p), x, targets, cfg, chunk, mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_chunk(xc, tc, mc, w, cap):
+    logits = (xc @ w.to(xc.dtype)).float()
+    if cap:
+        logits = _softcap(logits, cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    return ((lse - picked) * mc.float()).sum()
+
+
+def ce_sums(w, x, targets, cfg, chunk: int = 256, mask=None):
+    """The sum of :func:`chunked_cross_entropy`'s masked terms against the
+    (d, V) weight ``w``, and the count of masked-in positions (float32
+    scalars)."""
     B, S, D = x.shape
     chunk = min(chunk, S)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    w = p["head"] if "head" in p else p["table"].T
-
-    def step(xc, tc, mc, w):
-        logits = (xc @ w.to(xc.dtype)).float()
-        if cfg.final_logit_softcap:
-            logits = _softcap(logits, cfg.final_logit_softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
-        return ((lse - picked) * mc.float()).sum()
-
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S, chunk):
         sl = slice(i, i + chunk)
-        tot = tot + checkpoint(step, x[:, sl], targets[:, sl], mask[:, sl],
-                               w, use_reentrant=False)
-    cnt = mask.float().sum()
-    return tot / torch.clamp(cnt, min=1.0)
+        tot = tot + checkpoint(_ce_chunk, x[:, sl], targets[:, sl],
+                               mask[:, sl], w, cfg.final_logit_softcap,
+                               use_reentrant=False)
+    return tot, mask.float().sum()
+
+
+def ce_chunk_local(xc, tc, w, offset: int, cap):
+    """One vocab shard's part of a chunk's cross entropy: against the
+    shard's columns ``w`` (d, V/m) of the vocab from ``offset``, the
+    logsumexp of its logits and the target's logit where the target is
+    its own (0 elsewhere), each (B, chunk)."""
+    logits = (xc @ w.to(xc.dtype)).float()
+    if cap:
+        logits = _softcap(logits, cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    V = w.shape[1]
+    lt = tc.long() - offset
+    mine = (lt >= 0) & (lt < V)
+    picked = torch.gather(logits, -1, lt.clamp(0, V - 1)[..., None])[..., 0]
+    return lse, torch.where(mine, picked, 0.0)

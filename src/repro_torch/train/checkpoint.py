@@ -13,6 +13,10 @@ other, bit for bit. numpy has no bfloat16: the port saves such a leaf (an
 LM's weights) as its raw 16-bit words, dtype ``bfloat16`` in the manifest,
 and restores it by that name.
 
+A sharded run saves its trees gathered (``sharding.gather_tree``): the
+leaves are global tensors, so a checkpoint from a (2, 4) mesh restores
+onto a (4, 2) or a (1, 1) one, or onto one device.
+
 Fault-tolerance contract:
   * the atomic rename means a crash mid-write never corrupts the latest
     checkpoint: restore picks the newest COMPLETE step directory;
@@ -138,10 +142,13 @@ class Checkpointer:
                 return int(cand.name.split("_")[1])
         return None
 
-    def restore(self, step: int, like: Any):
+    def restore(self, step: int, like: Any, shardings=None):
         """Restore into the structure of ``like`` (a tree of tensors): each
         leaf comes back on its ``like`` leaf's device with the saved dtype.
-        Returns ``(tree, extra)``."""
+        ``shardings=(specs, mesh)`` places the restored global tree on the
+        current mesh (``distribution.sharding.place_tree``, one tree per
+        shard), whatever mesh saved it: the checkpoint holds global
+        tensors. Returns ``(tree, extra)``."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         flat, treedef = tree.flatten(like)
@@ -155,7 +162,12 @@ class Checkpointer:
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, "
                                  f"tree shape {tuple(ref.shape)}")
             out.append(_tensor(arr, meta["dtype"]).to(ref.device))
-        return tree.unflatten(treedef, out), manifest["extra"]
+        restored = tree.unflatten(treedef, out)
+        if shardings is not None:
+            from repro_torch.distribution import sharding
+            specs, mesh = shardings
+            restored = sharding.place_tree(restored, specs, mesh, copy=True)
+        return restored, manifest["extra"]
 
     def flush(self):
         """Wait until every queued write is on disk."""

@@ -1,5 +1,5 @@
 """LM training loop: checkpoint/restart, preemption, straggler policy,
-metrics — port of ``repro.train.loop`` on one device.
+metrics — port of ``repro.train.loop``, on a mesh (one device: (1, 1)).
 
 The machinery lives elsewhere: ``launch.steps.build_train_step`` (the
 step), ``train.checkpoint.Checkpointer`` (fault tolerance),
@@ -13,7 +13,8 @@ A fresh run draws its weights from ``tcfg.seed`` (``LM``'s generator on
 the device) and starts AdamW from zeros.
 
 The checkpoints keep the port's layout (``LM.params``: one entry per
-layer, plus AdamW's ``m``, ``v`` and ``step`` over the same tree). They
+layer, plus AdamW's ``m``, ``v`` and ``step`` over the same tree),
+gathered to global tensors whatever mesh trained them. They
 do not restore into the reference, whose layers are stacked into pattern
 groups; ``convert.lm_train_state_from_numpy`` carries a reference state
 the other way.
@@ -24,10 +25,11 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,
+                                      ShardingConfig, TrainConfig)
 from repro_torch.data.pipeline import (Prefetcher, StreamCursor,
                                        SyntheticLMStream)
-from repro_torch.device import resolve_device
+from repro_torch.distribution import sharding as shd
 from repro_torch.launch.steps import build_train_step
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import tree as tr
@@ -99,7 +101,14 @@ class TrainResult:
     straggler_events: int = 0
 
 
-def train(cfg: ModelConfig, shape: ShapeConfig, *,
+def _split(shards):
+    """Per-shard ``(params, opt_state)`` pairs -> (params per shard,
+    opt_state per shard)."""
+    return tuple(s[0] for s in shards), tuple(s[1] for s in shards)
+
+
+def train(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+          perf: ShardingConfig = ShardingConfig(),
           tcfg: TrainConfig = TrainConfig(), device=None,
           max_steps: Optional[int] = None, stream_seed: int = 0,
           on_step: Optional[Callable[[int, dict], None]] = None,
@@ -107,10 +116,19 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *,
     """Train ``cfg`` on the synthetic stream at ``shape`` until
     ``tcfg.total_steps`` (or ``max_steps``), checkpointing every
     ``tcfg.checkpoint_every`` steps, at the end, on preemption and on a
-    straggler ``fail``. ``device=None`` means the card. Reads one scalar
-    (the loss) back per step, as the reference does."""
-    device = resolve_device(device)
-    step_fn, model = build_train_step(cfg, shape, tcfg, device)
+    straggler ``fail``. Reads one scalar (the loss) back per step, as the
+    reference does.
+
+    ``mesh``: a ``launch.mesh.ModelMesh`` to train on with ``perf`` (the
+    step of ``launch.steps``); ``None`` is (1, 1) over ``device``, ``None``
+    meaning the card. The state lives in the step's layouts, one tree per
+    shard, each batch is split over the data axes by the prefetcher,
+    checkpoints hold the gathered global trees, and a restore places them
+    on this mesh, whichever mesh saved them. The model keeps the weights
+    it was built with; the trained ones are the state's."""
+    step_fn, model = build_train_step(cfg, shape, tcfg, device, mesh=mesh,
+                                      perf=perf)
+    mesh = model.mesh
     ckpt = checkpointer or Checkpointer(tcfg.checkpoint_dir,
                                         keep=tcfg.keep_checkpoints,
                                         async_mode=tcfg.async_checkpoint)
@@ -119,22 +137,31 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *,
 
     params = tr.map_(lambda x: x.detach(), model.params())
     opt_state = opt_lib.init(params)
+    layouts = step_fn.layouts
+    state_specs = [layouts["params"], layouts["opt"]]
+
+    def place(batch):
+        return shd.place_tree(batch, layouts["batch"](batch), mesh)
+
     cursor = StreamCursor()
     restored_from = None
     start_step = 0
     latest = ckpt.latest_step()
     if latest is not None:
-        (params, opt_state), extra = ckpt.restore(latest,
-                                                  (params, opt_state))
-        model.load_params(params)
+        state, extra = ckpt.restore(latest, (params, opt_state),
+                                    (state_specs, mesh))
+        params, opt_state = _split(state)
         cursor = StreamCursor.from_dict(extra.get("cursor", {}))
         start_step = restored_from = latest
+    else:
+        params, opt_state = _split(shd.place_tree(
+            (params, opt_state), state_specs, mesh, copy=True))
 
     stream = SyntheticLMStream(cfg.vocab_size, shape.global_batch,
                                shape.seq_len, seed=stream_seed,
                                frontend=cfg.frontend, d_model=cfg.d_model,
                                n_patches=cfg.n_patches)
-    prefetch = Prefetcher(stream, cursor, device=device)
+    prefetch = Prefetcher(stream, cursor, device=mesh.device(0), place=place)
 
     total = max_steps if max_steps is not None else tcfg.total_steps
     losses, times = [], []
@@ -144,7 +171,6 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *,
         batch = prefetch.next()
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
-        model.load_params(params)
         loss = float(metrics["loss"])
         dt = time.time() - t0
         step += 1
@@ -159,8 +185,10 @@ def train(cfg: ModelConfig, shape: ShapeConfig, *,
             should_ckpt = True
         if should_ckpt:
             # the cursor of the NEXT batch to train on (the prefetcher has
-            # advanced past the one just used)
-            ckpt.save(step, (params, opt_state),
+            # advanced past the one just used), the state gathered
+            state = shd.gather_tree(tuple(zip(params, opt_state)),
+                                    state_specs, mesh)
+            ckpt.save(step, state,
                       extra={"cursor": cursor.state_dict(), "loss": loss})
         if guard.triggered:
             preempted = True

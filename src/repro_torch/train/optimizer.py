@@ -68,15 +68,19 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree.map_(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def update(grads, opt_state, params, cfg: TrainConfig):
+def update(grads, opt_state, params, cfg: TrainConfig, gnorm=None):
     """One AdamW step. Returns ``(new_params, new_opt_state, grad_norm)``.
+    ``gnorm``: the global gradient norm, when the caller holds a block of
+    the trees (a mesh shard) and computed it over all of them; default
+    :func:`global_norm` of ``grads``.
 
     The clip and the update run leaf by leaf, each temporary dropped as
     soon as it is used, so the step's peak holds about three float32
     copies of the largest leaf besides the state (a 2.7 B-param model's
     embedding is 2.6 GB in float32); the arithmetic is
     :func:`clip_by_global_norm`'s and the reference's, op for op."""
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)

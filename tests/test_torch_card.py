@@ -51,6 +51,12 @@ ring returns its inputs' bits; ``mlp`` and ``rwkv6`` decide on the card
 against the same call on the CPU, rtol = atol = 1e-5 (the repo's
 single-module bound; the two devices round ``exp``, ``tanh`` and the
 row sums differently).
+The LM on a mesh of logical card shards: the (2, 4) ZeRO-3 train step of
+qwen3 ``:smoke`` against the unsharded step on the card (loss rtol 1e-5,
+params 1e-5, the CPU test's bounds) and twice bit for bit;
+``moe_apply_sharded`` on the card against the CPU's shards (rtol = atol =
+1e-5); the owner-local ``write_token`` against the unsharded write, bit for
+bit.
 LM training's autograd Functions on the card: ``FlashAttentionFn``'s
 forward is the kernel (the flash bounds above against ``attention_ref``)
 and its (dq, dk, dv) autograd through ``attention_ref`` recomputed on the
@@ -1146,3 +1152,130 @@ def test_lm_train_step_repeats_bit_for_bit_on_card(card):
     assert _tree_bits_equal(a, b)
     assert bool(torch.isfinite(a[2]["loss"]))
     assert not _tree_bits_equal(a[0], params)
+
+
+def _card_mesh(card, shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, devices=[card] * (shape[0] * shape[1]))
+
+
+def _sharded_train_on(card, mesh, cfg, params, batch, tcfg):
+    from repro_torch.configs.base import ShapeConfig, ShardingConfig
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch import steps
+    step, _ = steps.build_train_step(
+        cfg, ShapeConfig("t", batch["tokens"].shape[1],
+                         batch["tokens"].shape[0], "train"), tcfg,
+        mesh=mesh, perf=ShardingConfig())
+    lay = step.layouts
+    out = step(shd.place_tree(params, lay["params"], mesh),
+               steps.init_opt_state(params, mesh, lay),
+               shd.place_tree(batch, lay["batch"](batch), mesh))
+    return out, lay
+
+
+def _smoke_lm_on(card):
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b:smoke"), head_dim=64)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    params = tree.map_(lambda x: x.detach(),
+                       LM(cfg, device=card, seed=1).params())
+    batch = to_device(SyntheticLMStream(cfg.vocab_size, 8, 32)
+                      .make_batch(0), card)
+    return cfg, tcfg, params, batch
+
+
+@pytest.mark.cuda
+def test_sharded_lm_steps_repeat_bit_for_bit_on_card(card):
+    """qwen3 ``:smoke`` (head dim 64) on (2, 4) logical shards of the
+    card: two ZeRO-3 steps from one state bit for bit, one flash launch a
+    shard a layer, twice (forward and remat)."""
+    cfg, tcfg, params, batch = _smoke_lm_on(card)
+    mesh = _card_mesh(card, (2, 4))
+    n0 = fa_ops.LAUNCHES
+    a, _ = _sharded_train_on(card, mesh, cfg, params, batch, tcfg)
+    assert fa_ops.LAUNCHES - n0 == mesh.size * cfg.n_layers * 2
+    b, _ = _sharded_train_on(card, mesh, cfg, params, batch, tcfg)
+    assert _tree_bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_lm_step_on_logical_card_shards(card):
+    """The same step against the unsharded step on the card: the loss
+    within rtol 1e-5 and the new params within 1e-5
+    (``tests/test_torch_model_sharded_steps.py``'s bounds at the
+    ``:smoke`` widths)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import LM
+    from repro_torch.train import optimizer as opt
+
+    cfg, tcfg, params, batch = _smoke_lm_on(card)
+    mesh = _card_mesh(card, (2, 4))
+    a, lay = _sharded_train_on(card, mesh, cfg, params, batch, tcfg)
+    step, _ = build_train_step(cfg, ShapeConfig("t", 32, 8, "train"), tcfg,
+                               card, model=LM(cfg, device=card,
+                                              params=params))
+    want = step(params, opt.init(params), batch)
+    assert_allclose(float(a[2]["loss"]), float(want[2]["loss"]), rtol=1e-5)
+    got = shd.gather_tree(a[0], lay["params"], mesh)
+    for x, y in zip(tree.leaves(got), tree.leaves(want[0])):
+        assert x.device.type == "cuda"
+        assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_apply_sharded_on_card_matches_cpu(card):
+    """Expert parallelism over (2, 4) logical shards of the card against
+    the same call on the CPU's logical shards, rtol = atol = 1e-5 (the
+    devices' products round differently); nothing dropped at a capacity
+    that cannot drop, counted on the card."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import param as P
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b:smoke")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    g = torch.Generator().manual_seed(0)
+    p = P.init(moe_mod.moe_defs(cfg), g, "cpu")
+    x = torch.randn((4, 16, cfg.d_model), generator=g)
+    want = moe_mod.moe_apply(p, x, cfg, shard=(_card_mesh(
+        torch.device("cpu"), (2, 4)), ("pod", "data")))
+    counts = []
+    got = moe_mod.moe_apply(tree.map_(lambda t: t.to(card), p), x.to(card),
+                            cfg, counts=counts,
+                            shard=(_card_mesh(card, (2, 4)), ("pod",
+                                                               "data")))
+    assert got[0].device.type == "cuda"
+    assert sum(int(c[0]) for c in counts) == 0
+    assert_allclose(got[0].cpu().numpy(), want[0].numpy(), rtol=1e-5,
+                    atol=1e-5)
+    assert_allclose(float(got[1]), float(want[1]), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 16])
+def test_owner_local_write_token_bit_for_bit_on_card(card, window):
+    """``write_token(shard=)`` on (2, 4) logical shards of the card: only
+    a slot's owner writes it, and the gathered cache equals the unsharded
+    write bit for bit, global and ring, across the ring's wrap."""
+    from repro_torch.models import cache as cache_lib
+
+    g = torch.Generator(device=card).manual_seed(0)
+    buf = torch.randn((4, 16, 2, 8), generator=g, device=card)
+    new = torch.randn((4, 1, 2, 8), generator=g, device=card)
+    mesh = _card_mesh(card, (2, 4))
+    for lengths in ([0, 5, 9, 15], [3, 16, 21, 40]):
+        L = torch.tensor(lengths, dtype=torch.int32, device=card)
+        want = cache_lib.write_token(buf, new, L, window)
+        got = cache_lib.write_token(buf, new, L, window,
+                                    shard=(mesh, ("pod", "data")))
+        assert got.device.type == "cuda" and torch.equal(got, want)

@@ -76,8 +76,7 @@ def test_crash_resume_is_deterministic(tmp_path):
 
 def test_bfloat16_train_state_checkpoints_and_resumes(tmp_path):
     """bfloat16 weights (the published configs' dtype) through the
-    checkpointer bit for bit, and a bfloat16 run resumed; the model holds
-    the trained weights after each step (``LM.load_params``)."""
+    checkpointer bit for bit, and a bfloat16 run resumed."""
     import dataclasses
     ck = Checkpointer(str(tmp_path / "ck"), async_mode=False)
     t = {"w": torch.randn(5, 3).to(torch.bfloat16),
@@ -163,9 +162,15 @@ def test_launcher_trains_resumes_and_refuses(tmp_path, capsys):
     launcher.main(argv[:5] + ["8"] + argv[6:])
     out = capsys.readouterr().out
     assert '"restored_from": 6' in out and '"steps_run": 2' in out
-    for bad in (["--production-mesh"], ["--set", "layout=tp"]):
-        with pytest.raises(SystemExit):
-            launcher.main(argv + bad)
+    # as the reference: --set overrides the ShardingConfig of the smoke
+    # mesh, and the pod mesh needs 256 devices
+    tp = argv[:-3] + [str(tmp_path / "tp"), "--lr", "3e-3", "--set",
+                      "layout=tp"]
+    launcher.main(tp)
+    out = capsys.readouterr().out
+    assert '"steps_run": 6' in out and '"restored_from": null' in out
+    with pytest.raises(RuntimeError, match="needs 256 devices"):
+        launcher.main(argv + ["--production-mesh"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             launcher.main(["--arch", "qwen3-0.6b:smoke", "--steps", "1",
