@@ -14,7 +14,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      Kernels with instances (flash_attention; locf and window_agg:
      ``row`` at T <= 16, ``warp`` above; harmonize: ``warp``) name the
      instance each case ran, from the launch counts and the profiler's
-     trace.
+     trace. flash_attention also runs at query offsets (``ctx_shard*``,
+     context parallelism's shard shapes, each counted in
+     ``LAUNCHES_BY_OFFSET`` under its instance and offset).
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
      policy: 4 batches (128 windows) timed, with every kernel launch
@@ -127,7 +129,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      next step; a profiled step.
  11. lm_sharded — the LM on meshes of logical shards of the card
      (``phase_lm_sharded``, the comment above ``SHARD_QWEN``).
-  Phases 9 to 11 run in a child process of the script (``--train``),
+ 12. lm_sharded_more — the rest of model sharding on logical shards of
+     the card (``phase_lm_sharded_more``, the comment above
+     ``SHARD_MORE_RG``): context-parallel attention (its flash launches
+     at query offsets, each counted and traced), heads that do not
+     divide, ``seq_parallel``, RWKV-6 and the ``embeddings``/``vlm``
+     frontends, each beside its unsharded twin.
+  Phases 9 to 12 run in a child process of the script (``--train``),
   which it waits for (see ``train_in_child``).
 The line before the last holds one JSON object with every kernel's
 numbers (``launches`` summed over the paths, ``launches_by_path`` each
@@ -137,6 +145,8 @@ card the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import statistics
@@ -153,9 +163,16 @@ REPO = Path(__file__).resolve().parent
 E, K, BATCHES, CAPACITY = 256, 32, 4, 4096
 N_TICKS, TICK_S, MAX_SAMPLES, HIDDEN = 8, 60.0, 32, 16
 # the LM side-car: prefill batch and prompt length, the decode-vs-prefill
-# tail, and launch/serve.py's defaults
+# tail, and launch/serve.py's defaults but for its requests, whose default
+# is 8 of 16 tokens, two waves of the 4 slots (the drains of qwen3 and five
+# families took ~54 s of the script at 8; phase 12 needed the room): 5
+# requests, the first asking for `refill_at` tokens and the last for the
+# rest of 16, so that the last is admitted into the first's freed slot
+# (lengths reset, the slot's cache rows overwritten) and every slot ends
+# at tick 16, one wave's ticks
 LM_ARCH, LM_B, LM_S, LM_TAIL = "qwen3-0.6b", 4, 2048, 8
-SERVE = dict(slots=4, max_seq=128, requests=8, prompt_len=8, new_tokens=16)
+SERVE = dict(slots=4, max_seq=128, requests=5, prompt_len=8, new_tokens=16,
+             refill_at=4)
 # the kernel cases at the LM families' prefill shapes (phase 3), by kernel
 LM_SHAPE = {"rglru_scan": "lm_recurrentgemma",
             "flash_attention": "lm_recurrentgemma"}
@@ -233,6 +250,43 @@ def call_ms(fn, reps=50, warmup=5):
     return statistics.median(times)
 
 
+# idle host time inside each profiler trace on both sides of the traced
+# work: the profiler keeps only the device records whose timestamps fall
+# inside its window on the host's clock, and a drift between the card's
+# clock and the host's is the likely cause of the traces that lost the
+# first kernels of a call, the same ones in every retry, late in a long
+# process (PERF.md §7). ``device_window_ms`` reports where the work fell.
+TRACE_PAD_S = 0.03
+
+
+@contextlib.contextmanager
+def _trace(cpu=False):
+    """A profiler trace of the block (device activity, and the host's too
+    if ``cpu``), the card drained before it and TRACE_PAD_S of idle time
+    inside the window on each side of the block."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
+def device_window_ms(prof):
+    """The first device record's start and the last one's end, in ms from
+    the trace's start on the host's clock ([None, None] if it has none):
+    about TRACE_PAD_S and the window's length less it where the clocks
+    agree."""
+    from torch.autograd import DeviceType
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        return [None, None]
+    return [min(a for a, _ in spans) / 1e3, max(b for _, b in spans) / 1e3]
+
+
 def _device_us(events):
     """Summed duration of the device activity (kernels, copies) among
     profiler events, in microseconds."""
@@ -258,16 +312,13 @@ def device_ms(fn, reps=20, warmup=3, tries=3, want=()):
     If every trace came back empty, None is returned (the caller then
     reports event times); if every one lacks a kernel named in ``want``,
     the check fails rather than read low."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     missing = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _trace() as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
         events = prof.key_averages()
         total = _device_us(events)
         missing = _missing(events, want)
@@ -286,17 +337,14 @@ def traced_kernels(fn, want, reps=10, tries=6):
     also held a PyTorch kernel kept them: each trace also runs one
     ``fill_`` on the card, and a trace without ``want`` is taken again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     marker = torch.zeros((), device="cuda")
     names = []
     fn()
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _trace() as prof:
             for _ in range(reps):
                 fn()
             marker.fill_(1.0)
-            torch.cuda.synchronize()
         names = sorted({e.key for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA
                         and want in e.key})
@@ -662,6 +710,72 @@ def flash_cases(dev, g):
             ops_rate=(roofline.BF16_FLOPS if dtype == torch.bfloat16
                       else roofline.F32_FLOPS),
             library=lib))
+    # context parallelism's launches (phase lm_sharded_more): one data
+    # shard's rows of recurrentgemma-2b's 2 x 2048 prefill on (2, 4), the
+    # first and the last model shard's (offsets 0 and 1536, the causal
+    # work 1 : 7), and the float32 twin's last shard on the scalar
+    # instance (2 x 512: 128 rows at offset 384)
+    for label, dtype, S, rows, off, impl in (
+            ("ctx_shard0", torch.bfloat16, LM_S, LM_S // 4, 0, "wgmma"),
+            ("ctx_shard3", torch.bfloat16, LM_S, LM_S // 4, 3 * LM_S // 4,
+             "wgmma"),
+            ("ctx_shard3_f32", torch.float32, 512, 128, 384, "scalar")):
+        H, HKV, D, window = 10, 1, 256, 2048
+        q = torch.randn((1, rows, H, D), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((1, S, HKV, D), generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        kw = dict(window=window, q_offset=off)
+        info = {}
+
+        def cmp(q=q, k=k, v=v, kw=kw, dtype=dtype, label=label, info=info,
+                impl=impl):
+            key = (impl, kw["q_offset"])
+            before = fa_ops.LAUNCHES_BY_OFFSET.get(key, 0)
+            out = check_instance(
+                fa_ops, "flash_attention", label,
+                lambda: fa_ops.flash_attention(q, k, v, **kw), impl, info,
+                want=FA_KERNELS[impl][1])
+            check(fa_ops.LAUNCHES_BY_OFFSET.get(key, 0) > before,
+                  f"flash_attention {label}: the launch was not counted "
+                  f"under {key}")
+            ref = attention_ref(q, k, v, **kw).float()
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            if dtype == torch.bfloat16:
+                ratio = (diff / (2.0 ** -7 * ref.abs() + 1e-5)).max().item()
+                info.update(tol="2^-7 |ref| + 1e-5", err_over_tol=ratio)
+                check(ratio <= 1.0, f"flash_attention {label}: error "
+                      f"{ratio} x the one-ulp bound (max abs {err})")
+            else:
+                info.update(tol=2e-3, err_over_tol=err / 2e-3)
+                check(err <= 2e-3, f"flash_attention {label}: max abs err "
+                      f"{err} > 2e-3")
+            return err
+
+        pos = torch.arange(off, off + rows, device=dev)[:, None]
+        key = torch.arange(S, device=dev)[None, :]
+        mask = (key <= pos) & (pos - key < window)
+        pairs = sum(min(i + 1, window) for i in range(off, off + rows))
+        cases.append(dict(
+            name="flash_attention", shape=label,
+            dims=dict(B=1, S=rows, S_kv=S, q_offset=off, H=H, Hkv=HKV, D=D,
+                      dtype=str(dtype)[6:], window=window, softcap=0.0),
+            kernel=lambda q=q, k=k, v=v, kw=kw: fa_ops.flash_attention(
+                q, k, v, **kw),
+            plain=lambda q=q, k=k, v=v, kw=kw: attention_ref(q, k, v, **kw),
+            compare=cmp, info=info,
+            # read q, k, v, write out: q and out at the shard's rows, k
+            # and v at the positions those rows see, max(0, off - window
+            # + 1) .. off + rows - 1; 4 H D flops per scored (q, k) pair
+            bytes=(2 * rows * H + 2 * (off + rows - max(0, off - window + 1))
+                   * HKV) * D * q.element_size(),
+            ops=4 * H * D * pairs,
+            ops_rate=(roofline.BF16_FLOPS if dtype == torch.bfloat16
+                      else roofline.F32_FLOPS),
+            library=lambda q=q, k=k, v=v, mask=mask:
+                F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)))
     return cases
 
 
@@ -1024,11 +1138,8 @@ def profile_batch(system, phase="scan_profile"):
     Runs after the measured batches, so it touches none of their numbers.
     The trace must show the loop's kernels (``LOOP_TRACE``), or the check
     fails rather than read low. Emits and returns the reading."""
-    from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _trace(cpu=True) as prof:
         t0 = time.perf_counter()
         system.run_windows(K)
         torch.cuda.synchronize()
@@ -1549,16 +1660,12 @@ def profile_step(fn, reps=10, want=()):
     ``reps`` calls (taken again if a trace comes back empty or lacks a
     kernel named in ``want``; the check fails if every one lacks it)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     missing = []
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _trace(cpu=True) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         busy = _device_us(dev)
@@ -2059,10 +2166,14 @@ def _serve_drain(model, tag):
     cfg = model.cfg
     engine = ServeEngine(model, SERVE["slots"], SERVE["max_seq"])
     rng = np.random.RandomState(0)
+    n = SERVE["requests"]
+    lens = [SERVE["new_tokens"]] * n
+    lens[0] = SERVE["refill_at"]
+    lens[-1] = SERVE["new_tokens"] - SERVE["refill_at"]
     reqs = [Request(rid=i, prompt=rng.randint(
                 1, cfg.vocab_size, (SERVE["prompt_len"],)).astype(np.int32),
-                    max_new_tokens=SERVE["new_tokens"])
-            for i in range(SERVE["requests"])]
+                    max_new_tokens=lens[i])
+            for i in range(n)]
     steps = []
     step = engine._step_masked
 
@@ -2074,13 +2185,17 @@ def _serve_drain(model, tag):
     _, wall_ms = _sync_ms(lambda: engine.run_until_drained(reqs))
     n_tok = sum(len(r.tokens) for r in reqs)
     check(all(r.done and r.finish_reason == "length" and
-              len(r.tokens) == SERVE["new_tokens"] for r in reqs),
+              len(r.tokens) == r.max_new_tokens for r in reqs),
           f"{tag}: a request did not complete")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
           f"{tag}: token out of range")
-    check(engine.stats["admitted"] == engine.stats["retired"] ==
-          SERVE["requests"] and engine.stats["timeouts"] == 0,
-          f"{tag}: stats {engine.stats}")
+    check(engine.stats["admitted"] == engine.stats["retired"] == n
+          and engine.stats["timeouts"] == 0, f"{tag}: stats {engine.stats}")
+    # the last request went into a slot that an earlier one freed, within
+    # the first wave's ticks
+    check(engine.stats["admitted"] > SERVE["slots"] and
+          engine.stats["ticks"] == SERVE["new_tokens"],
+          f"{tag}: no slot was refilled within one wave ({engine.stats})")
     return {**SERVE, "completed": len(reqs), "tokens": n_tok,
             "wall_s": wall_ms / 1e3, "tokens_per_s": n_tok / (wall_ms / 1e3),
             "engine_ticks": engine.stats["ticks"], "decode_steps": len(steps),
@@ -2364,17 +2479,18 @@ def _profile_step(fn, name, want, tries=3):
     (with the card nearly full a trace lost one of 28 kernels). A
     trace that lost kernels launched through the ctypes library (PERF.md
     §7) is taken again, up to ``tries`` times, then the check fails;
-    ``traced_by_attempt`` has each trace's launches of ``want``."""
+    ``traced_by_attempt`` has each trace's launches of ``want`` and
+    ``device_window_ms`` each trace's ``device_window_ms``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    by_attempt = []
+    by_attempt, windows = [], []
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _trace() as prof:
             # [1]: the call's output is dropped before a retry runs (a
             # train step's new state is 27 GB at recurrentgemma-2b)
             wall = _sync_ms(fn)[1]
+        windows.append(device_window_ms(prof))
         devs = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         traced = {}
@@ -2391,11 +2507,13 @@ def _profile_step(fn, name, want, tries=3):
         check(traced[part]["launches"] == n,
               f"{name}: the trace shows {traced[part]['launches']} "
               f"launches of {part} kernels ({traced[part]['kernels']}), "
-              f"expected {n}")
+              f"expected {n}; by trace {by_attempt}, device window "
+              f"{windows} ms with {TRACE_PAD_S * 1e3} ms pads")
     top = sorted(devs, key=lambda e: -e.self_device_time_total)[:6]
     busy = _device_us(devs) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "traces": attempt,
-            "traced_by_attempt": by_attempt,
+            "traced_by_attempt": by_attempt, "device_window_ms": windows,
+            "trace_pad_ms": TRACE_PAD_S * 1e3,
             "device_idle_share": 1 - busy / wall,
             "device_kernels": sum(e.count for e in devs), "traced": traced,
             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
@@ -2879,8 +2997,9 @@ SHARD_RG = dict(arch="recurrentgemma-2b", mesh=(2, 2), prompt=504,
 SHARD_DECODE = 8
 SHARD_TRAIN_BYTES_PER_PARAM = 24
 # tests/test_torch_model_sharded_steps.py's bounds (lr 1e-3, warmup 2):
-# the loss within rtol 1e-5; AdamW's m (the first step's (1 - b1) g)
-# within 1e-4 of its largest magnitude; the new params within ADAM_BOUND
+# the loss within rtol 1e-5; AdamW's m and v (the first step's (1 - b1) g
+# and (1 - b2) g^2) within 1e-4 of each leaf's largest magnitude; the new
+# params within ADAM_BOUND
 # elementwise (that file's adam_bound: the gap lr |F_got - F_want| that
 # the two new AdamW states give in exact arithmetic, F = m^ / (sqrt(v^) +
 # eps), plus the two updates' roundings counted from their ops, eps32 (lr
@@ -2890,7 +3009,14 @@ SHARD_GRAD_REL = 1e-4
 # the float32 twin's params, absolute: a guard against a gross fault, set
 # after this phase's first run read 1.494e-5 (the largest gaps sit where
 # |g| is near AdamW's eps, where F's slope is 1 / eps); ADAM_BOUND is the
-# elementwise check
+# elementwise check. It guards qwen3-0.6b's twins (here and with
+# seq_parallel in lm_sharded_more). The other archs' twins there hold m, v
+# and ADAM_BOUND and report their largest gap, which no absolute number
+# can split into sound and faulty: a first AdamW step moves each param by
+# lr F with F ~ g / (|g| + eps), ~sign(g): a sound twin reads up to ~lr
+# where |g| is near eps (rwkv6-1.6b: 2.8e-4), and a fault that scales a
+# gradient (a sum over too few shards) keeps the signs and reads no more;
+# m, v and ADAM_BOUND, elementwise, tell the two apart
 SHARD_F32_PARAM_ATOL = 2e-5
 # float32 logits of a sharded serving step against the unsharded one:
 # |d| <= atol + rtol |ref|
@@ -2915,6 +3041,7 @@ def _zero_counts():
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     fa_ops.LAUNCHES = 0
     fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    fa_ops.LAUNCHES_BY_OFFSET.clear()
     rglru_ops.LAUNCHES = 0
     for k in col.CALLS:
         col.CALLS[k] = 0
@@ -2924,8 +3051,15 @@ def _read_counts():
     from repro_torch.distribution import collectives as col
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    by_offset, offset_by_impl = {}, dict.fromkeys(fa_ops.LAUNCHES_BY_IMPL, 0)
+    for (impl, off), n in sorted(fa_ops.LAUNCHES_BY_OFFSET.items(),
+                                 key=lambda kv: kv[0][1]):
+        by_offset[str(off)] = by_offset.get(str(off), 0) + n
+        offset_by_impl[impl] += n if off else 0
     return {"flash_attention": fa_ops.LAUNCHES,
             "flash_by_impl": dict(fa_ops.LAUNCHES_BY_IMPL),
+            "flash_by_offset": by_offset,
+            "flash_offset_by_impl": offset_by_impl,
             "rglru_scan": rglru_ops.LAUNCHES, "collectives": dict(col.CALLS)}
 
 
@@ -2982,28 +3116,32 @@ def _adam_ratio(p_got, p_want, p_old, o_got, o_want, lr, tcfg):
     eps, wd = f32(tcfg.eps), f32(tcfg.weight_decay)
     ulp = torch.finfo(torch.float32).eps
     worst, excess = (0.0, {}), 0.0
-    for pg, pw, po, mg, mw, vg, vw in zip(
-            tree.leaves(p_got), tree.leaves(p_want), tree.leaves(p_old),
-            tree.leaves(o_got["m"]), tree.leaves(o_want["m"]),
-            tree.leaves(o_got["v"]), tree.leaves(o_want["v"])):
-        fg = (mg.double() / c1) / (torch.sqrt(vg.double() / c2) + eps)
-        fw = (mw.double() / c1) / (torch.sqrt(vw.double() / c2) + eps)
-        exact = lr * (fg - fw).abs()
-        del mg, vg
-        p = po.double().abs()
-        rnd = ulp * (lr * (8 * torch.maximum(fg.abs(), fw.abs()) + 4 * wd * p)
-                     + p)
-        dp = (pg.double() - pw.double()).abs()
-        r = (dp / (exact + rnd)).reshape(-1)
-        excess = max(excess, ((dp - exact) / rnd).max().item())
-        j = int(r.argmax())
-        if r[j].item() > worst[0]:
-            at = lambda x: x.reshape(-1)[j].item()
-            worst = (r[j].item(), {"dp": at(dp), "exact": at(exact),
-                                   "rounding": at(rnd), "F": at(fw),
-                                   "g": at(mw) / (1.0 - tcfg.beta1),
-                                   "p": at(po), "shape": list(pg.shape)})
-        del fg, fw, exact, p, rnd, dp, r
+    chunk = 1 << 24            # elements at a time: float64 temporaries
+    for leaf in zip(tree.leaves(p_got), tree.leaves(p_want),
+                    tree.leaves(p_old), tree.leaves(o_got["m"]),
+                    tree.leaves(o_want["m"]), tree.leaves(o_got["v"]),
+                    tree.leaves(o_want["v"])):
+        shape = list(leaf[0].shape)
+        flat = [x.reshape(-1) for x in leaf]
+        for c0 in range(0, flat[0].numel(), chunk):
+            pg, pw, po, mg, mw, vg, vw = (x[c0:c0 + chunk] for x in flat)
+            fg = (mg.double() / c1) / (torch.sqrt(vg.double() / c2) + eps)
+            fw = (mw.double() / c1) / (torch.sqrt(vw.double() / c2) + eps)
+            exact = lr * (fg - fw).abs()
+            p = po.double().abs()
+            rnd = ulp * (lr * (8 * torch.maximum(fg.abs(), fw.abs())
+                               + 4 * wd * p) + p)
+            dp = (pg.double() - pw.double()).abs()
+            r = dp / (exact + rnd)
+            excess = max(excess, ((dp - exact) / rnd).max().item())
+            j = int(r.argmax())
+            if r[j].item() > worst[0]:
+                worst = (r[j].item(), {
+                    "dp": dp[j].item(), "exact": exact[j].item(),
+                    "rounding": rnd[j].item(), "F": fw[j].item(),
+                    "g": mw[j].item() / (1.0 - tcfg.beta1),
+                    "p": po[j].item(), "shape": shape})
+            del fg, fw, exact, p, rnd, dp, r
     return worst[0], excess, worst[1]
 
 
@@ -3012,7 +3150,7 @@ def _f32_ratio(got, want):
                                   * want.abs())).max().item()
 
 
-def _shard_qwen(dev):
+def _shard_qwen(dev, readings):
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig, TrainConfig
@@ -3051,6 +3189,7 @@ def _shard_qwen(dev):
     check(all(bool(torch.isfinite(v).all()) for v in first[2].values()),
           f"{tag}: metrics not finite {first[2]}")
     digest, loss0 = tree_digest(first[:2]), first[2]["loss"].item()
+    readings["qwen3_loss"] = loss0
     del first
     second, ms = _sync_ms(lambda: step(ps, os_, bs))
     walls = [ms]
@@ -3118,12 +3257,15 @@ def _shard_qwen(dev):
         want[2]["loss"].item())
     param_err = _max_abs(got_p, want[0])
     grad_rel = _max_rel(tree.leaves(got_o["m"]), tree.leaves(want[1]["m"]))
+    v_rel = _max_rel(tree.leaves(got_o["v"]), tree.leaves(want[1]["v"]))
     adam_ratio, adam_excess, adam_worst = _adam_ratio(
         got_p, want[0], p32, got_o, want[1], want[2]["lr"].item(), tcfg32)
     check(loss_rel <= SHARD_LOSS_RTOL, f"{tag}: float32 sharded loss "
           f"{got_loss} vs unsharded {want[2]['loss'].item()}")
     check(grad_rel <= SHARD_GRAD_REL, f"{tag}: float32 sharded AdamW m "
           f"{grad_rel} of its max from the unsharded step's")
+    check(v_rel <= SHARD_GRAD_REL, f"{tag}: float32 sharded AdamW v "
+          f"{v_rel} of its max from the unsharded step's")
     check(adam_ratio <= 1.0, f"{tag}: float32 sharded params {adam_ratio} x "
           "ADAM_BOUND from the unsharded step's")
     check(param_err <= SHARD_F32_PARAM_ATOL, f"{tag}: float32 sharded params "
@@ -3178,7 +3320,8 @@ def _shard_qwen(dev):
           "f32_param_err_over_adam_bound": adam_ratio,
           "f32_param_rounding_share_of_r": adam_excess,
           "f32_adam_worst": adam_worst,
-          "f32_m_max_rel_err": grad_rel, "f32_m_bound": SHARD_GRAD_REL,
+          "f32_m_max_rel_err": grad_rel, "f32_v_max_rel_err": v_rel,
+          "f32_m_bound": SHARD_GRAD_REL,
           "prefill_launches": {"flash_attention": pcounts["flash_attention"]},
           "prefill_collective_calls": pcounts["collectives"],
           "prefill_ms": pre_ms, "unsharded_prefill_ms": plain_pre_ms,
@@ -3425,17 +3568,497 @@ def _shard_rg(dev):
                                 counts["flash_attention"]}}
 
 
-def phase_lm_sharded(dev):
+def phase_lm_sharded(dev, readings):
     """Phase 11: the LM on meshes of logical shards of the card (the
-    SHARD_* constants above); returns {kernel: {path: launches}}."""
+    SHARD_* constants above); puts qwen3's loss into ``readings`` for
+    phase 12; returns {kernel: {path: launches}}."""
     t0 = time.perf_counter()
     out = {}
-    for part in (_shard_qwen, _shard_moe, _shard_rg):
+    for part in (functools.partial(_shard_qwen, readings=readings),
+                 _shard_moe, _shard_rg):
         for name, paths in part(dev).items():
             out.setdefault(name, {}).update(paths)
     emit({"phase": "lm_sharded", "step": "done",
           "seconds": time.perf_counter() - t0, "launches_by_path": out})
     return out
+
+
+# The rest of model sharding (phase 12, ``phase_lm_sharded_more``), on
+# (2, 4) meshes of logical shards of the card at published widths, in
+# bfloat16, each case beside its unsharded twin: (a) recurrentgemma-2b,
+# ``auto`` picking ``ctx`` (10 heads over 4): a train step at 2 x 2048
+# (full remat; one flash launch a shard a local layer at offsets 0, 512,
+# 1024 and 1536, twice), a prefill, SHARD_DECODE decode steps, and a
+# float32 twin of the train step at 2 x SHARD_MORE_F32_SEQ (the scalar
+# instance) held to the float32 bounds above; (b) rwkv6-1.6b cut to
+# SHARD_MORE_RWKV_LAYERS layers: a train step at 2 x 2048 with RWKV_CHUNK
+# and its float32 twin, a prefill and decode steps; (c) musicgen-medium
+# (frames): a prefill, SHARD_MORE_DECODE decode steps and a train step; (d) internvl2-26b cut to SHARD_MORE_VLM_LAYERS layers, 256
+# patches before the tokens: a prefill and a train step; (e) qwen3-0.6b
+# with ``seq_parallel``: lm_sharded's train step (4 x 2048) against that
+# phase's step on the same data, and a float32 twin at SHARD_F32's shape
+# against the unsharded step; (f) recurrentgemma-2b with
+# ``attn_sharding="heads"`` (every head on every shard): one prefill. A
+# train step whose state would not fit runs at the depth SHARD_TRAIN_*
+# allow (listed in the case's line). bf16 drift against the unsharded twin
+# is reported, not held (PERF.md §7)
+SHARD_MORE_RG = dict(arch="recurrentgemma-2b", mesh=(2, 4), seq=2048,
+                     batch=2)
+SHARD_MORE_RWKV = dict(arch="rwkv6-1.6b", mesh=(2, 4), seq=2048, batch=2)
+# rwkv6 at this many of its 24 layers: its chunked wkv is plain torch
+# (ROADMAP queue 1, item 16), and at all 24 the sharded train step took
+# 53.3 s, its twin 11.0 s and the prefill 7.5 s on 8 shards, half the
+# phase
+SHARD_MORE_RWKV_LAYERS = 6
+SHARD_MORE_MUSIC = dict(arch="musicgen-medium", mesh=(2, 4), seq=2048,
+                        batch=2)
+SHARD_MORE_VLM = dict(arch="internvl2-26b", mesh=(2, 4), seq=2048, batch=2)
+SHARD_MORE_VLM_LAYERS = 2
+SHARD_MORE_F32_SEQ = 512
+# musicgen's decode steps (recurrentgemma's and rwkv6's: SHARD_DECODE)
+SHARD_MORE_DECODE = 2
+# a float32 twin holds params, grads, AdamW m and v, the new params and
+# the new m and v (28 bytes a param), then the sharded results gathered
+# whole beside the unsharded step's (12 more): 40
+SHARD_TRAIN_F32_BYTES_PER_PARAM = 40
+
+
+def _train_fit(cfg):
+    """``cfg`` at the depth whose train step (SHARD_TRAIN_*_BYTES_PER_PARAM
+    bytes a param) fits the card's free memory beside FIT_RESERVE_BYTES,
+    in whole periods of its layer pattern; and the cut, for the line."""
+    import dataclasses
+
+    from repro_torch.models import param as P
+    from repro_torch.models.model import param_defs
+    per = (SHARD_TRAIN_F32_BYTES_PER_PARAM if cfg.param_dtype == "float32"
+           else SHARD_TRAIN_BYTES_PER_PARAM)
+    free = torch.cuda.mem_get_info()[0] - FIT_RESERVE_BYTES
+    period = len(cfg.layer_pattern)
+    n = cfg.n_layers
+    while n > period and per * P.count(param_defs(
+            dataclasses.replace(cfg, n_layers=n))) > free:
+        n -= n % period or period
+    cut = None if n == cfg.n_layers else (
+        f"n_layers {cfg.n_layers} -> {n} (a train step at {per} bytes a "
+        "param beside FIT_RESERVE_BYTES)")
+    return dataclasses.replace(cfg, n_layers=n), cut
+
+
+def _more_inputs(cfg, dev, B, S, seed, train):
+    """Seeded inputs of S positions (``_family_inputs``), with targets
+    for a train step."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _family_inputs(cfg, g, dev, B, S)
+    if train:
+        n = S - (cfg.n_patches if cfg.frontend == "vlm" else 0)
+        x["targets"] = torch.randint(0, cfg.vocab_size, (B, n), generator=g,
+                                     device=dev, dtype=torch.int32)
+    return x
+
+
+def _more_train(tag, cfg, spec, perf, dev, *, tcfg=None, f32=False,
+                profile_want=None, batch=None, param_atol=None):
+    """One sharded train step of ``cfg`` on ``spec``'s mesh under ``perf``
+    and the unsharded step from the same weights (seed 0) and batch: the
+    line's readings. ``f32``: hold the float32 bounds (loss, AdamW m and v,
+    ADAM_BOUND elementwise; the largest param gap reported, and held to
+    ``param_atol`` where given); else report the drift."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch.steps import build_train_step, make_model
+    from repro_torch.models import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree
+
+    t0 = time.perf_counter()
+    secs = {}
+    mesh = _logical_mesh(dev, spec["mesh"])
+    B, S = spec["batch"], spec["seq"]
+    shape = ShapeConfig("train", S, B, "train")
+    tcfg = tcfg or TrainConfig(learning_rate=1e-3, warmup_steps=2,
+                               total_steps=10, remat_policy="full")
+    params = tree.map_(lambda x: x.detach(),
+                       LM(cfg, device=dev, seed=0).params())
+    batch = batch or _more_inputs(cfg, dev, B, S, 1, True)
+    torch.cuda.reset_peak_memory_stats()
+    step, _, lay, ps, os_, bs = _sharded_train(cfg, shape, tcfg, mesh,
+                                               params, batch, perf)
+    secs["set_up"] = time.perf_counter() - t0
+    _zero_counts()
+    got, ms = _sync_ms(lambda: step(ps, os_, bs))
+    counts = _read_counts()
+    check(all(bool(torch.isfinite(v).all()) for v in got[2].values()),
+          f"{tag}: metrics not finite {got[2]}")
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    got_met = {k: v.item() for k, v in got[2].items()}
+    prof = None
+    if profile_want:
+        del got
+        prof = _profile_step(lambda: step(ps, os_, bs), tag, profile_want)
+    secs["profile"] = time.perf_counter() - t1
+    del step, ps, os_, bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if f32:
+        got_p = shd.gather_tree(got[0], lay["params"], mesh)
+        got_o = shd.gather_tree(got[1], lay["opt"], mesh)
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, _ = build_train_step(cfg, shape, tcfg, dev, model=make_model(
+        cfg, perf, None, device=dev, params=params))
+    opt0 = opt.init(params)
+    t1 = time.perf_counter()
+    want, plain_ms = _sync_ms(lambda: plain(params, opt0, batch))
+    want_met = {k: v.item() for k, v in want[2].items()}
+    secs["unsharded"] = time.perf_counter() - t1
+    out = {"step_ms": ms, "unsharded_step_ms": plain_ms,
+           "sharded_over_unsharded": ms / plain_ms,
+           "launches_per_step": {
+               "flash_attention": counts["flash_attention"],
+               "flash_by_impl": counts["flash_by_impl"],
+               "flash_by_offset": counts["flash_by_offset"],
+               "rglru_scan": counts["rglru_scan"]},
+           "collective_calls_per_step": counts["collectives"],
+           "peak_device_bytes": peak, "sharded": got_met,
+           "unsharded": want_met,
+           "loss_rel_err": abs(got_met["loss"] - want_met["loss"])
+           / abs(want_met["loss"])}
+    if prof is not None:
+        out.update(device_busy_ms=prof["device_busy_ms"],
+                   device_idle_share=prof["device_idle_share"],
+                   device_kernels=prof["device_kernels"],
+                   traces=prof["traces"],
+                   traced={k: v["launches"] for k, v in
+                           prof["traced"].items()})
+    if f32:
+        grad_rel = _max_rel(tree.leaves(got_o["m"]),
+                            tree.leaves(want[1]["m"]))
+        v_rel = _max_rel(tree.leaves(got_o["v"]), tree.leaves(want[1]["v"]))
+        param_err = _max_abs(got_p, want[0])
+        adam_ratio, adam_excess, adam_worst = _adam_ratio(
+            got_p, want[0], params, got_o, want[1], want_met["lr"], tcfg)
+        check(out["loss_rel_err"] <= SHARD_LOSS_RTOL, f"{tag}: float32 "
+              f"sharded loss {got_met['loss']} vs unsharded "
+              f"{want_met['loss']}")
+        check(grad_rel <= SHARD_GRAD_REL, f"{tag}: float32 sharded AdamW m "
+              f"{grad_rel} of its max from the unsharded step's")
+        check(v_rel <= SHARD_GRAD_REL, f"{tag}: float32 sharded AdamW v "
+              f"{v_rel} of its max from the unsharded step's")
+        check(adam_ratio <= 1.0, f"{tag}: float32 sharded params "
+              f"{adam_ratio} x ADAM_BOUND from the unsharded step's")
+        check(param_atol is None or param_err <= param_atol, f"{tag}: "
+              f"float32 sharded params {param_err} from the unsharded "
+              "step's")
+        out.update(loss_bound=SHARD_LOSS_RTOL, m_max_rel_err=grad_rel,
+                   v_max_rel_err=v_rel, m_bound=SHARD_GRAD_REL, param_max_abs_err=param_err,
+                   param_atol=param_atol,
+                   param_err_over_adam_bound=adam_ratio,
+                   param_rounding_share_of_r=adam_excess,
+                   adam_worst=adam_worst)
+        del got_p, got_o
+    del plain, opt0, want, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = dict(secs, total=time.perf_counter() - t0)
+    return out
+
+
+def _ctx_shares(durations, mesh, n_layers):
+    """Each model index's share of the flash kernels' device time in a
+    traced prefill, whose launches run in shard order layer by layer
+    (None unless the trace holds every launch)."""
+    if len(durations) != mesh.size * n_layers:
+        return None
+    by_j = {}
+    for k, us in enumerate(durations):
+        j = mesh.axis_index(k % mesh.size, "model")
+        by_j[j] = by_j.get(j, 0.0) + us
+    total = sum(by_j.values())
+    return {str(j): by_j[j] / total for j in sorted(by_j)}
+
+
+def _flash_durations(fn, tries=3):
+    """Per try, the flash (wgmma) kernels' device microseconds in launch
+    order in one traced call."""
+    from torch.autograd import DeviceType
+    for _ in range(tries):
+        with _trace() as prof:
+            _sync_ms(fn)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and FA_KERNELS["wgmma"][1] in e.name),
+                     key=lambda e: e.time_range.start)
+        yield [e.time_range.elapsed_us() for e in evs]
+
+
+def _more_serve(tag, cfg, spec, perf, dev, *, decode=SHARD_DECODE,
+                shares=False):
+    """A sharded prefill of ``spec``'s batch (and ``decode`` decode steps)
+    against the unsharded model's from the same weights (seed 0): the
+    line's readings and the prefill's flash launches. ``shares``: each
+    model index's share of the prefill's flash device time."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch.steps import build_decode_step, make_model
+    from repro_torch.models import LM
+    from repro_torch.train import tree
+
+    mesh = _logical_mesh(dev, spec["mesh"])
+    B, S = spec["batch"], spec["seq"]
+    params = tree.map_(lambda x: x.detach(),
+                       LM(cfg, device=dev, seed=0).params())
+    x = _more_inputs(cfg, dev, B, S + decode, 2, False)
+    key = _seq_key(cfg)
+    n_in = x[key].shape[1]
+    head = {k: v if k == "patches" else v[:, :n_in - decode]
+            for k, v in x.items()}
+    max_seq = S + decode
+    dstep, model = build_decode_step(
+        cfg, ShapeConfig("decode", max_seq, B, "decode"), mesh, perf,
+        model=make_model(cfg, perf, mesh, params=params))
+    lay = dstep.layouts
+    ps = shd.place_tree(params, lay["params"], mesh)
+    hb = shd.place_tree(head, lay["batch"](head), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    (lgs, cs), pre_ms = _sync_ms(lambda: model.prefill(
+        hb, max_seq=max_seq, params=ps))
+    counts = _read_counts()
+    lg = shd.gather_tree(lgs, [lay["logits"]], mesh)
+    check(bool(torch.isfinite(lg).all()), f"{tag}: prefill logits")
+    out = {"prefill_ms": pre_ms,
+           "prefill_launches": {
+               "flash_attention": counts["flash_attention"],
+               "flash_by_impl": counts["flash_by_impl"],
+               "flash_by_offset": counts["flash_by_offset"],
+               "rglru_scan": counts["rglru_scan"]},
+           "prefill_collective_calls": counts["collectives"]}
+    if shares:
+        n_fa = sum(k in ("global", "local") for k in cfg.layer_kinds)
+        for durs in _flash_durations(lambda: model.prefill(
+                hb, max_seq=max_seq, params=ps)):
+            sh = _ctx_shares(durs, mesh, n_fa)
+            if sh is not None:
+                out["ctx_flash_share_by_model_index"] = sh
+                out["ctx_flash_device_us"] = sum(durs)
+                break
+        check("ctx_flash_share_by_model_index" in out, f"{tag}: no trace "
+              "of the prefill held every flash launch")
+    del hb
+    plain = LM(cfg, device=dev, params=params, rwkv_chunk=perf.rwkv_chunk)
+    (want, cache), plain_pre_ms = _sync_ms(lambda: plain.prefill(
+        head, max_seq=max_seq))
+    errs = [(lg - want).abs().max().item()]
+    out["unsharded_prefill_ms"] = plain_pre_ms
+    out["prefill_argmax_agree"] = (lg.argmax(-1) == want.argmax(-1)).float(
+        ).mean().item()
+    dec_ms, plain_dec_ms = [], []
+    _zero_counts()
+    for t in range(decode):
+        j = n_in - decode + t
+        b = {key: x[key][:, j:j + 1]}
+        (lgs, cs), ms = _sync_ms(lambda: dstep(
+            ps, shd.place_tree(b, lay["batch"](b), mesh), cs))
+        (want, cache), pms = _sync_ms(lambda: plain.decode_step(b, cache))
+        dec_ms.append(ms)
+        plain_dec_ms.append(pms)
+        lg = shd.gather_tree(lgs, [lay["logits"]], mesh)
+        check(bool(torch.isfinite(lg).all()), f"{tag}: decode logits")
+        errs.append((lg - want).abs().max().item())
+    if decode:
+        dcounts = _read_counts()
+        out.update(decode_ms=dec_ms, unsharded_decode_ms=plain_dec_ms,
+                   decode_collective_calls_per_step={
+                       k: v / decode for k, v in
+                       dcounts["collectives"].items()},
+                   cache_max_abs_err=_max_abs(
+                       shd.gather_tree(cs, lay["cache"], mesh), cache))
+    out.update(logits_max_abs_err_by_step=errs,
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    del plain, params, ps, cs, cache, model, dstep, lg, lgs, want, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts["flash_attention"]
+
+
+def phase_lm_sharded_more(dev, readings):
+    """Phase 12: the rest of model sharding on logical shards of the card
+    (the comment above SHARD_MORE_RG); one line a step of each case;
+    ``readings``: phase 11's (qwen3's loss, for (e)); returns {kernel:
+    {path: launches}}."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShardingConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.models.model import attn_mode
+
+    t0 = time.perf_counter()
+    fa, rg_paths = {}, {}
+    n_sh = 8
+
+    def n_attn(cfg):
+        return sum(k in ("global", "local") for k in cfg.layer_kinds)
+
+    def line(tag, step, spec, cfg, **kw):
+        emit({"phase": tag, "step": step, "arch": spec["arch"],
+              "mesh": dict(zip(("data", "model"), spec["mesh"])),
+              "dtype": cfg.dtype, "seq": spec["seq"],
+              "global_batch": spec["batch"], **kw})
+
+    # (a) recurrentgemma-2b, auto -> ctx
+    tag = "lm_sharded_more_ctx"
+    spec = SHARD_MORE_RG
+    m = spec["mesh"][1]
+    full = get_config(spec["arch"])
+    perf = ShardingConfig()
+    mode = attn_mode(full, perf, m)
+    check(mode == "ctx", f"recurrentgemma-2b on model={m}: auto gave {mode}")
+    qc = spec["seq"] // m
+    cfg, cut = _train_fit(full)
+    per_step = n_sh * n_attn(cfg) * 2
+    train = _more_train(tag, cfg, spec, perf, dev,
+                        profile_want={FA_KERNELS["wgmma"][1]: per_step})
+    lps = train["launches_per_step"]
+    want_by = {str(j * qc): per_step // m for j in range(m)}
+    check(lps["flash_attention"] == per_step and
+          lps["flash_by_impl"] == {"wgmma": per_step, "scalar": 0} and
+          lps["flash_by_offset"] == want_by,
+          f"{tag}: train flash launches {lps}, expected {per_step} on "
+          f"wgmma at offsets {want_by}")
+    line(tag, "train", spec, cfg, attn_sharding="auto", attn_mode=mode,
+         heads=full.n_heads, q_rows_per_shard=qc, n_layers=cfg.n_layers,
+         reduced=cut, **train)
+    fa[f"sharded_more_train_{spec['arch']}_ctx"] = lps["flash_attention"]
+    rg_paths[f"sharded_more_train_{spec['arch']}_ctx"] = lps["rglru_scan"]
+    serve, n_pre = _more_serve(tag, full, spec, perf, dev, shares=True)
+    want_pre = {str(j * qc): n_sh * n_attn(full) // m for j in range(m)}
+    check(n_pre == n_sh * n_attn(full) and
+          serve["prefill_launches"]["flash_by_offset"] == want_pre,
+          f"{tag}: prefill flash launches {serve['prefill_launches']}, "
+          f"expected {want_pre}")
+    line(tag, "serve", spec, full, **serve)
+    fa[f"sharded_more_prefill_{spec['arch']}_ctx"] = n_pre
+    rg_paths[f"sharded_more_prefill_{spec['arch']}_ctx"] = \
+        serve["prefill_launches"]["rglru_scan"]
+    cfg32, cut32 = _train_fit(dataclasses.replace(
+        full, dtype="float32", param_dtype="float32"))
+    spec32 = dict(spec, seq=SHARD_MORE_F32_SEQ)
+    twin = _more_train(tag + "_f32", cfg32, spec32, perf, dev, f32=True)
+    tl = twin["launches_per_step"]
+    check(tl["flash_by_impl"]["scalar"] == tl["flash_attention"] > 0,
+          f"{tag}_f32: flash launches {tl}")
+    line(tag, "f32_twin", spec32, cfg32, n_layers=cfg32.n_layers,
+         reduced=cut32, **twin)
+
+    # (b) rwkv6-1.6b
+    tag = "lm_sharded_more_rwkv"
+    spec = SHARD_MORE_RWKV
+    full = get_config(spec["arch"])
+    perf = ShardingConfig(rwkv_chunk=RWKV_CHUNK)
+    heads = full.d_model // full.rwkv_head_dim // spec["mesh"][1]
+    cut = (f"n_layers {full.n_layers} -> {SHARD_MORE_RWKV_LAYERS} "
+           "(time: the plain-torch chunked wkv on 8 shards)")
+    cfg = dataclasses.replace(full, n_layers=SHARD_MORE_RWKV_LAYERS)
+    train = _more_train(tag, cfg, spec, perf, dev)
+    line(tag, "train", spec, cfg, rwkv_chunk=RWKV_CHUNK,
+         heads_per_shard=heads, n_layers=cfg.n_layers, reduced=cut, **train)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    spec32 = dict(spec, seq=SHARD_MORE_F32_SEQ)
+    twin = _more_train(tag + "_f32", cfg32, spec32, perf, dev, f32=True)
+    line(tag, "f32_twin", spec32, cfg32, n_layers=cfg32.n_layers,
+         reduced=cut, **twin)
+    serve, _ = _more_serve(tag, cfg, spec, perf, dev)
+    line(tag, "serve", spec, cfg, rwkv_chunk=RWKV_CHUNK, reduced=cut,
+         **serve)
+
+    # (c) musicgen-medium, frames
+    tag = "lm_sharded_more_music"
+    spec = SHARD_MORE_MUSIC
+    full = get_config(spec["arch"])
+    perf = ShardingConfig()
+    serve, n_pre = _more_serve(tag, full, spec, perf, dev,
+                               decode=SHARD_MORE_DECODE)
+    check(n_pre == n_sh * n_attn(full), f"{tag}: {n_pre} prefill flash "
+          f"launches, expected {n_sh * n_attn(full)}")
+    line(tag, "serve", spec, full, frontend=full.frontend, **serve)
+    fa[f"sharded_more_prefill_{spec['arch']}"] = n_pre
+    cfg, cut = _train_fit(full)
+    train = _more_train(tag, cfg, spec, perf, dev)
+    line(tag, "train", spec, cfg, n_layers=cfg.n_layers, reduced=cut,
+         **train)
+    fa[f"sharded_more_train_{spec['arch']}"] = \
+        train["launches_per_step"]["flash_attention"]
+
+    # (d) internvl2-26b, its first SHARD_MORE_VLM_LAYERS layers
+    tag = "lm_sharded_more_vlm"
+    spec = SHARD_MORE_VLM
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=SHARD_MORE_VLM_LAYERS)
+    cut = f"n_layers {full.n_layers} -> {SHARD_MORE_VLM_LAYERS}"
+    serve, n_pre = _more_serve(tag, cfg, spec, perf, dev, decode=0)
+    check(n_pre == n_sh * n_attn(cfg), f"{tag}: {n_pre} prefill flash "
+          f"launches, expected {n_sh * n_attn(cfg)}")
+    line(tag, "serve", spec, cfg, frontend=full.frontend,
+         patches=full.n_patches, reduced=cut, **serve)
+    fa[f"sharded_more_prefill_{spec['arch']}"] = n_pre
+    train = _more_train(tag, cfg, spec, perf, dev)
+    line(tag, "train", spec, cfg, reduced=cut, **train)
+    fa[f"sharded_more_train_{spec['arch']}"] = \
+        train["launches_per_step"]["flash_attention"]
+
+    # (e) qwen3-0.6b with seq_parallel
+    tag = "lm_sharded_more_sp"
+    spec = SHARD_QWEN
+    cfg = get_config(spec["arch"])
+    perf = ShardingConfig(seq_parallel=True)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=100, remat_policy="full")
+    batch = to_device(SyntheticLMStream(cfg.vocab_size, spec["batch"],
+                                        spec["seq"], seed=0).make_batch(0),
+                      dev)
+    train = _more_train(tag, cfg, spec, perf, dev, tcfg=tcfg, batch=batch)
+    check(train["collective_calls_per_step"]["reduce_scatter"] > 0,
+          f"{tag}: no reduce_scatter in a seq_parallel step "
+          f"{train['collective_calls_per_step']}")
+    non_sp = readings["qwen3_loss"]
+    line(tag, "train", spec, cfg, seq_parallel=True,
+         lm_sharded_loss=non_sp,
+         loss_vs_lm_sharded_rel=abs(train["sharded"]["loss"] - non_sp)
+         / abs(non_sp),
+         loss_bits_equal_lm_sharded=train["sharded"]["loss"] == non_sp,
+         **train)
+    fa[f"sharded_more_train_{spec['arch']}_sp"] = \
+        train["launches_per_step"]["flash_attention"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    b32 = {k: v[:SHARD_F32["batch"], :SHARD_F32["seq"]]
+           for k, v in batch.items()}
+    spec32 = dict(spec, **SHARD_F32)
+    twin = _more_train(tag + "_f32", cfg32, spec32, perf, dev, f32=True,
+                       batch=b32, param_atol=SHARD_F32_PARAM_ATOL)
+    line(tag, "f32_twin", spec32, cfg32, seq_parallel=True, **twin)
+    del batch, b32
+
+    # (f) recurrentgemma-2b, heads whole on every shard
+    tag = "lm_sharded_more_heads"
+    spec = SHARD_MORE_RG
+    full = get_config(spec["arch"])
+    perf = ShardingConfig(attn_sharding="heads")
+    serve, n_pre = _more_serve(tag, full, spec, perf, dev, decode=0)
+    check(n_pre == n_sh * n_attn(full) and
+          serve["prefill_launches"]["flash_by_offset"] == {"0": n_pre},
+          f"{tag}: prefill flash launches {serve['prefill_launches']}")
+    line(tag, "serve", spec, full, attn_sharding="heads",
+         heads=full.n_heads, **serve)
+    fa[f"sharded_more_prefill_{spec['arch']}_heads"] = n_pre
+    emit({"phase": "lm_sharded_more", "step": "done",
+          "seconds": time.perf_counter() - t0,
+          "launches_by_path": {"flash_attention": fa,
+                               "rglru_scan": rg_paths}})
+    return {"flash_attention": fa, "rglru_scan": rg_paths}
 
 
 # The two LM training phases run in a child process of this script
@@ -3445,7 +4068,7 @@ def phase_lm_sharded(dev):
 # (the counters showed 52), while the phase alone in a fresh process traced
 # all 52 (PERF.md §7). The child's lines pass through; its last line gives
 # its launches.
-TRAIN_CHILD_TIMEOUT_S = 400
+TRAIN_CHILD_TIMEOUT_S = 700
 
 
 def run_train_phases(dev):
@@ -3455,8 +4078,10 @@ def run_train_phases(dev):
                         (TRAIN_RG["arch"], phase_lm_train_rglru)):
         for name, n in phase(dev).items():
             by_path.setdefault(name, {})[f"train_{arch}"] = n
-    for name, paths in phase_lm_sharded(dev).items():
-        by_path.setdefault(name, {}).update(paths)
+    readings = {}
+    for phase in (phase_lm_sharded, phase_lm_sharded_more):
+        for name, paths in phase(dev, readings).items():
+            by_path.setdefault(name, {}).update(paths)
     return by_path
 
 

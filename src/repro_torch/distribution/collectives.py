@@ -10,12 +10,17 @@ result on its own device:
   * :func:`all_gather` — the blocks concatenated along ``dim`` in group
     order;
   * :func:`reduce_scatter` — the sum, split along ``dim``, block j to
-    member j.
+    member j;
+  * :func:`all_to_all` — member j gets block j of every member's tensor
+    (split along one dim), concatenated along another in group order: the
+    reshard of context parallelism, from column blocks to row blocks and
+    back.
 
 Every sum is a chain of plain adds in shard order, with no atomics, so two
 runs give the same bits. Each is an autograd Function whose backward is
 the conjugate collective, in the same fixed order: psum's is psum,
-all_gather's is reduce_scatter and reduce_scatter's is all_gather. A
+all_gather's is reduce_scatter, reduce_scatter's is all_gather and
+all_to_all's is the all_to_all that puts every block back. A
 group of one shard returns its tensor itself (no copy, no graph node), so
 a one-shard mesh runs exactly the unsharded ops.
 
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-CALLS = {"psum": 0, "all_gather": 0, "reduce_scatter": 0}
+CALLS = {"psum": 0, "all_gather": 0, "reduce_scatter": 0, "all_to_all": 0}
 
 
 def ordered_sum(xs):
@@ -101,6 +106,31 @@ class _ReduceScatter(torch.autograd.Function):
         return (None,) + _spread(full, ctx.devices)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, cat_dim, sizes, *xs):
+        ctx.dims = (split_dim, cat_dim)
+        ctx.devices = [x.device for x in xs]
+        ctx.sizes = list(sizes)
+        ctx.cat_sizes = [x.shape[cat_dim] for x in xs]
+        parts = [x.split(ctx.sizes, dim=split_dim) for x in xs]
+        out = tuple(torch.cat([p[j].to(d) for p in parts], dim=cat_dim)
+                    for j, d in enumerate(ctx.devices))
+        ctx.shapes = [o.shape for o in out]
+        ctx.dtype = xs[0].dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, cat_dim = ctx.dims
+        gs = [torch.zeros(sh, dtype=ctx.dtype, device=d) if g is None else g
+              for g, sh, d in zip(gs, ctx.shapes, ctx.devices)]
+        parts = [g.split(ctx.cat_sizes, dim=cat_dim) for g in gs]
+        return (None, None, None) + tuple(
+            torch.cat([p[i].to(d) for p in parts], dim=split_dim)
+            for i, d in enumerate(ctx.devices))
+
+
 def _run(kind, fn, xs, mesh, axes, *args):
     out = list(xs)
     for group in mesh.groups(axes):
@@ -140,3 +170,29 @@ def reduce_scatter(xs, mesh, axes, dim: int) -> list:
     """The sum over ``axes``, split along ``dim`` (member j gets block
     j)."""
     return _run("reduce_scatter", _ReduceScatter.apply, xs, mesh, axes, dim)
+
+
+def all_to_all(xs, mesh, axes, split_dim: int, cat_dim: int,
+               sizes=None) -> list:
+    """Member j of each group over ``axes`` gets the j-th block along
+    ``split_dim`` of every member's tensor, concatenated along ``cat_dim``
+    in group order. ``sizes``: the blocks' lengths along ``split_dim``
+    (default equal blocks); a block may be empty."""
+    out = list(xs)
+    for group in mesh.groups(axes):
+        if len(group) == 1:
+            continue
+        n = len(group)
+        sz = sizes
+        if sz is None:
+            per = xs[group[0]].shape[split_dim] // n
+            sz = [per] * n
+        if len(sz) != n:
+            raise ValueError(f"all_to_all: {len(sz)} block sizes for a "
+                             f"group of {n}")
+        CALLS["all_to_all"] += 1
+        res = _AllToAll.apply(split_dim, cat_dim, tuple(sz),
+                              *[xs[i] for i in group])
+        for i, r in zip(group, res):
+            out[i] = r
+    return out

@@ -39,7 +39,9 @@ of which block a shard holds. The reference's ``constrain_batch`` and
 ``attn_constrainers`` are ``with_sharding_constraint`` hooks for GSPMD;
 the port's SPMD executor (``models.model.LM`` on a mesh) holds its
 activations in those layouts by construction (the batch over the data
-axes, the heads over ``model``), so they have no counterpart.
+axes; the heads, or under ``ctx`` the query rows, over ``model``; under
+``seq_parallel`` the residual stream's rows over ``model``), so they have
+no counterpart.
 """
 from __future__ import annotations
 

@@ -6,8 +6,17 @@
 // (Kb, D) blocks into VMEM and carries (acc, m, l) in VMEM scratch across a
 // sequential kv grid axis.
 //
-// Bound on Hopper: operations. A causal pass does 4*B*H*S^2*D/2 flops
-// against 2*B*S*(H + 2*Hkv)*D elements moved, so at S = 2048 it sits far
+// Query offset: q and o are (B, Sq, H, D), k and v (B, Skv, Hkv, D); query
+// row i sits at position q_offset + i, keys at 0..Skv-1, with
+// q_offset + Sq <= Skv. Causal means key <= query position, and the window
+// is measured in positions. q_offset = 0 with Sq = Skv is the plain causal
+// pass; a context-parallel shard passes its own rows at their offset
+// against every key.
+//
+// Bound on Hopper: operations. A block does 4*H*D*sum_rows min(pos + 1,
+// window) flops (pos the row's position, window = Skv when there is none;
+// 4*B*H*S^2*D/2 for a whole causal pass) against
+// (B*Sq*2*H + 2*B*Skv*Hkv)*D elements moved, so at S = 2048 it sits far
 // above the card's flops-per-byte line. The real bound is the tensor
 // cores (989 TFLOP/s in bf16), which this first, scalar kernel does not
 // use: it runs on the float32 FMA units (67 TFLOP/s), and smem reads of the
@@ -29,10 +38,10 @@
 // GQA: q head h reads kv head h / G, never a repeated copy. KV tiles wholly
 // in the causal future of the block, or wholly before every row's window,
 // are skipped: such a tile would add p = 0 and leave alpha at 1 (or 0 for
-// a row that has seen nothing), so skipping is exact. Any S is accepted:
-// rows and keys past S are bounds-checked (the TPU kernel asserted S was a
-// multiple of its blocks). Inputs are read in the model layout (B, S, H, D)
-// directly, so no transpose precedes the launch.
+// a row that has seen nothing), so skipping is exact. Any Sq and Skv are
+// accepted: rows past Sq and keys past Skv are bounds-checked (the TPU
+// kernel asserted S was a multiple of its blocks). Inputs are read in the
+// model layout (B, S, H, D) directly, so no transpose precedes the launch.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,9 +89,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int Hkv, int window, float softcap,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ o, int Sq,
+                       int Skv, int q_offset, int H, int Hkv, int window,
+                       float softcap, float scale) {
   constexpr int kDPL = (D + 31) / 32;  // accumulator dims per lane
   constexpr int kKStride = D + 1;      // padded K row
   extern __shared__ float smem[];
@@ -90,7 +99,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ks = qs + kBlockQ * D;              // kBlockK x (D + 1)
   float* vs = ks + kBlockK * kKStride;       // kBlockK x D
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kBlockQ;          // first row of the block
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -100,8 +109,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D, s = q0 + r;
-    qs[i] = s < S ? to_f32(q[((size_t(b) * S + s) * H + h) * D + d]) * scale
-                  : 0.f;
+    qs[i] = s < Sq ? to_f32(q[((size_t(b) * Sq + s) * H + h) * D + d]) * scale
+                   : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDPL];
@@ -114,9 +123,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int row0 = q0 + warp * kRowsPerWarp;  // this warp's first row
-  const int q_last = min(q0 + kBlockQ, S) - 1;
+  const int p0 = q_offset + q0;                // the block's first position
+  const int q_last = q_offset + min(q0 + kBlockQ, Sq) - 1;  // a position
   int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1) / kBlockK * kBlockK;
+  if (window > 0) k_begin = max(0, p0 - window + 1) / kBlockK * kBlockK;
   const float* qw = qs + warp * kRowsPerWarp * D;
 
   for (int k0 = k_begin; k0 <= q_last; k0 += kBlockK) {
@@ -124,8 +134,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int j = i / D, d = i - j * D, s = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (s < S) {
-        const size_t off = ((size_t(b) * S + s) * Hkv + hk) * D + d;
+      if (s < Skv) {
+        const size_t off = ((size_t(b) * Skv + s) * Hkv + hk) * D + d;
         kx = to_f32(k[off]);
         vx = to_f32(v[off]);
       }
@@ -149,10 +159,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kpos = k0 + lane;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qpos = row0 + r;
+      const int qpos = q_offset + row0 + r;
       float s = sc[r];
       if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-      bool ok = kpos <= qpos && kpos < S;
+      bool ok = kpos <= qpos && kpos < Skv;
       if (window > 0) ok = ok && (qpos - kpos) < window;
       s = ok ? s : kMasked;
       const float m_new = fmaxf(fmaxf(m[r], warp_max(s)), kMaxFloor);
@@ -185,9 +195,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int s = row0 + r;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
     const float denom = fmaxf(l[r], kDenomFloor);
-    T* orow = o + ((size_t(b) * S + s) * H + h) * D;
+    T* orow = o + ((size_t(b) * Sq + s) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < kDPL; ++i) {
       const int d = lane + 32 * i;
@@ -198,8 +208,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int Hkv, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+                   int B, int Sq, int Skv, int q_offset, int H, int Hkv,
+                   int window, float softcap, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // above 48 KB a block's shared memory must be opted into; the setting
   // belongs to the current device, so set once per instance and device (a
@@ -216,45 +227,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, window,
-      softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, q_offset, H,
+      Hkv, window, softcap, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, int B, int S, int H, int Hkv, int window,
-                     float softcap, float scale, cudaStream_t stream) {
+                     void* o, int B, int Sq, int Skv, int q_offset, int H,
+                     int Hkv, int window, float softcap, float scale,
+                     cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/o (B, S, H, D), k/v (B, S, Hkv, D),
-// contiguous.
+// dtype: 0 = float32, 1 = bfloat16. q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D),
+// contiguous; query row i at position q_offset + i, q_offset + Sq <= Skv.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int Hkv, int D, int window,
-                                      float softcap, float scale, int dtype,
-                                      void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0)
+                                      const void* v, void* o, int B, int Sq,
+                                      int Skv, int q_offset, int H, int Hkv,
+                                      int D, int window, float softcap,
+                                      float scale, int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
+      q_offset > Skv - Sq || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(D, q, k, v, o, B, S, H, Hkv, window, softcap, scale, st);
+    err = dispatch<float>(D, q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, H, Hkv, window, softcap, scale, st);
+    err = dispatch<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

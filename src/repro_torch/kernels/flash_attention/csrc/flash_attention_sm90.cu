@@ -7,8 +7,17 @@
 // (Kb, D) blocks into VMEM, feeds both products to the MXU and carries
 // (acc, m, l) in VMEM scratch across a sequential kv grid axis.
 //
-// Bound on Hopper: operations. A causal pass does 4*B*H*S^2*D/2 flops
-// against 2*B*S*(H + 2*Hkv)*D elements moved, far above the card's
+// Query offset: q and o are (B, Sq, H, D), k and v (B, Skv, Hkv, D); query
+// row i sits at position q_offset + i, keys at 0..Skv-1, with
+// q_offset + Sq <= Skv. Causal means key <= query position, and the window
+// is measured in positions. Block starts, tile skips and the mask read
+// positions; TMA loads and stores address rows. q_offset = 0 with Sq = Skv
+// is the plain causal pass, computed exactly as before the offset existed.
+//
+// Bound on Hopper: operations. A block does 4*H*D*sum_rows min(pos + 1,
+// window) flops (pos the row's position, window = Skv when there is none;
+// 4*B*H*S^2*D/2 for a whole causal pass) against
+// (B*Sq*2*H + 2*B*Skv*Hkv)*D elements moved, far above the card's
 // flops-per-byte line, so the bound is the bf16 tensor cores (989 TFLOP/s
 // dense), reached only through wgmma.
 //
@@ -18,11 +27,12 @@
 // the producer, drops its registers with setmaxnreg, and one of its threads
 // issues the TMA loads: Q once, then K and V tiles of BN keys into a 2-stage
 // ring, one full and one empty mbarrier per stage. The tensor maps describe the model layout as it is,
-// dims (D, H, S, B) for q/out and (D, Hkv, S, B) for k/v, so no transpose
+// dims (D, H, Sq, B) for q/out and (D, Hkv, Skv, B) for k/v, so no transpose
 // precedes the launch and q head h reads kv head h / G directly. Every box is
 // 64 columns (128 bytes) wide with the 128-byte swizzle that wgmma reads; a
-// tile of D columns is D / 64 such chunks. TMA fills rows past S with zeros;
-// keys >= S are masked and rows >= S are not stored.
+// tile of D columns is D / 64 such chunks. TMA fills rows past Sq and keys
+// past Skv with zeros; keys >= Skv are masked, and the store of a partial
+// last q block stops at Sq (TMA clips the box).
 //   * S = Q K^T: wgmma m64nBNk16, A (Q) and B (K) from shared memory, both
 //     K-major, f32 accumulators in registers. The softmax scale multiplies
 //     the f32 scores (the model calls with scale 1, its q already scaled).
@@ -30,7 +40,7 @@
 //     and order: softcap tanh(s/cap)*cap before the mask, masked scores
 //     -1e30, running max floored at -1e29, row max and sum by quad shuffles,
 //     l summed from the f32 p. The mask is applied only on tiles that cut
-//     the diagonal, the window edge or S; tiles wholly in a warpgroup's
+//     the diagonal, the window edge or Skv; tiles wholly in a warpgroup's
 //     causal future or before its window are skipped (they add p = 0 and
 //     leave alpha at 1, so skipping is exact).
 //   * O += P V with p split in two bf16 halves, P_hi = bf16(p) and
@@ -328,9 +338,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
-                            const __grid_constant__ CUtensorMap o_map, int S,
-                            int H, int Hkv, int window, float softcap,
-                            float scale) {
+                            const __grid_constant__ CUtensorMap o_map,
+                            int Sq, int Skv, int q_offset, int H, int Hkv,
+                            int window, float softcap, float scale) {
   using T = Tiles<D, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -343,9 +353,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockM;   // heaviest first
+  const int p0 = q_offset + q0;                 // q0's position
   const int hk = h / (H / Hkv);
-  const int q_last = min(q0 + kBlockM, S) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int q_last = q_offset + min(q0 + kBlockM, Sq) - 1;  // a position
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) / BN * BN : 0;
   const int n_tiles = (q_last - k_begin) / BN + 1;
   const int wg = threadIdx.x / 128;
 
@@ -388,7 +399,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
-    const int wg_lo = q0 + 64 * wg;                 // this warpgroup's rows
+    const int wg_lo = p0 + 64 * wg;       // this warpgroup's rows' positions
     const int wg_hi = wg_lo + 63;
     const int row0 = wg_lo + 16 * warp + lane / 4;  // and row0 + 8
     const uint32_t q_wg = sq + 64 * wg * kRowBytes;
@@ -424,7 +435,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait_all();
         pin(sc);
 
-        const bool edge = k0 + BN - 1 > wg_lo || k0 + BN > S ||
+        const bool edge = k0 + BN - 1 > wg_lo || k0 + BN > Skv ||
                           (window > 0 && wg_hi - k0 >= window);
         float mx[2] = {kMasked, kMasked};
 #pragma unroll
@@ -434,7 +445,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           if (edge) {
             const int qpos = row0 + 8 * ((i / 2) % 2);
             const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-            bool ok = kpos <= qpos && kpos < S;
+            bool ok = kpos <= qpos && kpos < Skv;
             if (window > 0) ok = ok && qpos - kpos < window;
             x = ok ? x : kMasked;
           }
@@ -510,10 +521,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    if (tid == 0 && wg_lo < S) {
+    const int wg_row = q0 + 64 * wg;                // its first row
+    if (tid == 0 && wg_row < Sq) {
 #pragma unroll
       for (int c = 0; c < T::kChunks; ++c)
-        tma_store(&o_map, q_wg + c * T::kQChunk, 64 * c, h, wg_lo, b);
+        tma_store(&o_map, q_wg + c * T::kQChunk, 64 * c, h, wg_row, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -543,8 +555,8 @@ EncodeTiled encoder() {
 }
 
 // (D, heads, S, B) bf16 tensor in the model layout, boxes of 64 columns x
-// `rows` positions of one head and one batch row, 128-byte swizzle; reads
-// past S give zeros
+// `rows` rows of one head and one batch row, 128-byte swizzle; reads past S
+// give zeros, stores past S are dropped
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D,
               int heads, int S, int B, int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
@@ -563,8 +575,9 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D,
 
 template <int D, int BN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int Hkv, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+                   int B, int Sq, int Skv, int q_offset, int H, int Hkv,
+                   int window, float softcap, float scale,
+                   cudaStream_t stream) {
   constexpr int smem = Tiles<D, BN>::kSmem;
   // the opt-in belongs to the current device: once per device
   static bool configured[kMaxDevices] = {};
@@ -582,36 +595,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
-  if (!make_map(&qm, encode, q, D, H, S, B, kBlockM) ||
-      !make_map(&km, encode, k, D, Hkv, S, B, BN) ||
-      !make_map(&vm, encode, v, D, Hkv, S, B, BN) ||
-      !make_map(&om, encode, o, D, H, S, B, 64))
+  if (!make_map(&qm, encode, q, D, H, Sq, B, kBlockM) ||
+      !make_map(&km, encode, k, D, Hkv, Skv, B, BN) ||
+      !make_map(&vm, encode, v, D, Hkv, Skv, B, BN) ||
+      !make_map(&om, encode, o, D, H, Sq, B, 64))
     return cudaErrorInvalidValue;
-  const dim3 grid(H, B, (S + kBlockM - 1) / kBlockM);
+  const dim3 grid(H, B, (Sq + kBlockM - 1) / kBlockM);
   flash_attention_sm90_kernel<D, BN><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, om, S, H, Hkv, window, softcap, scale);
+      qm, km, vm, om, Sq, Skv, q_offset, H, Hkv, window, softcap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bfloat16 q/o (B, S, H, D), k/v (B, S, Hkv, D), contiguous, 16-byte
-// aligned; D in {64, 128, 256} (256 on 64-key tiles, to fit shared memory
-// and registers)
+// bfloat16 q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte
+// aligned; query row i at position q_offset + i, q_offset + Sq <= Skv; D in
+// {64, 128, 256} (256 on 64-key tiles, to fit shared memory and registers)
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
-                                           int S, int H, int Hkv, int D,
-                                           int window, float softcap,
-                                           float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      B > 65535 || (S + kBlockM - 1) / kBlockM > 65535)
+                                           int Sq, int Skv, int q_offset,
+                                           int H, int Hkv, int D, int window,
+                                           float softcap, float scale,
+                                           void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
+      q_offset > Skv - Sq || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      B > 65535 || (Sq + kBlockM - 1) / kBlockM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 64: err = launch<64, 128>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, st); break;
-    case 128: err = launch<128, 128>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, st); break;
-    case 256: err = launch<256, 64>(q, k, v, o, B, S, H, Hkv, window, softcap, scale, st); break;
+    case 64: err = launch<64, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st); break;
+    case 128: err = launch<128, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st); break;
+    case 256: err = launch<256, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -12,8 +12,13 @@ failure: a build or launch error of either raises.
   narrower than the 128-byte swizzled boxes the wgmma kernel reads. It
   runs on the float32 FMA units.
 
+Both take a query offset (:func:`flash_attention`'s ``q_offset``): q
+holds Sq rows at positions ``q_offset`` .. ``q_offset + Sq - 1`` against
+Skv >= q_offset + Sq keys, the launch of one context-parallel shard.
+
 A CPU tensor takes the plain version in ``ref.py``. ``LAUNCHES`` counts
-kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel.
+kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel, and
+``LAUNCHES_BY_OFFSET`` the same per (kernel, ``q_offset``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES = 0
 LAUNCHES_BY_IMPL = {"wgmma": 0, "scalar": 0}
+LAUNCHES_BY_OFFSET = {}               # (impl, q_offset) -> launches
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the scalar kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128, 256)     # the wgmma kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,31 +46,37 @@ def impl_for(dtype, D: int) -> str:
 
 
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                    scale=None):
-    """Causal GQA attention in the model layout: q (B, S, H, D); k, v
-    (B, S, Hkv, D), float32 or bfloat16, all one dtype; q head h reads kv
-    head h // (H // Hkv). ``window`` > 0 keeps keys with
+                    scale=None, q_offset: int = 0):
+    """Causal GQA attention in the model layout: q (B, Sq, H, D); k, v
+    (B, Skv, Hkv, D), float32 or bfloat16, all one dtype; q head h reads kv
+    head h // (H // Hkv). Query row i sits at position ``q_offset + i``
+    and keys at 0..Skv-1, with ``q_offset + Sq <= Skv``; a key is seen by
+    a query at or after its position. ``window`` > 0 keeps keys with
     0 <= q_pos - k_pos < window; ``softcap`` > 0 applies
     ``tanh(s / softcap) * softcap`` before the mask. ``scale`` defaults to
-    1/sqrt(D). Returns (B, S, H, D) in q's dtype."""
+    1/sqrt(D). Returns (B, Sq, H, D) in q's dtype."""
     global LAUNCHES
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q is {q.dtype}, expected float32 "
                         "or bfloat16")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: {H} q heads over {Hkv} kv heads")
-    _build.require("q", q, q.dtype, (B, S, H, D), dev)
-    _build.require("k", k, q.dtype, (B, S, Hkv, D), dev)
-    _build.require("v", v, q.dtype, (B, S, Hkv, D), dev)
+    q_offset = int(q_offset)
+    if q_offset < 0 or q_offset + Sq > Skv:
+        raise ValueError(f"flash_attention: {Sq} query rows at offset "
+                         f"{q_offset} against {Skv} keys")
+    _build.require("q", q, q.dtype, (B, Sq, H, D), dev)
+    _build.require("k", k, q.dtype, (B, Skv, Hkv, D), dev)
+    _build.require("v", v, q.dtype, (B, Skv, Hkv, D), dev)
     if window < 0 or softcap < 0:
         raise ValueError("flash_attention: window and softcap must be >= 0")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if dev.type == "cpu":
         return attention_ref(q, k, v, window=window, softcap=softcap,
-                             scale=scale)
+                             scale=scale, q_offset=q_offset)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     if D not in HEAD_DIMS:
@@ -74,8 +86,8 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
         return out
     lib = _build.library()
     impl = impl_for(q.dtype, D)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, Hkv, D, int(window), float(softcap), scale)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, q_offset, H, Hkv, D, int(window), float(softcap), scale)
     with _build.on_device(dev):
         stream = _build.stream_ptr(dev)
         if impl == "wgmma":
@@ -86,4 +98,6 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     _build.check(code, f"flash_attention ({impl})")
     LAUNCHES += 1
     LAUNCHES_BY_IMPL[impl] += 1
+    key = (impl, q_offset)
+    LAUNCHES_BY_OFFSET[key] = LAUNCHES_BY_OFFSET.get(key, 0) + 1
     return out

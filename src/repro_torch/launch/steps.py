@@ -352,7 +352,8 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     split = batch_split(model.mesh, perf, shape.global_batch)
 
     def step(params, batch, cache):
-        return model.decode_step(batch, cache, params=params, split=split)
+        return model.decode_step(batch, cache, params=params, split=split,
+                                 max_seq=shape.seq_len)
 
     step.layouts = _serve_layouts(model, shape, perf)
     return step, model

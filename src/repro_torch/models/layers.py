@@ -89,18 +89,21 @@ class FlashAttentionFn(torch.autograd.Function):
     """Causal GQA attention with the flash-attention kernel as its forward
     (``fa_ops.flash_attention``: the kernel on a CUDA tensor, the plain
     version on a CPU one) and, as its backward, autograd through the plain
-    version (``attention_ref``) recomputed from the saved (q, k, v). The
-    recompute holds the (B, H, S, S) float32 scores of one layer for the
-    length of its backward. ``scale`` is 1.0 here: callers scale q first.
-    Under ``torch.no_grad`` (serving) ``apply`` is the forward alone, so
-    serving keeps its bits and its launch counts."""
+    version (``attention_ref``) recomputed from the saved (q, k, v) at the
+    same ``q_offset``. The recompute holds the (B, H, Sq, Skv) float32
+    scores of one layer for the length of its backward. ``scale`` is 1.0
+    here: callers scale q first. Under ``torch.no_grad`` (serving)
+    ``apply`` is the forward alone, so serving keeps its bits and its
+    launch counts."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, softcap: float):
+    def forward(ctx, q, k, v, window: int, softcap: float,
+                q_offset: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.softcap = window, softcap
+        ctx.window, ctx.softcap, ctx.q_offset = window, softcap, q_offset
         return fa_ops.flash_attention(q, k, v, window=window,
-                                      softcap=softcap, scale=1.0)
+                                      softcap=softcap, scale=1.0,
+                                      q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, dout):
@@ -108,25 +111,29 @@ class FlashAttentionFn(torch.autograd.Function):
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = attention_ref(*qkv, window=ctx.window,
-                                softcap=ctx.softcap, scale=1.0)
+                                softcap=ctx.softcap, scale=1.0,
+                                q_offset=ctx.q_offset)
             dq, dk, dv = torch.autograd.grad(out, qkv, dout)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def blockwise_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                        scale=None):
-    """Causal (optionally sliding-window) attention of a prefill: queries
-    and keys at positions 0..S-1, every key valid.
+                        scale=None, q_offset: int = 0):
+    """Causal (optionally sliding-window) attention of a prefill: keys at
+    positions 0..Skv-1, every key valid; queries at ``q_offset`` ..
+    ``q_offset + Sq - 1`` (offset 0 and Sq = Skv: every position, the
+    unsharded prefill; a context-parallel shard passes its own rows).
 
-    q: (B, S, Hkv, G, Dh); k, v: (B, S, Hkv, Dh). Returns (B, S, Hkv, G, Dh).
-    The reference's jnp online-softmax recurrence and its Pallas kernel
-    compute the same thing; here it is one flash-attention launch.
+    q: (B, Sq, Hkv, G, Dh); k, v: (B, Skv, Hkv, Dh). Returns
+    (B, Sq, Hkv, G, Dh). The reference's jnp online-softmax recurrence and
+    its Pallas kernel compute the same thing; here it is one
+    flash-attention launch.
     """
     B, S, Hkv, G, Dh = q.shape
     scale = 1.0 / math.sqrt(Dh) if scale is None else scale
     q = scale_by(q, scale).reshape(B, S, Hkv * G, Dh)
     out = FlashAttentionFn.apply(q, k.contiguous(), v.contiguous(),
-                                 int(window), float(softcap))
+                                 int(window), float(softcap), int(q_offset))
     return out.reshape(B, S, Hkv, G, Dh)
 
 
@@ -220,21 +227,29 @@ def attention_qkv(p, x, cfg, positions):
     """Project + rope. Returns q (B,S,H,Dh), k, v (B,S,Hkv,Dh); H and Hkv
     are the heads the projections hold (a shard's block of them on a
     mesh, all of them otherwise)."""
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    return (heads_of(q, p.get("q_norm"), cfg, positions),
+            heads_of(k, p.get("k_norm"), cfg, positions),
+            v.reshape(v.shape[:2] + (-1, cfg.resolved_head_dim)))
+
+
+def heads_of(x, norm_w, cfg, positions):
+    """A projected q or k, (B, S, n * Dh) -> (B, S, n, Dh): split into its
+    heads, rms-normed per head (``qk_norm``, weight ``norm_w``) and roped
+    at ``positions`` (B, S). Every op is per head and per row, so a head
+    gathered from column blocks gives the bits of one projected whole."""
     B, S = x.shape[:2]
-    Dh = cfg.resolved_head_dim
-    H, Hkv = p["wq"].shape[1] // Dh, p["wk"].shape[1] // Dh
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, Dh)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, Dh)
+    x = x.reshape(B, S, -1, cfg.resolved_head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+        x = rms_norm(x, norm_w, cfg.norm_eps)
+    return rope(x, positions, cfg.rope_theta)
 
 
 def attention_out(p, attn, x_dtype):
-    """attn: (B, S, Hkv, G, Dh) -> (B, S, d)."""
+    """attn: (B, S, Hkv, G, Dh), or any (B, S, ...) whose flat rows are
+    the columns ``wo``'s rows hold -> (B, S, d)."""
     B, S = attn.shape[:2]
     return attn.reshape(B, S, -1) @ p["wo"].to(x_dtype)
 

@@ -38,28 +38,47 @@ block on its own blocks, and ``distribution.collectives`` combines them.
 The planner (``distribution.sharding.param_rules``) decides every
 param's layout and the executor follows it:
   * ``data`` (and ``pod``) split the batch; the loss sums over them;
-  * attention runs in ``heads`` mode: each ``model`` shard holds its block
-    of q heads (one flash launch per shard at (B/n_dp, S, H/m, D)); where
-    the kv heads do not divide, each shard computes them whole and
-    repeats them to its q heads, as the reference repeats KV. The output
-    projection is row-parallel, then a ``psum``;
+  * attention, by ``attn_sharding`` (``auto``: ``heads`` where the heads
+    divide ``model``, ``ctx`` otherwise, as the reference's
+    ``make_model``):
+      - ``heads``: each ``model`` shard holds its block of q heads (one
+        flash launch per shard at (B/n_dp, S, H/m, D)); where the kv heads
+        do not divide, each shard computes them whole and repeats them to
+        its q heads, as the reference repeats KV;
+      - ``heads`` where the q heads do not divide (the reference's
+        constraint falls back to the batch): every shard computes every
+        head over every row from the gathered q columns, then keeps its
+        ``heads_flat`` columns;
+      - ``ctx`` (context parallelism): an ``all_to_all`` takes the q
+        projection's column blocks to row blocks, so shard j holds every
+        head over its rows [j qc, (j + 1) qc), qc = ceil(S / m), and the
+        kv heads whole; one flash launch per shard at ``q_offset`` = j qc
+        (none for an empty chunk), the output taken back to column blocks
+        by a second ``all_to_all``;
+    the output projection is row-parallel, then a ``psum``. Decode attends
+    over whole heads where the heads do not divide;
   * the MLP is column-parallel (``d_ff``) then row-parallel, then a
     ``psum``; the MoE is expert-parallel (``moe.moe_shards``); the RG-LRU
     block splits ``lru_width`` (one ``rglru_scan`` launch per shard at
-    width W/m) with a row-parallel output;
+    width W/m) with a row-parallel output; the RWKV-6 block splits its
+    heads (the time-mix and its ``wkv`` state) and ``d_ff`` (the
+    channel-mix), as :meth:`LM._rwkv_block` says;
+  * ``seq_parallel``: where S divides over ``model``, the residual stream
+    lives split on S between blocks; each block all-gathers its normed
+    input on S and reduce-scatters its row-parallel output on S in place
+    of the ``psum`` (norms and residual adds on the shard's rows);
   * the embedding and the head split the vocab (the cross entropy is
     vocab-parallel: each shard's logsumexp and target logit, combined
     across shards) or, where the planner puts them on ``d_model``, are
-    gathered whole;
+    gathered whole; the ``embeddings`` frontend's frames and the ``vlm``
+    frontend's patches come split over the data axes and whole over
+    ``model``;
   * decode attention over a cache split on ``cache_seq`` combines the
     shards' partial softmaxes; only a slot's owner writes it;
   * a leaf the block needs whole (norm weights, the router, a weight the
     planner split another way than the block's fast path) is gathered.
 One shard (``mesh=None``, or a (1, 1) mesh) runs exactly the unsharded
-ops: every collective of a group of one is the identity. On a mesh with
-``model`` > 1, the RWKV-6 block, the ``embeddings`` and ``vlm`` frontends,
-``attn_sharding="ctx"`` (or heads that do not divide) and
-``seq_parallel`` raise ``NotImplementedError`` (ROADMAP queue 1).
+ops: every collective of a group of one is the identity.
 """
 from __future__ import annotations
 
@@ -80,13 +99,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import param as P
 from repro_torch.models.moe import moe_apply, moe_defs, moe_shards
 from repro_torch.models.rglru import rglru_apply, rglru_defs, rglru_step
-from repro_torch.models.rwkv6 import (channel_mix, rwkv_defs, time_mix,
-                                      time_mix_step)
+from repro_torch.models.rwkv6 import (cm_gate, cm_key, cm_mix, rwkv_defs,
+                                      time_mix_out, time_mix_step_wkv,
+                                      time_mix_wkv)
 from repro_torch.train import tree as tr
 
 _FRONTENDS = ("none", "embeddings", "vlm")
-# the ROADMAP item a refused mesh option names
-MESH_ITEM = "ROADMAP queue 1, item 13c"
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -107,26 +125,11 @@ def attn_mode(cfg: ModelConfig, perf: ShardingConfig, msize: int) -> str:
 
 
 def check_mesh(cfg: ModelConfig, perf: ShardingConfig, msize: int) -> None:
-    """Refuse, by name, what the port does not run on a mesh."""
-    def refuse(what):
-        raise NotImplementedError(f"{what} on a mesh is not ported "
-                                  f"({MESH_ITEM})")
-    if perf.seq_parallel:
-        refuse("seq_parallel=True")
-    mode = attn_mode(cfg, perf, msize)
-    if mode == "ctx":
-        refuse(f"attn_sharding='ctx' (context-parallel q chunks; "
-               f"{cfg.n_heads} heads over model={msize})")
-    if mode != "heads":
+    """Raise on a mesh option the port does not know (the reference reads
+    any ``attn_sharding`` other than ``heads`` as ``ctx``; the port
+    refuses it by name)."""
+    if attn_mode(cfg, perf, msize) not in ("heads", "ctx"):
         raise ValueError(f"attn_sharding {perf.attn_sharding!r}")
-    if msize > 1:
-        if cfg.n_heads and cfg.n_heads % msize:
-            refuse(f"{cfg.n_heads} heads over model={msize} (the head dim "
-                   "split)")
-        if RWKV in cfg.layer_kinds:
-            refuse("the RWKV-6 block with model > 1")
-        if cfg.frontend != "none":
-            refuse(f"the {cfg.frontend!r} frontend with model > 1")
 
 
 def layer_defs(cfg: ModelConfig, kind: str) -> dict:
@@ -359,18 +362,80 @@ class LM(nn.Module):
         return col.psum(xs, self.mesh, self.dp) if split else list(xs)
 
     # ------------------------------------------------------------ blocks
-    def _attn_block(self, ps, xs, kind, pos, mode, slots, lengths):
+    def _enter(self, hs, sp):
+        """A block's normed input whole on S: under ``seq_parallel`` (``sp``)
+        the shards' rows all-gathered, else as it is."""
+        return col.all_gather(hs, self.mesh, "model", 1) if sp else hs
+
+    def _exit(self, outs, sp):
+        """A row-parallel output's partial sums combined over ``model``:
+        the ``psum``, or under ``seq_parallel`` its ``reduce_scatter`` on S
+        (each shard the sum over its rows)."""
+        if sp:
+            return col.reduce_scatter(outs, self.mesh, "model", 1)
+        return self._psum(outs)
+
+    def _rows(self, xs, sp):
+        """A value every shard holds whole on S narrowed, under
+        ``seq_parallel``, to each shard's rows."""
+        if not sp:
+            return xs
+        return [self._model_block(x, i, spec=(None, "model"))
+                for i, x in enumerate(xs)]
+
+    def _seq_split(self, S: int, mode: str) -> bool:
+        """Whether the residual stream splits on S over ``model`` between
+        blocks (the reference's ``constrain_batch``): ``seq_parallel`` on a
+        mesh with ``model`` > 1 whose size divides S; a decode step (S = 1)
+        never splits."""
+        return (self.perf.seq_parallel and self._split and mode != "decode"
+                and S % self.msize == 0)
+
+    def _flat_block(self, a, i):
+        """Shard ``i``'s ``heads_flat`` columns of ``a`` (B, S, H, Dh) or
+        (B, S, H * Dh): the rows of its block of ``wo``, as (B, S, cols)."""
+        a = a.reshape(a.shape[:2] + (-1,))
+        per = a.shape[2] // self.msize
+        return a.narrow(2, self.mesh.axis_index(i, "model") * per, per)
+
+    def _ctx_rows(self, S: int) -> list:
+        """Context parallelism's query chunks: ``(start, rows)`` of each
+        ``model`` index j, rows [j qc, min((j + 1) qc, S)) with qc =
+        ceil(S / model), as the reference's ``nq = model`` chunks (a chunk
+        past S is empty)."""
+        qc = -(-S // self.msize)
+        out = []
+        for j in range(self.msize):
+            r0 = min(j * qc, S)
+            out.append((r0, min(qc, S - r0)))
+        return out
+
+    def _attn_split(self) -> str:
+        """How prefill and train attention split over ``model``: ``heads``
+        (each shard its block of q heads), ``ctx`` (each shard its query
+        rows, every head) or ``whole`` (every shard every head and row,
+        then its columns: ``heads`` mode where the heads do not divide)."""
+        if not self._split:
+            return "heads"
+        if attn_mode(self.cfg, self.perf, self.msize) == "ctx":
+            return "ctx"
+        return "heads" if self.cfg.n_heads % self.msize == 0 else "whole"
+
+    def _attn_block(self, ps, xs, kind, pos, mode, slots, lengths, sp,
+                    max_seq=None):
         """``slots``: per shard, the layer's cache (decode) or its size
-        (prefill)."""
+        (prefill). ``sp``: the residual stream is split on S. ``max_seq``:
+        the decode cache's size (:meth:`decode_step`)."""
         cfg = self.cfg
         spec = self._layer_spec[kind]["attn"]
         window = self._window(kind)
-        H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        G = H // Hkv
+        Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
         m = self.msize
         n = len(xs)
+        how = "decode" if mode == "decode" else self._attn_split()
         norm = self._full(self._leaf(ps, "norm"), spec["norm"])
         hs = [L.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, norm)]
+        hs = self._enter(hs, sp)
         local_kv = not self._split or (spec["wk"] == _COL and Hkv % m == 0)
         if self._split:
             assert spec["wq"] == _COL and spec["wo"] == _ROW, spec
@@ -379,34 +444,45 @@ class LM(nn.Module):
             wv = self._full(self._leaf(ps, "wv"), spec["wv"])
             ps = [dict(p, wk=a, wv=b) for p, a, b in zip(ps, wk, wv)]
         if mode == "decode":
-            qkv = [L.attention_qkv(p, h, cfg, lg[:, None])
-                   for p, h, lg in zip(ps, hs, lengths)]
-        else:
+            pos = [lg[:, None] for lg in lengths]
+        if how == "heads" or not self._split:
             qkv = [L.attention_qkv(p, h, cfg, q_pos)
                    for p, h, q_pos in zip(ps, hs, pos)]
-        qs, ks, vs = (list(t) for t in zip(*qkv))
+            qs, ks, vs = (list(t) for t in zip(*qkv))
+        else:
+            # k, v of the shard's kv heads (or all of them), and q as its
+            # heads_flat columns, reassembled below
+            kv = [(L.heads_of(h @ p["wk"].to(h.dtype), p.get("k_norm"), cfg,
+                              q_pos),
+                   (h @ p["wv"].to(h.dtype)).reshape(h.shape[:2] + (-1, Dh)))
+                  for p, h, q_pos in zip(ps, hs, pos)]
+            ks, vs = (list(t) for t in zip(*kv))
+            q_cols = [h @ p["wq"].to(h.dtype) for p, h in zip(ps, hs)]
+            qn = self._full([p.get("q_norm") for p in ps],
+                            spec["q_norm"]) if cfg.qk_norm else [None] * n
         kv_full = None
-        if self._split and (mode != "train"):
-            # the kv heads whole per shard: the cache holds them all
+        if self._split and (mode != "train" or how != "heads"):
+            # the kv heads whole per shard: the cache holds them all, and
+            # ctx / whole attention reads every head
             kv_full = (ks, vs) if not local_kv else (
                 col.all_gather(ks, self.mesh, "model", 2),
                 col.all_gather(vs, self.mesh, "model", 2))
         if mode == "decode":
-            attn, new = self._decode_attn(kind, qs, ks, vs, kv_full, slots,
-                                          lengths, local_kv)
+            q_full = None
+            if self._split:
+                q_full = [L.heads_of(q, w, cfg, q_pos) for q, w, q_pos in
+                          zip(col.all_gather(q_cols, self.mesh, "model", 2),
+                              qn, pos)]
+            attn, new = self._decode_attn(kind, None if self._split else qs,
+                                          ks, vs, kv_full, slots, lengths,
+                                          q_full, max_seq)
         else:
-            attn = []
-            for i, (q, k, v) in enumerate(zip(qs, ks, vs)):
-                B, S = q.shape[:2]
-                if local_kv:
-                    q5 = q.reshape(B, S, k.shape[2], G, Dh)
-                else:
-                    # every q head its own copy of its kv head
-                    k = self._heads_block(torch.repeat_interleave(k, G, 2), i)
-                    v = self._heads_block(torch.repeat_interleave(v, G, 2), i)
-                    q5 = q.reshape(B, S, k.shape[2], 1, Dh)
-                attn.append(L.blockwise_attention(
-                    q5, k, v, window=window, softcap=cfg.attn_logit_softcap))
+            if how == "heads":
+                attn = self._heads_attn(qs, ks, vs, local_kv, window)
+            elif how == "ctx":
+                attn = self._ctx_attn(q_cols, qn, pos, kv_full, window)
+            else:
+                attn = self._whole_attn(q_cols, qn, pos, kv_full, window)
             new = None
             if mode == "prefill":
                 kf, vf = kv_full if kv_full is not None else (ks, vs)
@@ -418,8 +494,8 @@ class LM(nn.Module):
                             kind)}
                        for i, (k, v, size) in enumerate(zip(kf, vf, slots))]
         outs = [L.attention_out(p, a, x.dtype)
-                for p, a, x in zip(ps, attn, xs)]
-        outs = self._psum(outs)
+                for p, a, x in zip(ps, attn, hs)]
+        outs = self._exit(outs, sp)
         if cfg.post_norms:
             pn = self._full(self._leaf(ps, "post_norm"), spec["post_norm"])
             outs = [L.rms_norm(o, w, cfg.norm_eps) for o, w in zip(outs, pn)]
@@ -428,14 +504,19 @@ class LM(nn.Module):
 
     def _kv_cache_spec(self, kind, size):
         """The layout (``cache_rules``) of an attention layer's k or v
-        cache of ``size`` slots."""
+        cache sized for ``size`` positions (a ring: its window at most)."""
         d = cache_lib.kv_cache_defs(self.cfg, 1, size,
                                     window=self._window(kind))["k"]
         return shd.resolve(d.shape, d.dims, self.mesh,
                            shd.cache_rules(self.perf))
 
     def _decode_attn(self, kind, qs, ks, vs, kv_full, slots, lengths,
-                     local_kv):
+                     q_full, max_seq):
+        """Decode attention: one shard as the reference's; on a mesh from
+        ``q_full`` (every head on every shard) against the cache's layout
+        (``cache_rules`` at ``max_seq``: a block's shape alone does not say
+        whether its slots or its kv heads are split), each shard keeping
+        its ``heads_flat`` columns."""
         cfg = self.cfg
         window = self._window(kind)
         H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -456,11 +537,10 @@ class LM(nn.Module):
                 attn.append(a)
                 new.append({"k": ck, "v": cv})
             return attn, new
-        s_loc = slots[0]["k"].shape[1]
-        size = s_loc * self.msize
-        cspec = self._kv_cache_spec(kind, size)
+        cspec = self._kv_cache_spec(kind, max_seq)
+        size = min(window, max_seq) if window else max_seq
+        s_loc = size // self.msize if cspec[1] is not None else size
         kf, vf = kv_full
-        q_full = col.all_gather(qs, self.mesh, "model", 2)
         attn, new = [], []
         if cspec[1] is not None:
             # the cache's slots split over model: the owner writes, each
@@ -489,11 +569,12 @@ class LM(nn.Module):
                                    "model", 0)
             l_all = col.all_gather([x[None] for x in ls], self.mesh,
                                    "model", 0)
-            for i, (q, mx, o, l) in enumerate(zip(qs, mx_all, o_all, l_all)):
+            for i, (q, mx, o, l) in enumerate(zip(q_full, mx_all, o_all,
+                                                  l_all)):
                 a = L.combine_partials(list(mx), list(o), list(l))
                 B = q.shape[0]
                 a = a.to(q.dtype).reshape(B, 1, H, Dh)
-                attn.append(self._heads_block(a, i)[:, :, :, None, :])
+                attn.append(self._flat_block(a, i))
             return attn, new
         # the cache on kv heads (their own per shard) or whole on each
         for i, (q, k, v, c, lg) in enumerate(zip(q_full, kf, vf, slots,
@@ -510,14 +591,81 @@ class LM(nn.Module):
                 hq.reshape(B, 1, ck.shape[2], G, Dh), ck.to(q.dtype),
                 cv.to(q.dtype), kv_positions=kv_pos, kv_valid=kv_valid,
                 q_position=lg, window=window, softcap=sc)
-            a = a.reshape(B, 1, -1, Dh)
-            if cspec[2] is None:
-                a = self._heads_block(a, i)
-            attn.append(a[:, :, :, None, :])
+            attn.append(self._flat_block(a, i) if cspec[2] is None
+                        else a.reshape(B, 1, -1))
             new.append({"k": ck, "v": cv})
         return attn, new
 
-    def _ffn_block(self, ps, xs, split):
+
+    def _heads_attn(self, qs, ks, vs, local_kv, window):
+        """``heads`` mode: each shard its block of q heads over every row
+        (its kv heads, or every kv head repeated to its q heads)."""
+        cfg = self.cfg
+        G = cfg.n_heads // cfg.n_kv_heads
+        Dh = cfg.resolved_head_dim
+        attn = []
+        for i, (q, k, v) in enumerate(zip(qs, ks, vs)):
+            B, S = q.shape[:2]
+            if local_kv:
+                q5 = q.reshape(B, S, k.shape[2], G, Dh)
+            else:
+                # every q head its own copy of its kv head
+                k = self._heads_block(torch.repeat_interleave(k, G, 2), i)
+                v = self._heads_block(torch.repeat_interleave(v, G, 2), i)
+                q5 = q.reshape(B, S, k.shape[2], 1, Dh)
+            attn.append(L.blockwise_attention(
+                q5, k, v, window=window, softcap=cfg.attn_logit_softcap))
+        return attn
+
+    def _whole_attn(self, q_cols, qn, pos, kv_full, window):
+        """``heads`` mode where the heads do not divide (the reference's
+        constraint falls back to the batch): every shard every head over
+        every row, from the q columns gathered whole, then its own
+        ``heads_flat`` columns."""
+        cfg = self.cfg
+        Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        q_full = col.all_gather(q_cols, self.mesh, "model", 2)
+        attn = []
+        for i, (q, w, q_pos, k, v) in enumerate(zip(q_full, qn, pos,
+                                                    *kv_full)):
+            q = L.heads_of(q, w, cfg, q_pos)
+            B, S = q.shape[:2]
+            a = L.blockwise_attention(
+                q.reshape(B, S, Hkv, -1, Dh), k, v, window=window,
+                softcap=cfg.attn_logit_softcap)
+            attn.append(self._flat_block(a, i))
+        return attn
+
+    def _ctx_attn(self, q_cols, qn, pos, kv_full, window):
+        """``ctx`` mode (the reference's context-parallel q chunks): the q
+        projection's column blocks go to row blocks by an ``all_to_all``,
+        so shard j holds every head over its rows
+        (:meth:`_ctx_rows`); one flash launch a shard at ``q_offset`` = its
+        first row against every key (a shard with no rows launches
+        nothing); the output goes back to column blocks for the
+        row-parallel ``wo``."""
+        cfg = self.cfg
+        H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        S = q_cols[0].shape[1]
+        chunks = self._ctx_rows(S)
+        q_rows = col.all_to_all(q_cols, self.mesh, "model", 1, 2,
+                                [r for _, r in chunks])
+        outs = []
+        for i, (q, w, q_pos, k, v) in enumerate(zip(q_rows, qn, pos,
+                                                    *kv_full)):
+            r0, rows = chunks[self.mesh.axis_index(i, "model")]
+            B = q.shape[0]
+            if rows == 0:
+                outs.append(q.new_zeros((B, 0, H * Dh)))
+                continue
+            q = L.heads_of(q, w, cfg, q_pos[:, r0:r0 + rows])
+            a = L.blockwise_attention(
+                q.reshape(B, rows, Hkv, H // Hkv, Dh), k, v, window=window,
+                softcap=cfg.attn_logit_softcap, q_offset=r0)
+            outs.append(a.reshape(B, rows, H * Dh))
+        return col.all_to_all(outs, self.mesh, "model", 2, 1)
+
+    def _ffn_block(self, ps, xs, split, sp):
         """The dense MLP or the MoE FFN. Returns (xs, auxes): the MoE aux
         loss per shard (None for the MLP), which only training adds in,
         as the reference's serving path drops it."""
@@ -525,9 +673,11 @@ class LM(nn.Module):
         spec = self._any_ffn_spec()
         norm = self._full(self._leaf(ps, "norm"), spec["norm"])
         hs = [L.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, norm)]
+        hs = self._enter(hs, sp)
         auxes = [None] * len(xs)
         if cfg.moe is not None:
             outs, auxes = self._moe(ps, hs, spec, split)
+            outs = self._rows(outs, sp)
         else:
             local = not self._split or (
                 spec["w_gate"] == _COL and spec["w_up"] == _COL
@@ -535,8 +685,7 @@ class LM(nn.Module):
             if not local:
                 ps = self._whole(ps, spec, ("w_gate", "w_up", "w_down"))
             outs = [L.mlp_apply(p, h) for p, h in zip(ps, hs)]
-            if local:
-                outs = self._psum(outs)
+            outs = self._exit(outs, sp) if local else self._rows(outs, sp)
         if cfg.post_norms and "post_norm" in ps[0]:
             pn = self._full(self._leaf(ps, "post_norm"), spec["post_norm"])
             outs = [L.rms_norm(o, w, cfg.norm_eps) for o, w in zip(outs, pn)]
@@ -580,11 +729,12 @@ class LM(nn.Module):
             auxes.append(aux)
         return outs, auxes
 
-    def _rglru_block(self, ps, xs, mode, slots):
+    def _rglru_block(self, ps, xs, mode, slots, sp):
         cfg = self.cfg
         spec = self._layer_spec[RGLRU]["rglru"]
         norm = self._full(self._leaf(ps, "norm"), spec["norm"])
         hs = [L.rms_norm(x, w, cfg.norm_eps) for x, w in zip(xs, norm)]
+        hs = self._enter(hs, sp)
         wide = ("w_x", "w_gate_branch", "conv_w", "conv_b", "w_a", "b_a",
                 "w_i", "b_i", "lam", "w_out")
         local = not self._split or (
@@ -603,55 +753,102 @@ class LM(nn.Module):
                 out, conv = rglru_apply(p, h, cfg)[0], None
             outs.append(out)
             new.append(None if conv is None else {"conv": conv, "h": hstate})
-        if local:
-            outs = self._psum(outs)
+        outs = self._exit(outs, sp) if local else self._rows(outs, sp)
         return [x + o for x, o in zip(xs, outs)], new
 
-    def _rwkv_block(self, ps, xs, mode, slots):
-        cfg = self.cfg
-        out_x, new = [], []
-        for p, x, slot in zip(ps, xs, slots):
-            h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-            if mode == "decode":
-                out, tm = time_mix_step(p, h, cfg, {"shift": slot["shift"],
-                                                    "wkv": slot["wkv"]})
-                cm_state = slot["cm_shift"]
-            else:
-                out, tm = time_mix(p, h, cfg, None, chunk=self.rwkv_chunk,
-                                   return_state=mode == "prefill")
-                cm_state = None
-            x = x + out
-            h2 = L.rms_norm(x, p["cm_norm"], cfg.norm_eps)
-            if mode == "train":
-                out_x.append(x + channel_mix(p, h2, cfg, None)[0])
-                new.append(None)
-                continue
-            out2, cm = channel_mix(p, h2, cfg, cm_state, return_state=True)
-            out_x.append(x + out2)
-            new.append({"shift": tm["shift"], "wkv": tm["wkv"],
-                        "cm_shift": cm})
-        return out_x, new
+    _RWKV_TM = ("w_r", "w_k", "w_v", "w_g", "w_o", "decay_base", "decay_B",
+                "bonus_u", "ln_out")
+    _RWKV_CM = ("cm_k", "cm_v", "cm_r")
 
-    def _layer(self, kind, layers, xs, pos, mode, slots, lengths, split):
+    def _rwkv_block(self, ps, xs, mode, slots, sp):
+        """The RWKV-6 block. On a mesh the time-mix runs on each shard's
+        block of whole heads (its ``heads_flat`` columns, its ``wkv``
+        state; the group norm, over all of d_model as the reference's, on
+        the wkv gathered whole) with a row-parallel ``w_o``, where the
+        heads divide ``model``; the channel-mix's ``cm_k`` is column-parallel on
+        ``d_ff`` and ``cm_v`` row-parallel, and the value is
+        reduce-scattered on ``d_model`` so each shard gates it with its
+        own ``cm_r`` columns, then all-gathered (the exchange of one
+        ``psum``; ``cm_r`` is never gathered). Leaves the block needs
+        whole (norms, ``mu``, ``decay_A``, or the time-mix's where the
+        heads do not divide) are gathered."""
+        cfg = self.cfg
+        spec = self._layer_spec[RWKV]["rwkv"]
+        m = self.msize
+        n_heads = cfg.d_model // cfg.rwkv_head_dim
+        tm_local = self._split and n_heads % m == 0 and all(
+            spec[k][-1] == "model" for k in self._RWKV_TM if k != "w_o") \
+            and spec["w_o"] == _ROW
+        cm_local = self._split and spec["cm_k"] == _COL and \
+            spec["cm_v"] == _ROW and spec["cm_r"] == _COL
+        whole = [k for k in spec if not (
+            (tm_local and k in self._RWKV_TM)
+            or (cm_local and k in self._RWKV_CM))]
+        ps = self._whole(ps, spec, whole) if self._split else ps
+        hs = [L.rms_norm(x, p["norm"], cfg.norm_eps) for p, x in zip(ps, xs)]
+        hs = self._enter(hs, sp)
+        parts = [time_mix_step_wkv(p, h, cfg, {"shift": slot["shift"],
+                                               "wkv": slot["wkv"]})
+                 if mode == "decode" else
+                 time_mix_wkv(p, h, cfg, None, chunk=self.rwkv_chunk)
+                 for p, h, slot in zip(ps, hs, slots)]
+        wkvs, gs, states = (list(t) for t in zip(*parts))
+        if tm_local:
+            # the group norm spans every channel: wkv and ln_out whole,
+            # then each shard its columns
+            wkvs = col.all_gather(wkvs, self.mesh, "model", 2)
+            ln = self._full(self._leaf(ps, "ln_out"), spec["ln_out"])
+            outs = [time_mix_out(p, w, g, h, cfg, ln_out=lw,
+                                 cols=lambda t, i=i: self._flat_block(t, i))
+                    for i, (p, w, g, h, lw) in enumerate(
+                        zip(ps, wkvs, gs, hs, ln))]
+            outs = self._exit(outs, sp)
+        else:
+            outs = self._rows([time_mix_out(p, w, g, h, cfg) for p, w, g, h
+                               in zip(ps, wkvs, gs, hs)], sp)
+        xs = [x + o for x, o in zip(xs, outs)]
+        h2s = [L.rms_norm(x, p["cm_norm"], cfg.norm_eps)
+               for p, x in zip(ps, xs)]
+        h2s = self._enter(h2s, sp)
+        mixed = [cm_mix(p, h2, slot["cm_shift"] if mode == "decode"
+                        else None) for p, h2, slot in zip(ps, h2s, slots)]
+        gates = [cm_gate(p, xr) for p, (_, xr) in zip(ps, mixed)]
+        vals = [cm_key(p, xk) for p, (xk, _) in zip(ps, mixed)]
+        if cm_local:
+            vals = col.reduce_scatter(vals, self.mesh, "model", 2)
+            outs = col.all_gather([g * v for g, v in zip(gates, vals)],
+                                  self.mesh, "model", 2)
+        else:
+            outs = [g * v for g, v in zip(gates, vals)]
+        xs = [x + o for x, o in zip(xs, self._rows(outs, sp))]
+        if mode == "train":
+            return xs, [None] * len(xs)
+        return xs, [{"shift": h[:, -1], "wkv": st, "cm_shift": h2[:, -1]}
+                    for h, st, h2 in zip(hs, states, h2s)]
+
+    def _layer(self, kind, layers, xs, pos, mode, slots, lengths, split,
+               sp=False, max_seq=None):
         """One layer over the shards: (xs, its new caches (None in train
         mode), its MoE aux losses or Nones). ``split``: the batch is split
-        over the data axes."""
+        over the data axes; ``sp``: the residual stream over S;
+        ``max_seq``: the decode cache's size."""
         n = len(xs)
         slots = [None] * n if slots is None else slots
         if kind == RWKV:
             xs, nc = self._rwkv_block([p["rwkv"] for p in layers], xs, mode,
-                                      slots)
+                                      slots, sp)
             return xs, nc, [None] * n
         if kind == RGLRU:
             xs, nc = self._rglru_block([p["rglru"] for p in layers], xs,
-                                       mode, slots)
+                                       mode, slots, sp)
         else:
             xs, nc = self._attn_block([p["attn"] for p in layers], xs, kind,
-                                      pos, mode, slots, lengths)
-        xs, auxes = self._ffn_block([p["ffn"] for p in layers], xs, split)
+                                      pos, mode, slots, lengths, sp, max_seq)
+        xs, auxes = self._ffn_block([p["ffn"] for p in layers], xs, split,
+                                    sp)
         return xs, nc, auxes
 
-    def _train_group(self, kinds, n, *args, treedef, split):
+    def _train_group(self, kinds, n, *args, treedef, split, sp=False):
         """One pattern group in train mode over ``n`` shards: args are
         the shards' x, then their positions, then the group's params
         flattened (one list of layers per shard). Returns the shards' x
@@ -665,7 +862,7 @@ class LM(nn.Module):
                  for x in xs]
         for j, kind in enumerate(kinds):
             xs, _, auxes = self._layer(kind, [g[j] for g in groups], xs, pos,
-                                       "train", None, None, split)
+                                       "train", None, None, split, sp)
             aux_g = [a if b is None else a + b for a, b in zip(aux_g, auxes)]
         return (*xs, *aux_g)
 
@@ -681,15 +878,20 @@ class LM(nn.Module):
         return ckpt.checkpoint(fn, *args, use_reentrant=False)
 
     def _backbone(self, ps, xs, pos, mode, caches=None, lengths=None, *,
-                  split: bool = True):
+                  split: bool = True, max_seq=None):
         """The layers over the shards. ``ps``: one tree of the
         :meth:`params` layout per shard (its ``embed`` already in the
         compute layout). ``caches``: per shard, per layer, the slot cache
         (decode) or, for an attention layer at prefill, the cache size to
         fill (None in train mode). Returns (xs, per shard the new
         per-layer caches (None in train mode), per shard the MoE aux loss
-        summed over layers (train mode; None otherwise))."""
+        summed over layers (train mode; None otherwise)). Under
+        ``seq_parallel`` (:meth:`_seq_split`) the residual stream runs on
+        each shard's rows from the embedding to the final norm, and comes
+        back whole."""
         n = len(xs)
+        sp = self._seq_split(xs[0].shape[1], mode)
+        xs = self._rows(xs, sp)
         kinds = self.cfg.layer_kinds
         layers = [p["layers"] for p in ps]
         aux_total = None
@@ -703,7 +905,8 @@ class LM(nn.Module):
                 flat, treedef = tr.flatten([lay[g:g + n_pat]
                                             for lay in layers])
                 fn = functools.partial(self._train_group, kinds[g:g + n_pat],
-                                       n, treedef=treedef, split=split)
+                                       n, treedef=treedef, split=split,
+                                       sp=sp)
                 out = self._remat(fn, *xs, *pos, *flat)
                 xs = list(out[:n])
                 aux_total = [a + b for a, b in zip(aux_total, out[n:])]
@@ -712,7 +915,7 @@ class LM(nn.Module):
                 tail = self.gather_tail(tail)
             for j, kind in enumerate(kinds[n_grouped:]):
                 xs, _, auxes = self._layer(kind, [t[j] for t in tail], xs,
-                                           pos, mode, None, None, split)
+                                           pos, mode, None, None, split, sp)
                 aux_total = [a if b is None else a + b
                              for a, b in zip(aux_total, auxes)]
         else:
@@ -720,13 +923,13 @@ class LM(nn.Module):
             for j, kind in enumerate(kinds):
                 xs, nc, _ = self._layer(kind, [lay[j] for lay in layers], xs,
                                         pos, mode, [c[j] for c in caches],
-                                        lengths, split)
+                                        lengths, split, sp, max_seq)
                 for c, x in zip(new, nc):
                     c.append(x)
         fn_spec = self._embed_spec["final_norm"]
         fnorm = self._full([p["embed"]["final_norm"] for p in ps], fn_spec)
         xs = [L.rms_norm(x, w, self.cfg.norm_eps) for x, w in zip(xs, fnorm)]
-        return xs, new, aux_total
+        return self._enter(xs, sp), new, aux_total
 
     def backbone(self, x, positions, mode, caches=None, lengths=None,
                  params=None):
@@ -931,10 +1134,16 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, inputs, cache, params=None, *,
-                    split: bool = True):
+                    split: bool = True, max_seq=None):
         """inputs: {"tokens": (B, 1) int32} ({"frames": (B, 1, d)} for
         ``embeddings``). Returns (logits (B, V) float32, the cache advanced
-        by one token per sample); on a mesh, tuples of the shards'."""
+        by one token per sample); on a mesh, tuples of the shards'.
+        ``max_seq``: the cache's size (:meth:`cache_specs`'), which a mesh
+        with ``model`` > 1 needs to read its blocks' layout
+        (``launch.steps.build_decode_step`` passes it)."""
+        if self._split and max_seq is None:
+            raise ValueError("decode_step on a mesh with model > 1 needs "
+                             "max_seq, the cache's size")
         bs, sharded = self._shards(inputs)
         cs = self._shards(cache)[0]
         ps = self._serve_params(params, sharded)
@@ -943,7 +1152,7 @@ class LM(nn.Module):
         xs, pos = self._embed_inputs(bs, es, start_positions=lengths)
         xs, layers, _ = self._backbone(ps, xs, pos, "decode",
                                        [c["layers"] for c in cs], lengths,
-                                       split=split)
+                                       split=split, max_seq=max_seq)
         logits = self._logits(es, xs)
         out = [(lg[:, 0], {"lengths": ln + 1, "layers": lay})
                for lg, ln, lay in zip(logits, lengths, layers)]

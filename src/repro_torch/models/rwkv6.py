@@ -16,6 +16,15 @@ Two execution paths, as in the reference (``LM(rwkv_chunk=...)`` picks):
     number.
 ``_group_norm`` takes the population variance (``jnp.var``), not
 ``torch.var``'s default Bessel-corrected one.
+
+On a mesh the time-mix runs on a shard's block of whole heads: its
+``heads_flat`` params (``w_r``, ``w_k``, ``w_v``, ``w_g``, ``decay_B``,
+``decay_base``, ``bonus_u``) are column blocks, and the head count is read
+from ``bonus_u`` (``_n_heads``); the group norm spans every channel, so
+:func:`time_mix_out` takes the wkv and ``ln_out`` whole and keeps the
+shard's columns, and ``w_o``'s row block gives a partial sum. The
+channel-mix's pieces (:func:`cm_mix`, :func:`cm_key`, :func:`cm_gate`) let
+a shard gate its ``cm_r`` columns against a reduce-scattered value.
 """
 from __future__ import annotations
 
@@ -84,14 +93,21 @@ def _rkvgw(p, x, shifted, cfg):
     return r, k, v, g, log_w
 
 
+def _n_heads(p, hd):
+    """The heads the time-mix params hold (a shard's block on a mesh)."""
+    return p["bonus_u"].shape[0] // hd
+
+
 def _heads(x, hd):
     B, S, d = x.shape
     return x.reshape(B, S, d // hd, hd)
 
 
 def _group_norm(x, scale, eps):
-    """Per-head LayerNorm of the wkv output. x: (B, S, H, hd). The
-    variance is the population one (``jnp.var``)."""
+    """The reference's "per-head" LayerNorm of the wkv output. It is
+    handed the flat (B, S, d) wkv, so its statistics run over all d
+    channels at once, and so do the port's. The variance is the
+    population one (``jnp.var``)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)
@@ -99,22 +115,28 @@ def _group_norm(x, scale, eps):
     return n.reshape(x.shape[:2] + (-1,)) * (1.0 + scale.float())
 
 
-def _out(p, wkv, g, x, cfg):
-    """Group norm, the silu gate and the output projection."""
-    out = _group_norm(wkv.to(x.dtype), p["ln_out"], cfg.norm_eps)
+def time_mix_out(p, wkv, g, x, cfg, *, ln_out=None, cols=None):
+    """Group norm, the silu gate and the output projection. On a mesh the
+    norm's statistics span every channel, so a shard passes ``wkv``
+    gathered whole and ``ln_out`` whole, and ``cols`` narrows the normed
+    value to its own columns (those of its ``g`` and its rows of ``w_o``,
+    whose product is then a partial sum)."""
+    out = _group_norm(wkv.to(x.dtype), p["ln_out"] if ln_out is None
+                      else ln_out, cfg.norm_eps)
+    if cols is not None:
+        out = cols(out)
     out = out.to(x.dtype) * F.silu(g.float()).to(x.dtype)
     return out @ p["w_o"].to(x.dtype)
 
 
-def time_mix(p, x, cfg, state=None, *, chunk: int = 0,
-             return_state: bool = False):
-    """RWKV-6 time-mix over a full sequence.
-
-    x: (B, S, d). state: dict(shift (B, d), wkv (B, H, hd, hd) f32) or
-    None."""
+def time_mix_wkv(p, x, cfg, state=None, *, chunk: int = 0):
+    """The time-mix over a full sequence up to its output: (wkv (B, S,
+    H hd) float32, the gate's g, the new wkv state), over the heads ``p``
+    holds; :func:`time_mix_out` finishes it. x: (B, S, d). state:
+    dict(shift (B, d), wkv (B, H, hd, hd) f32) or None."""
     B, S, d = x.shape
     hd = cfg.rwkv_head_dim
-    H = d // hd
+    H = _n_heads(p, hd)
     shift0 = state["shift"].to(x.dtype) if state else x.new_zeros((B, d))
     S0 = state["wkv"] if state else torch.zeros(
         (B, H, hd, hd), dtype=torch.float32, device=x.device)
@@ -128,11 +150,7 @@ def time_mix(p, x, cfg, state=None, *, chunk: int = 0,
         wkv, S_new = _chunked_wkv(rh, kh, vh, wh, u, S0, chunk)
     else:
         wkv, S_new = _scan_wkv(rh, kh, vh, wh, u, S0)
-
-    out = _out(p, wkv, g, x, cfg)
-    if return_state:
-        return out, {"shift": x[:, -1], "wkv": S_new}
-    return out, None
+    return wkv, g, S_new
 
 
 def _wkv_step(S, rt, kt, vt, wt, u):
@@ -198,32 +216,37 @@ def _chunked_wkv(r, k, v, w_log, u, S0, L):
     return out.reshape(B, S, -1), S_in
 
 
-def time_mix_step(p, x, cfg, state):
-    """Single-token decode. x: (B, 1, d)."""
-    B, _, d = x.shape
+def time_mix_step_wkv(p, x, cfg, state):
+    """:func:`time_mix_wkv` of one token against ``state``."""
+    B = x.shape[0]
     hd = cfg.rwkv_head_dim
-    H = d // hd
+    H = _n_heads(p, hd)
     shifted = state["shift"].to(x.dtype)[:, None, :]
     r, k, v, g, log_w = _rkvgw(p, x, shifted, cfg)
     rh, kh, vh = (_heads(t, hd).float()[:, 0] for t in (r, k, v))
     wh = _heads(log_w, hd)[:, 0]                          # (B, H, hd)
     u = p["bonus_u"].float().reshape(H, hd)
     wkv, S_new = _wkv_step(state["wkv"], rh, kh, vh, wh, u)
-    out = _out(p, wkv.reshape(B, 1, d), g, x, cfg)
-    return out, {"shift": x[:, -1], "wkv": S_new}
+    return wkv.reshape(B, 1, H * hd), g, S_new
 
 
-def channel_mix(p, x, cfg, state=None, *, return_state: bool = False):
-    """RWKV channel-mix (the FFN analogue). x: (B, S, d) normalized."""
+def cm_mix(p, x, state=None):
+    """The channel-mix's token-shifted streams (xk, xr) of ``x``."""
     B, S, d = x.shape
     shift0 = state.to(x.dtype) if state is not None else x.new_zeros((B, d))
     shifted = _token_shift(x, shift0)
     mu = p["cm_mu"].to(x.dtype)
-    xk = x + (shifted - x) * mu[0]
-    xr = x + (shifted - x) * mu[1]
-    kk = torch.square(torch.relu(xk @ p["cm_k"].to(x.dtype)))
-    out = torch.sigmoid((xr @ p["cm_r"].to(x.dtype)).float()).to(x.dtype) \
-        * (kk @ p["cm_v"].to(x.dtype))
-    if return_state:
-        return out, x[:, -1]
-    return out, None
+    return x + (shifted - x) * mu[0], x + (shifted - x) * mu[1]
+
+
+def cm_key(p, xk):
+    """relu(xk cm_k)^2 cm_v: the value (a partial sum over a shard's
+    ``d_ff`` block on a mesh)."""
+    kk = torch.square(torch.relu(xk @ p["cm_k"].to(xk.dtype)))
+    return kk @ p["cm_v"].to(xk.dtype)
+
+
+def cm_gate(p, xr):
+    """sigmoid(xr cm_r) in float32, cast back (a shard's columns on a
+    mesh)."""
+    return torch.sigmoid((xr @ p["cm_r"].to(xr.dtype)).float()).to(xr.dtype)

@@ -30,6 +30,11 @@ two bf16 halves, ~16 bits of p), so they differ by at most one rounding
 step (an absolute bound would be as large as the outputs of late rows, which
 attend to many keys and so are small). Softcap cases scale q by 8, so that
 scores reach tens and the cap changes the output far beyond the bound.
+At a query offset (a context-parallel shard's rows against every key) both
+instances meet the same bounds against ``attention_ref`` at that offset,
+and an offset launch's rows equal the same rows of one launch over every
+position bit for bit where the offset is a multiple of the instance's q
+block (the same tiles in the same order).
 Determinism of the decision loop's host-free paths, bit for bit on the
 card: ``harmonize_segment``'s scatter branch (M*T above the dense bound)
 across two calls and between ``run_many`` and K ticks; ``add_batch``
@@ -297,6 +302,129 @@ def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
     if softcap:
         uncapped = attention_ref(q, k, v, window=window)
         assert (uncapped.float() - ref.float()).abs().max().item() > 0.1
+
+
+# B, Sq, Skv, q_offset, H, Hkv, D, window, softcap: a context-parallel
+# shard's rows at an offset against every key; Sq not a multiple of either
+# kernel's q block (128 rows wgmma, 32 scalar), offsets on and off a block
+# edge, the last shard of an S % m != 0 split (Sq + offset = Skv), windows
+# that start inside the shard, and a softcap
+FA_OFFSET_CASES = [(2, 100, 400, 300, 4, 2, 64, 0, 0.0),
+                   (1, 512, 2048, 1536, 4, 1, 128, 0, 0.0),
+                   (1, 70, 300, 128, 4, 2, 128, 100, 0.0),
+                   (1, 8, 30, 22, 2, 1, 128, 0, 0.0),
+                   (2, 200, 600, 256, 4, 2, 256, 0, 50.0),
+                   (1, 130, 520, 390, 4, 2, 256, 100, 50.0),
+                   (1, 33, 97, 40, 4, 4, 64, 16, 30.0)]
+
+
+def _flash_case(rng, card, dtype, B, Sq, Skv, H, Hkv, D, softcap):
+    C = lambda scale, *shape: torch.from_numpy(
+        rng.normal(0, scale, shape).astype(np.float32)).to(card, dtype)
+    return (C(8 if softcap else 1, B, Sq, H, D), C(1, B, Skv, Hkv, D),
+            C(1, B, Skv, Hkv, D))
+
+
+def _flash_close(out, ref, dtype):
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        bound = 2.0 ** -7 * ref.float().abs() + 1e-5
+        assert (err <= bound).all(), (err / bound).max().item()
+    else:
+        assert err.max().item() <= 2e-3, err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,off,H,Hkv,D,window,softcap",
+                         FA_OFFSET_CASES)
+def test_flash_attention_at_offset_matches_plain_on_card(
+        card, rng, dtype, B, Sq, Skv, off, H, Hkv, D, window, softcap):
+    """Both instances at a query offset against ``attention_ref`` at the
+    same offset (the bounds of the offset-0 test above); the launch is
+    counted in ``LAUNCHES_BY_OFFSET`` under its instance and offset."""
+    q, k, v = _flash_case(rng, card, dtype, B, Sq, Skv, H, Hkv, D, softcap)
+    impl = fa_ops.impl_for(dtype, D)
+    before = dict(fa_ops.LAUNCHES_BY_OFFSET)
+    out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap,
+                                 q_offset=off)
+    torch.cuda.synchronize()
+    before[(impl, off)] = before.get((impl, off), 0) + 1
+    assert fa_ops.LAUNCHES_BY_OFFSET == before
+    ref = attention_ref(q, k, v, window=window, softcap=softcap,
+                        q_offset=off)
+    assert out.dtype == dtype and out.shape == q.shape
+    _flash_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("off,Sq,window", [(0, 300, 0), (128, 200, 0),
+                                           (256, 77, 0), (100, 150, 0),
+                                           (32, 96, 64), (200, 133, 64)])
+def test_flash_offset_rows_equal_full_launch_on_card(card, rng, dtype, D,
+                                                     off, Sq, window):
+    """An offset launch's rows against the same rows of one launch over
+    every position: bit for bit where the offset is a multiple of the
+    instance's q block (the same tiles in the same order; a tile a row's
+    mask empties adds exactly 0), else within the bounds above."""
+    Skv = 333
+    q, k, v = _flash_case(rng, card, dtype, 2, Skv, Skv, 4, 2, D, 0.0)
+    full = fa_ops.flash_attention(q, k, v, window=window)
+    rows = q[:, off:off + Sq].contiguous()
+    part = fa_ops.flash_attention(rows, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    block = 128 if fa_ops.impl_for(dtype, D) == "wgmma" else 32
+    want = full[:, off:off + Sq]
+    if off % block == 0:
+        assert torch.equal(part, want)
+    else:
+        _flash_close(part, want, dtype)
+
+
+@pytest.mark.cuda
+def test_ctx_prefill_on_logical_card_shards(card):
+    """recurrentgemma ``:smoke`` on (1, 8) logical card shards, ``auto``
+    picking ``ctx`` for its 4 heads over 8: the context-parallel prefill
+    of 30 tokens (one flash launch a shard at offsets 0, 4, .., 28, the
+    last shard 2 rows) against the unsharded prefill on the card, logits
+    and every cache leaf within 1e-5 (float32, the CPU test's
+    ``SERVE_ATOL``)."""
+    from repro_torch.configs.base import ShapeConfig, ShardingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import LM
+
+    cfg = get_config("recurrentgemma-2b:smoke")
+    plain = LM(cfg, device=card, seed=1)
+    params = plain.params()
+    tok = torch.randint(0, cfg.vocab_size, (2, 30),
+                        generator=torch.Generator().manual_seed(0)).to(card)
+    mesh = _card_mesh(card, (1, 8))
+    step, model = build_prefill_step(cfg, ShapeConfig("p", 30, 2, "prefill"),
+                                     mesh, ShardingConfig())
+    lay = step.layouts
+    b = {"tokens": tok}
+    at_offset = lambda: sum(n for (_, off), n in
+                            fa_ops.LAUNCHES_BY_OFFSET.items() if off)
+    n0 = at_offset()
+    lg, cache = step(shd.place_tree(params, lay["params"], mesh),
+                     shd.place_tree(b, lay["batch"](b), mesh))
+    torch.cuda.synchronize()
+    n_attn = cfg.layer_kinds.count("local") + cfg.layer_kinds.count("global")
+    assert at_offset() - n0 == 7 * n_attn
+    want_lg, want_c = plain.prefill(b)
+    got_lg = shd.gather_tree(lg, [lay["logits"]], mesh)
+    assert_allclose(got_lg.cpu().numpy(), want_lg.cpu().numpy(), rtol=0,
+                    atol=1e-5)
+    got_c = shd.gather_tree(cache, lay["cache"], mesh)
+    for x, y in zip(tree.leaves(got_c), tree.leaves(want_c)):
+        assert_allclose(x.float().cpu().numpy(), y.float().cpu().numpy(),
+                        rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda

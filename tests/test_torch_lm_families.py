@@ -336,7 +336,9 @@ def _rwkv_state(cfg, rng, B):
                                                   "chunk5"])
 def test_time_mix_matches_jax(chunk, rng):
     """Both wkv branches from a carried state, S = 13 (not a multiple of
-    either chunk, so the pad path runs)."""
+    either chunk, so the pad path runs), through the two pieces the
+    model's block runs (``time_mix_wkv``, ``time_mix_out``); the block
+    keeps x's last row as the shift."""
     jcfg, pcfg = _cfgs("rwkv6-1.6b:smoke")
     jp, pp = _module_params(jrwkv.rwkv_defs(jcfg))
     x = rng.normal(0, 1, (2, 13, jcfg.d_model)).astype(np.float32)
@@ -344,12 +346,13 @@ def test_time_mix_matches_jax(chunk, rng):
     jout, jst = jrwkv.time_mix(jp, _j(x), jcfg,
                                {k: _j(v) for k, v in st.items()},
                                chunk=chunk, return_state=True)
-    pout, pst = prwkv.time_mix(pp, _t(x), pcfg,
-                               {k: _t(v) for k, v in st.items()},
-                               chunk=chunk, return_state=True)
+    wkv, g, pst = prwkv.time_mix_wkv(pp, _t(x), pcfg,
+                                     {k: _t(v) for k, v in st.items()},
+                                     chunk=chunk)
+    pout = prwkv.time_mix_out(pp, wkv, g, _t(x), pcfg)
     assert_allclose(pout.numpy(), np.asarray(jout), **TOL)
-    for k in ("shift", "wkv"):
-        assert_allclose(pst[k].numpy(), np.asarray(jst[k]), **TOL)
+    assert_allclose(pst.numpy(), np.asarray(jst["wkv"]), **TOL)
+    assert_allclose(x[:, -1], np.asarray(jst["shift"]), **TOL)
 
 
 def test_time_mix_step_and_channel_mix_match_jax(rng):
@@ -359,20 +362,21 @@ def test_time_mix_step_and_channel_mix_match_jax(rng):
     st = _rwkv_state(jcfg, rng, 2)
     jout, jst = jrwkv.time_mix_step(jp, _j(x), jcfg,
                                     {k: _j(v) for k, v in st.items()})
-    pout, pst = prwkv.time_mix_step(pp, _t(x), pcfg,
-                                    {k: _t(v) for k, v in st.items()})
+    wkv, g, pst = prwkv.time_mix_step_wkv(pp, _t(x), pcfg,
+                                          {k: _t(v) for k, v in st.items()})
+    pout = prwkv.time_mix_out(pp, wkv, g, _t(x), pcfg)
     assert_allclose(pout.numpy(), np.asarray(jout), **TOL)
-    for k in ("shift", "wkv"):
-        assert_allclose(pst[k].numpy(), np.asarray(jst[k]), **TOL)
+    assert_allclose(pst.numpy(), np.asarray(jst["wkv"]), **TOL)
+    assert_allclose(x[:, -1], np.asarray(jst["shift"]), **TOL)
+    # the channel-mix as the block computes it: gate times value
     xs = rng.normal(0, 1, (2, 9, jcfg.d_model)).astype(np.float32)
     shift = st["shift"]
     jout, jsh = jrwkv.channel_mix(jp, _j(xs), jcfg, _j(shift),
                                   return_state=True)
-    pout, psh = prwkv.channel_mix(pp, _t(xs), pcfg, _t(shift),
-                                  return_state=True)
+    xk, xr = prwkv.cm_mix(pp, _t(xs), _t(shift))
+    pout = prwkv.cm_gate(pp, xr) * prwkv.cm_key(pp, xk)
     assert_allclose(pout.numpy(), np.asarray(jout), **TOL)
-    assert torch.equal(psh, _t(xs)[:, -1])
-    assert_allclose(psh.numpy(), np.asarray(jsh), **TOL)
+    assert_allclose(xs[:, -1], np.asarray(jsh), **TOL)
 
 
 def test_group_norm_takes_the_population_variance(rng):

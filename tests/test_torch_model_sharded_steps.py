@@ -34,8 +34,9 @@ prefill, decode); the MoE with ``model`` = 1 equals the dense path bit
 for bit; (2, 4) against unsharded within ``PARAM_ATOL`` and ``LOSS_TOL``
 under ``layout`` zero3 and tp and with 2 microbatches; the MoE sharded
 against the dense path at a capacity that cannot drop; a checkpoint saved
-on (2, 4) resumes on (4, 2) and on (1, 1); the refused options raise
-``NotImplementedError``.
+on (2, 4) resumes on (4, 2) and on (1, 1). The options this file does not
+run (``ctx``, heads that do not divide, ``seq_parallel``, RWKV-6 and the
+frontends on ``model`` > 1) are ``test_torch_model_sharded_more.py``'s.
 """
 import dataclasses
 import os
@@ -530,25 +531,6 @@ def test_checkpoint_on_2x4_resumes_on_4x2_and_1x1(logical, tmp_path):
     like = (params, popt.init(params))
     (p, o), extra = ck.restore(ck.latest_step(), like)
     assert tr.leaves(p)[0].shape == tr.leaves(params)[0].shape
-
-
-@pytest.mark.parametrize("what", ["ctx", "heads-split", "seq_parallel",
-                                  "rwkv", "vlm", "embeddings"])
-def test_refused_options_raise(logical, what):
-    arch, perf = "qwen3-0.6b:smoke", ShardingConfig()
-    shape = (2, 4)
-    if what == "ctx":
-        perf = ShardingConfig(attn_sharding="ctx")
-    elif what == "heads-split":
-        perf = ShardingConfig(attn_sharding="heads")
-        shape = (1, 8)               # 4 heads over model = 8
-    elif what == "seq_parallel":
-        perf = ShardingConfig(seq_parallel=True)
-    else:
-        arch = {"rwkv": "rwkv6-1.6b", "vlm": "internvl2-26b",
-                "embeddings": "musicgen-medium"}[what] + ":smoke"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(preg.get_config(arch), mesh=logical(shape), perf=perf)
 
 
 @pytest.mark.parametrize("arch,shape,cache_seq", [
