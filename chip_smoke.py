@@ -11,12 +11,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   3. kernels — each kernel against its plain PyTorch version on the card,
      at its path's shapes and at larger ones, with device times from the
      profiler (CUDA event pairs where the trace holds no device time).
-     Kernels with instances (flash_attention; locf and window_agg:
-     ``row`` at T <= 16, ``warp`` above; harmonize: ``warp``) name the
-     instance each case ran, from the launch counts and the profiler's
-     trace. flash_attention also runs at query offsets (``ctx_shard*``,
-     context parallelism's shard shapes, each counted in
-     ``LAUNCHES_BY_OFFSET`` under its instance and offset).
+     Kernels with instances (flash_attention: ``wgmma`` for bfloat16 and
+     float16 at head dims 64/128/256, ``scalar`` otherwise; locf and
+     window_agg: ``row`` at T <= 16, ``warp`` above; harmonize: ``warp``
+     up to ``MAX_T`` ticks, ``tiled`` above) name the instance each case
+     ran, from the launch counts and the profiler's trace. flash_attention
+     also runs in float16 (``path_f16``), at head dims off the instances'
+     widths (``d48``, ``d80``, ``d96``, ``d320``) and at query offsets
+     (``ctx_shard*``, context parallelism's shard shapes, each counted in
+     ``LAUNCHES_BY_OFFSET`` under its instance and offset); harmonize
+     over a week of 30 s ticks (``long``, T = 20,160).
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
      policy: 4 batches (128 windows) timed, with every kernel launch
@@ -90,11 +94,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      for bit against a sequential float32 loop; its instance (``warp``)
      from ``LAUNCHES_BY_IMPL`` and the profiler's trace, and the batch's
      device time.
+  6a. harmonize_week — the op entry point once over a week of 30 s
+     ticks (HZ_WEEK), its launch counted on the ``tiled`` instance.
   7. lm      — the LM side-car's serving path at qwen3-0.6b's full width
      (28 layers, d_model 1024, vocab 151936, bfloat16, seeded random
      weights): ``LM.prefill`` on 4 x 2048 tokens with one flash-attention
      launch per layer counted, decode against prefill, and a
      ``ServeEngine`` run at ``launch/serve.py``'s defaults.
+  7a. lm_float16 — the same model in float16 (``phase_lm_float16``):
+     prefill with its 28 flash launches on the wgmma kernel's float16
+     instance (named in a trace), decode against prefill (reported), a
+     ``ServeEngine`` drain, and a float32 twin with the same weights (its
+     launches on the scalar instance) held to LM_F16_TWIN_BOUND.
   8. lm_family_<arch> — every other family of the registry at its
      published widths with seeded bfloat16 weights (``FAMILIES``):
      recurrentgemma-2b (RG-LRU + local attention), rwkv6-1.6b (RWKV-6,
@@ -138,8 +149,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   Phases 9 to 12 run in a child process of the script (``--train``),
   which it waits for (see ``train_in_child``).
 The line before the last holds one JSON object with every kernel's
-numbers (``launches`` summed over the paths, ``launches_by_path`` each
-path's, ``at_lm_shape`` the times at the LM prefill shape); the last line
+numbers (``launches`` summed over the paths and instances,
+``launches_by_path`` each path's, ``at_lm_shape`` the times at the LM
+prefill shape), then one entry per instance that this script counts on a
+path of its own (INSTANCE_ENTRIES: flash_attention's float16 wgmma and
+its scalar instance, harmonize's tiled); the last line
 is ``{"ok": true, "device": {...}}``. Without a
 card the script exits non-zero and prints no result.
 """
@@ -502,7 +516,11 @@ def kernel_cases(dev, g):
             compare=rg_cmp,
             # read a, b, h0, write hs and h_last; a multiply and an add
             bytes=n * 12 + b_ * w_ * 8, ops=2 * n, library=lib))
-    return cases + harmonize_cases(dev, g) + flash_cases(dev, g)
+    # the cases added since: after every earlier case, so that those keep
+    # the generator's draws they had
+    return (cases + harmonize_cases(dev, g, HZ_CASES) + flash_cases(dev, g)
+            + harmonize_cases(dev, g, HZ_DOMAIN_CASES)
+            + flash_specs(dev, g, FLASH_DOMAIN_SPECS))
 
 
 def sequential_harmonize(v, ts, ok, t0, tick_s, T):
@@ -533,56 +551,87 @@ def bits_equal(a, b):
         b.masked_fill(nan, 0).view(torch.int32))
 
 
-def harmonize_cases(dev, g):
-    """The decision loop's window (E=256, S=8, M=32, T=8) and a fleet
-    window (4096 envs x 8 streams, 64 ticks, 128 samples). Each runs the
-    kernel's ``warp`` instance with staged float4 loads (``impl_for``),
-    checked through ``LAUNCHES_BY_IMPL`` and the profiler's kernel name;
-    its means must equal a sequential float32 loop bit for bit."""
+# harmonize's tiled instance (T above ops.MAX_T): a week of 30 s ticks for
+# 64 buildings of 8 sensors, 2048 samples a stream (phase 3's ``long``
+# case and the op's week path in phase 6); the plain version holds (R, M,
+# T) at once, so it runs on the first HZ_PLAIN_ROWS rows only, and the
+# sequential loop checks every row
+HZ_WEEK = dict(e=64, s=8, m=2048, t=20_160, tick=30.0)
+HZ_PLAIN_ROWS = 8
+
+
+def _hz_samples(g, dev, e, s, m, t, tick):
+    """Samples of (e, s, m) rows with timestamps from half a tick before 0
+    to one tick after t ticks, 80% valid, and window starts within half a
+    tick of 0."""
+    ts = (torch.rand((e, s, m), generator=g, device=dev) * (t + 1.5)
+          - 0.5) * tick
+    v = torch.randn((e, s, m), generator=g, device=dev)
+    ok = torch.rand((e, s, m), generator=g, device=dev) < 0.8
+    ws = (torch.rand((e,), generator=g, device=dev) - 0.5) * tick
+    return v, ts, ok, ws
+
+
+# label, (E, S, M, T, tick_s), the instance: the decision loop's window,
+# a fleet window (4096 envs x 8 streams, 128 samples into 64 ticks), and
+# a week of 30 s ticks (HZ_WEEK, T = 20,160)
+HZ_CASES = (("path", (E, 8, MAX_SAMPLES, N_TICKS, TICK_S), "warp"),
+            ("fleet", (4096, 8, 128, 64, TICK_S), "warp"))
+HZ_DOMAIN_CASES = (("long", tuple(HZ_WEEK[k] for k in
+                                  ("e", "s", "m", "t", "tick")), "tiled"),)
+
+
+def harmonize_cases(dev, g, specs):
+    """The harmonize kernel at ``specs`` (HZ_CASES, HZ_DOMAIN_CASES): the
+    ``warp`` instance up to MAX_T ticks, ``tiled`` above, each with staged
+    float4 loads (``impl_for``), checked through ``LAUNCHES_BY_IMPL`` and
+    the profiler's kernel name; the means must equal a sequential float32
+    loop bit for bit."""
     from repro_torch.kernels.harmonize import ops as hz_ops
     from repro_torch.kernels.harmonize.ref import harmonize_ref
 
     cases = []
-    for label, (e, s, m, t) in (("path", (E, 8, MAX_SAMPLES, N_TICKS)),
-                                ("fleet", (4096, 8, 128, 64))):
+    for label, (e, s, m, t, tick), impl_want in specs:
         R = e * s
-        # timestamps from half a tick before the window to one after it
-        ts = (torch.rand((e, s, m), generator=g, device=dev) * (t + 1.5)
-              - 0.5) * TICK_S
-        v = torch.randn((e, s, m), generator=g, device=dev)
-        ok = torch.rand((e, s, m), generator=g, device=dev) < 0.8
-        ws = (torch.rand((e,), generator=g, device=dev) - 0.5) * TICK_S
+        v, ts, ok, ws = _hz_samples(g, dev, e, s, m, t, tick)
+        rows = R if impl_want == "warp" else HZ_PLAIN_ROWS
 
-        def plain(v=v, ts=ts, ok=ok, ws=ws, R=R, m=m, t=t, s=s):
-            return harmonize_ref(v.reshape(R, m), ts.reshape(R, m),
-                                 ok.reshape(R, m), ws.repeat_interleave(s),
-                                 TICK_S, t)
+        def plain(v=v, ts=ts, ok=ok, ws=ws, R=R, m=m, t=t, s=s, rows=rows,
+                  tick=tick):
+            return harmonize_ref(v.reshape(R, m)[:rows],
+                                 ts.reshape(R, m)[:rows],
+                                 ok.reshape(R, m)[:rows],
+                                 ws.repeat_interleave(s)[:rows], tick, t)
 
-        def kernel(v=v, ts=ts, ok=ok, ws=ws, t=t):
-            return hz_ops.harmonize(v, ts, ok, ws, tick_s=TICK_S, n_ticks=t)
+        def kernel(v=v, ts=ts, ok=ok, ws=ws, t=t, tick=tick):
+            return hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=t)
 
         info = {}
 
         def cmp(kernel=kernel, plain=plain, R=R, m=m, t=t, label=label,
-                info=info, args=(v, ts, ok, ws, s)):
+                info=info, args=(v, ts, ok, ws, s), rows=rows, tick=tick,
+                impl_want=impl_want):
             from repro_torch.kernels.rows import aligned
-            impl, vec = hz_ops.impl_for(m, aligned(*args[:3]))
-            check((impl, vec) == ("warp", True),
+            impl, vec = hz_ops.impl_for(m, aligned(*args[:3]), t)
+            check((impl, vec) == (impl_want, True),
                   f"harmonize {label}: impl_for gives {(impl, vec)}")
             out, obs = check_instance(hz_ops, "harmonize", label, kernel,
                                       impl, info)
             ref, ref_obs = plain()
             out, obs = out.reshape(R, t), obs.reshape(R, t)
-            check(torch.equal(obs, ref_obs), "harmonize: observed differs")
-            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+            check(torch.equal(obs[:rows], ref_obs),
+                  "harmonize: observed differs")
+            torch.testing.assert_close(out[:rows], ref, rtol=1e-4,
+                                       atol=1e-5)
             v, ts, ok, ws, s = args
-            seq, _ = sequential_harmonize(v.reshape(R, m), ts.reshape(R, m),
-                                          ok.reshape(R, m),
-                                          ws.repeat_interleave(s), TICK_S, t)
-            check(bits_equal(out, seq),
+            seq, seq_obs = sequential_harmonize(
+                v.reshape(R, m), ts.reshape(R, m), ok.reshape(R, m),
+                ws.repeat_interleave(s), tick, t)
+            check(torch.equal(obs, seq_obs) and bits_equal(out, seq),
                   f"harmonize {label}: differs from the sequential loop")
-            info.update(vec=vec, bit_equal_sequential=True)
-            return (out - ref).abs().max().item()
+            info.update(vec=vec, bit_equal_sequential=True, plain_rows=rows,
+                        observed_frac=obs.float().mean().item())
+            return (out[:rows] - ref).abs().max().item()
 
         cases.append(dict(
             name="harmonize", shape=label, dims=dict(R=R, M=m, T=t),
@@ -613,21 +662,84 @@ FA_KERNELS = {
 }
 
 
-def flash_cases(dev, g):
-    """qwen3-0.6b's prefill attention (B=4, 16 q / 8 kv heads, head dim
-    128, S=2048) in bfloat16 and float32, a ragged S, a window and a
-    softcap; gemma2-2b's (8 q / 4 kv heads, head dim 256, its 4096
-    window and attention cap of 50); and recurrentgemma-2b's (10 q heads
-    over 1 kv head, head dim 256, window 2048). Each case names the
-    kernel it must run (``ops.impl_for``), checked through
-    ``LAUNCHES_BY_IMPL`` and the kernel names in a profiler trace. Tolerances: float32 max abs err
-    2e-3 (tests/test_kernels.py); bfloat16 one ulp of the plain output, |out - ref| <= 2^-7 |ref| + 1e-5
-    per element, since both compute in float32 and round the output once
-    (late rows attend to ~2048 keys and their outputs are ~0.04, so an
-    absolute bound would have to be far smaller than 5e-2 to see a dropped
-    tile). The softcap case scales q by 8 so that scores reach tens and the
-    cap of 50 (gemma2's) changes the output; the script checks that it
-    does."""
+def _flash_bound_check(label, out, ref, dtype, info):
+    """Hold a flash output to its bound against ``attention_ref``: in a
+    16-bit type |out - ref| <= u |ref| + 1e-5 (u = 2^-7 in bfloat16, one
+    ulp; 2^-9 in float16, two ulps: FLASH_ULP); in float32 max abs err
+    2e-3.
+    Records the ratio to the bound in ``info``; returns the max abs err."""
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    if dtype in FLASH_ULP:
+        ulp = FLASH_ULP[dtype]
+        ratio = (diff / (ulp * ref.abs() + 1e-5)).max().item()
+        info.update(tol=f"{ulp} |ref| + 1e-5", err_over_tol=ratio)
+        check(ratio <= 1.0, f"flash_attention {label}: error {ratio} x the "
+              f"bound (max abs {err})")
+    else:
+        info.update(tol=2e-3, err_over_tol=err / 2e-3)
+        check(err <= 2e-3, f"flash_attention {label}: max abs err {err} > "
+              "2e-3")
+    return err
+
+
+# the flash kernels' bound in each 16-bit type, relative to the plain
+# output: one bfloat16 ulp; two float16 ulps, since the kernel's and the
+# plain version's float32 tanh and exp differ in their last bits, which at
+# softcapped scores in the tens moves an output by ~1e-5 relative, one
+# float16 rounding step (tests/test_torch_card.py)
+FLASH_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -9}
+
+
+# label, dtype, S, window, softcap, (H, Hkv, D), the instance (phase 3)
+FLASH_SPECS = (
+    ("path", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 128), "wgmma"),
+    ("path_f32", torch.float32, LM_S, 0, 0.0, (16, 8, 128), "scalar"),
+    ("ragged", torch.bfloat16, 1000, 0, 0.0, (16, 8, 128), "wgmma"),
+    ("window", torch.bfloat16, LM_S, 512, 0.0, (16, 8, 128),
+     "wgmma"),
+    ("softcap", torch.bfloat16, LM_S, 0, 50.0, (16, 8, 128),
+     "wgmma"),
+    ("gemma_d256", torch.bfloat16, LM_S, 4096, 50.0, (8, 4, 256),
+     "wgmma"),
+    # recurrentgemma-2b's local attention: at S = 2048 its 2048
+    # window equals causal, so SDPA computes the same function
+    (LM_SHAPE["flash_attention"], torch.bfloat16, LM_S, 2048, 0.0,
+     (10, 1, 256), "wgmma"))
+# the reference's whole input domain: float16 at qwen3's prefill shape,
+# and head dims off the instances' widths
+FLASH_DOMAIN_SPECS = (
+    ("path_f16", torch.float16, LM_S, 0, 0.0, (16, 8, 128), "wgmma"),
+    ("d48", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 48), "scalar"),
+    ("d80", torch.float16, LM_S, 0, 0.0, (16, 8, 80), "scalar"),
+    ("d96", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 96), "scalar"),
+    ("d320", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 320), "scalar"))
+
+
+def _attention_f64(q, k, v, window, softcap):
+    """The plain version's function in float64 from the same inputs: the
+    truth both the kernel and the plain version round towards."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.double().reshape(
+        B, S, Hkv, H // Hkv, D) / float(np.sqrt(D)), k.double())
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = (i >= j) & ((i - j < window) if window else True)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    del s
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.double())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+def flash_specs(dev, g, specs):
+    """The cases of ``specs`` at batch LM_B (``flash_cases``' tolerances).
+    Each 16-bit case also reports how far the kernel and the plain version
+    each sit from a float64 truth, in units of the bound
+    (``over_float64``): the plain version is float32 and not exact
+    either."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -636,21 +748,7 @@ def flash_cases(dev, g):
 
     B = LM_B
     cases = []
-    for label, dtype, S, window, softcap, (H, HKV, D), impl in (
-            ("path", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 128), "wgmma"),
-            ("path_f32", torch.float32, LM_S, 0, 0.0, (16, 8, 128),
-             "scalar"),
-            ("ragged", torch.bfloat16, 1000, 0, 0.0, (16, 8, 128), "wgmma"),
-            ("window", torch.bfloat16, LM_S, 512, 0.0, (16, 8, 128),
-             "wgmma"),
-            ("softcap", torch.bfloat16, LM_S, 0, 50.0, (16, 8, 128),
-             "wgmma"),
-            ("gemma_d256", torch.bfloat16, LM_S, 4096, 50.0, (8, 4, 256),
-             "wgmma"),
-            # recurrentgemma-2b's local attention: at S = 2048 its 2048
-            # window equals causal, so SDPA computes the same function
-            (LM_SHAPE["flash_attention"], torch.bfloat16, LM_S, 2048, 0.0,
-             (10, 1, 256), "wgmma")):
+    for label, dtype, S, window, softcap, (H, HKV, D), impl in specs:
         check(fa_ops.impl_for(dtype, D) == impl,
               f"flash_attention {label}: impl_for gives "
               f"{fa_ops.impl_for(dtype, D)}, expected {impl}")
@@ -668,19 +766,16 @@ def flash_cases(dev, g):
                 lambda: fa_ops.flash_attention(q, k, v, **kw), impl, info,
                 want=FA_KERNELS[impl][1])
             ref = attention_ref(q, k, v, **kw).float()
-            diff = (out.float() - ref).abs()
-            err = diff.max().item()
             check(out.dtype == q.dtype, f"flash_attention {label}: dtype")
-            if dtype == torch.bfloat16:
-                ratio = (diff / (2.0 ** -7 * ref.abs() + 1e-5)).max().item()
-                info.update(tol="2^-7 |ref| + 1e-5", err_over_tol=ratio,
-                            ref_mean_abs=ref.abs().mean().item())
-                check(ratio <= 1.0, f"flash_attention {label}: error "
-                      f"{ratio} x the one-ulp bound (max abs {err})")
-            else:
-                info.update(tol=2e-3, err_over_tol=err / 2e-3)
-                check(err <= 2e-3, f"flash_attention {label}: max abs err "
-                      f"{err} > 2e-3")
+            err = _flash_bound_check(label, out, ref, dtype, info)
+            info["ref_mean_abs"] = ref.abs().mean().item()
+            if dtype in FLASH_ULP:
+                truth = _attention_f64(q, k, v, **kw)
+                tol = FLASH_ULP[dtype] * truth.abs() + 1e-5
+                info["over_float64"] = {
+                    name: ((x.double() - truth).abs() / tol).max().item()
+                    for name, x in (("kernel", out), ("plain", ref))}
+                del truth, tol
             if kw["softcap"]:
                 uncapped = attention_ref(q, k, v, window=kw["window"])
                 effect = (uncapped.float() - ref).abs().max().item()
@@ -707,9 +802,39 @@ def flash_cases(dev, g):
             # read q, k, v, write out; QK^T and PV, 2 flops per MAC each
             bytes=2 * B * S * (H + HKV) * D * q.element_size(),
             ops=4 * B * H * D * pairs,
-            ops_rate=(roofline.BF16_FLOPS if dtype == torch.bfloat16
+            ops_rate=(roofline.BF16_FLOPS if dtype in FLASH_ULP
                       else roofline.F32_FLOPS),
             library=lib))
+    return cases
+
+
+def flash_cases(dev, g):
+    """qwen3-0.6b's prefill attention (B=4, 16 q / 8 kv heads, head dim
+    128, S=2048) in bfloat16, float16 and float32, a ragged S, a window
+    and a softcap; the same shape at head dims 48, 80, 96 and 320, off the
+    instances' widths (the scalar kernel, zero-filled columns, and at 320
+    two 256-column output chunks); gemma2-2b's (8 q / 4 kv heads, head
+    dim 256, its 4096 window and attention cap of 50); and
+    recurrentgemma-2b's (10 q heads over 1 kv head, head dim 256, window
+    2048). Each case names the
+    kernel it must run (``ops.impl_for``), checked through
+    ``LAUNCHES_BY_IMPL`` and the kernel names in a profiler trace.
+    Tolerances (``_flash_bound_check``): float32 max abs err 2e-3
+    (tests/test_kernels.py); bfloat16 one ulp of the plain output per
+    element, float16 two (FLASH_ULP), since both compute in float32 and
+    round the output once (late rows attend to ~2048 keys and their
+    outputs are ~0.04, so an absolute bound would have to be far smaller
+    than 5e-2 to see a dropped tile). The softcap case scales q by 8 so
+    that scores reach tens and the cap of 50 (gemma2's) changes the
+    output; the script checks that it does."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import roofline
+
+    cases = flash_specs(dev, g, FLASH_SPECS)
+
     # context parallelism's launches (phase lm_sharded_more): one data
     # shard's rows of recurrentgemma-2b's 2 x 2048 prefill on (2, 4), the
     # first and the last model shard's (offsets 0 and 1536, the causal
@@ -739,18 +864,7 @@ def flash_cases(dev, g):
                   f"flash_attention {label}: the launch was not counted "
                   f"under {key}")
             ref = attention_ref(q, k, v, **kw).float()
-            diff = (out.float() - ref).abs()
-            err = diff.max().item()
-            if dtype == torch.bfloat16:
-                ratio = (diff / (2.0 ** -7 * ref.abs() + 1e-5)).max().item()
-                info.update(tol="2^-7 |ref| + 1e-5", err_over_tol=ratio)
-                check(ratio <= 1.0, f"flash_attention {label}: error "
-                      f"{ratio} x the one-ulp bound (max abs {err})")
-            else:
-                info.update(tol=2e-3, err_over_tol=err / 2e-3)
-                check(err <= 2e-3, f"flash_attention {label}: max abs err "
-                      f"{err} > 2e-3")
-            return err
+            return _flash_bound_check(label, out, ref, dtype, info)
 
         pos = torch.arange(off, off + rows, device=dev)[:, None]
         key = torch.arange(S, device=dev)[None, :]
@@ -770,7 +884,7 @@ def flash_cases(dev, g):
             bytes=(2 * rows * H + 2 * (off + rows - max(0, off - window + 1))
                    * HKV) * D * q.element_size(),
             ops=4 * H * D * pairs,
-            ops_rate=(roofline.BF16_FLOPS if dtype == torch.bfloat16
+            ops_rate=(roofline.BF16_FLOPS if dtype in FLASH_ULP
                       else roofline.F32_FLOPS),
             library=lambda q=q, k=k, v=v, mask=mask:
                 F.scaled_dot_product_attention(
@@ -793,9 +907,22 @@ KERNEL_META = {
 }
 
 
+# the kernels line's instance entries beside the five kernels' (each at its
+# ``path`` case, its launches summed over every instance and path): entry
+# name -> (kernel, the case that times it, the instance, its source)
+INSTANCE_ENTRIES = {
+    "flash_attention_f16": ("flash_attention", "path_f16", "wgmma float16",
+                            FA_KERNELS["wgmma"][0]),
+    "flash_attention_scalar": ("flash_attention", "path_f32", "scalar",
+                               FA_KERNELS["scalar"][0]),
+    "harmonize_tiled": ("harmonize", "long", "tiled",
+                        KERNEL_META["harmonize"][0]),
+}
+
+
 def phase_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(0)
-    at_path, at_lm = {}, {}
+    at_path, at_lm, at_case = {}, {}, {}
     for case in kernel_cases(dev, g):
         err = case["compare"]()
         long_ = case["shape"] in ("sequence", LM_SHAPE["rglru_scan"]) or \
@@ -820,18 +947,19 @@ def phase_kernels(dev):
                   call_us=us(calls["kernel"]),
                   plain_call_us=us(calls["plain"]),
                   library_call_us=us(calls.get("library"))))
+        impl = case.get("info", {}).get("impl")
+        at_case[(case["name"], case["shape"])] = dict(
+            **({"impl": impl} if impl else {}), max_abs_err=err,
+            timer=timer, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms)
         if case["shape"] == "path":
-            impl = case.get("info", {}).get("impl")
-            at_path[case["name"]] = dict(
-                **({"impl": impl} if impl else {}), max_abs_err=err,
-                timer=timer, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+            at_path[case["name"]] = at_case[(case["name"], "path")]
         if case["shape"] == LM_SHAPE.get(case["name"]):
             at_lm[case["name"]] = dict(
                 shape=case["shape"], **case["dims"], max_abs_err=err,
                 us=us(ms), plain_us=us(plain_ms), bound_us=us(bound_ms),
                 bound_by=bound_by, library_us=us(lib_ms))
-    return at_path, at_lm
+    return at_path, at_lm, at_case
 
 
 # --------------------------------------------------------------- system
@@ -2086,16 +2214,16 @@ def phase_harmonize(raw):
                                 n_ticks=N_TICKS)
 
     impl, vec = hz_ops.impl_for(m, aligned(raw.values[0], raw.timestamps[0],
-                                           raw.valid[0]))
+                                           raw.valid[0]), N_TICKS)
     hz_ops.LAUNCHES = 0
-    hz_ops.LAUNCHES_BY_IMPL.update(warp=0)
+    hz_ops.LAUNCHES_BY_IMPL.update(warp=0, tiled=0)
     torch.cuda.synchronize()
     outs = [window(j) for j in range(k)]
     torch.cuda.synchronize()
     launches = hz_ops.LAUNCHES
     by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
     check(launches == k, f"harmonize: {launches} launches, expected {k}")
-    check(by_impl == {impl: k},
+    check(by_impl == {"warp": 0, "tiled": 0, impl: k},
           f"harmonize: launches by instance {by_impl}, expected {impl} {k}")
     traced = traced_kernels(lambda: window(0), "harmonize")
     check(len(traced) == 1 and f"harmonize_{impl}_kernel" in traced[0],
@@ -2147,6 +2275,43 @@ def phase_harmonize(raw):
           f"harmonize: only {observed_frac:.3f} of (row, tick) cells "
           f"observed")
     return launches
+
+
+def phase_harmonize_week(dev):
+    """The harmonize op entry point over a week of 30 s ticks (HZ_WEEK: 64
+    buildings x 8 sensors, 2048 samples a stream, T = 20,160, above the
+    warp instance's MAX_T), as a user harmonizes a week of a 30 s sensor:
+    one call, the launch counted by instance (all ``tiled``), the output
+    finite where observed and bit-equal to the sequential loop on its
+    first rows (phase 3's ``long`` case checks every row). Returns the
+    tiled launches."""
+    from repro_torch.kernels.harmonize import ops as hz_ops
+    w = HZ_WEEK
+    g = torch.Generator(device=dev).manual_seed(3)
+    v, ts, ok, ws = _hz_samples(g, dev, w["e"], w["s"], w["m"], w["t"],
+                                w["tick"])
+    hz_ops.LAUNCHES = 0
+    hz_ops.LAUNCHES_BY_IMPL.update(warp=0, tiled=0)
+    (out, obs), wall_ms = _sync_ms(lambda: hz_ops.harmonize(
+        v, ts, ok, ws, tick_s=w["tick"], n_ticks=w["t"]))
+    by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
+    check(by_impl == {"warp": 0, "tiled": 1},
+          f"harmonize_week: launches by instance {by_impl}")
+    R, rows = w["e"] * w["s"], HZ_PLAIN_ROWS
+    out, obs = out.reshape(R, w["t"]), obs.reshape(R, w["t"])
+    check(bool(torch.isfinite(out[obs]).all()) and bool(obs.any()),
+          "harmonize_week: means not finite where observed")
+    seq, seq_obs = sequential_harmonize(
+        v.reshape(R, -1)[:rows], ts.reshape(R, -1)[:rows],
+        ok.reshape(R, -1)[:rows], ws.repeat_interleave(w["s"])[:rows],
+        w["tick"], w["t"])
+    check(torch.equal(obs[:rows], seq_obs) and bits_equal(out[:rows], seq),
+          "harmonize_week: differs from the sequential loop")
+    emit({"phase": "harmonize_week", **w, "rows": R,
+          "launches_by_impl": by_impl, "first_call_wall_ms": wall_ms,
+          "observed_frac": obs.float().mean().item(),
+          "bit_equal_sequential_rows": rows})
+    return by_impl["tiled"]
 
 
 def _sync_ms(fn):
@@ -2297,6 +2462,113 @@ def phase_lm(dev):
     del model, cache
     torch.cuda.empty_cache()
     return launches
+
+
+# the float16 side-car (phase 7a): qwen3-0.6b with dtype = param_dtype =
+# "float16", held against a float32 twin carrying the same weights at the
+# depth the card fits (all 28 layers): the logits within LM_DECODE_BOUND
+# (the bound bfloat16's decode holds; float16 keeps 3 more bits than
+# bfloat16), and the argmax equal on every row whose float32 top-2 gap
+# exceeds twice the largest difference, so that no rounding can flip it
+LM_F16_TWIN_BOUND = LM_DECODE_BOUND
+
+
+def phase_lm_float16(dev):
+    """qwen3-0.6b at full width in float16 (``dataclasses.replace`` of the
+    registry config): prefill 4 x 2048 with its 28 flash launches on the
+    wgmma kernel's float16 instance (counted, and named in one profiler
+    trace), decode against prefill (reported, as the families' drift is),
+    one ServeEngine drain, then a float32 twin with the same weights at a
+    fitted depth (its flash launches on the scalar instance). Returns the
+    launches by instance: {"wgmma": prefill's, "scalar": the twin's}."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import LM
+    from repro_torch.train import tree as tr
+
+    tag = "lm_float16"
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float16",
+                              param_dtype="float16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init_ms = _sync_ms(lambda: LM(cfg, device=dev, seed=0))
+    check(model.embed["table"].dtype == torch.float16, f"{tag}: weights")
+    emit({"phase": tag, "step": "init", "arch": LM_ARCH,
+          "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "params": model.param_count(), "param_bytes": model.param_bytes(),
+          "init_ms": init_ms})
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (LM_B, LM_S), generator=g,
+                         device=dev, dtype=torch.int32)
+    model.prefill({"tokens": toks[:, :256]})   # warm-up
+    fa_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    (full, _), first_ms = _sync_ms(lambda: model.prefill({"tokens": toks}))
+    by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
+    check(by_impl == {"wgmma": cfg.n_layers, "scalar": 0},
+          f"{tag}: flash_attention launches by impl {by_impl}, expected "
+          f"all {cfg.n_layers} on wgmma")
+    check(full.shape == (LM_B, cfg.vocab_size) and full.dtype ==
+          torch.float32 and bool(torch.isfinite(full).all()),
+          f"{tag}: prefill logits not finite float32 (B, V)")
+    walls = [_sync_ms(lambda: model.prefill({"tokens": toks}))[1]
+             for _ in range(3)]
+    wall = statistics.median(walls)
+    emit({"phase": tag, "step": "prefill", "batch": LM_B, "seq": LM_S,
+          "flash_attention_launches_by_impl": by_impl,
+          "first_wall_ms": first_ms, "wall_ms": wall, "wall_ms_runs": walls,
+          "tokens_per_s": LM_B * LM_S / (wall / 1e3)})
+    rel = _decode_vs_prefill(model, {"tokens": toks}, "tokens")
+    emit({"phase": tag, "step": "decode_vs_prefill", **rel,
+          "checked": False})
+    emit({"phase": tag, "step": "serve", **_serve_drain(model, tag)})
+    gc.collect()   # the drain's timing hook held a cycle to the model
+    part = FA_KERNELS["wgmma"][1]
+    prof = _profile_step(lambda: model.prefill({"tokens": toks}), tag,
+                         {part: cfg.n_layers})
+    names = prof["traced"][part]["kernels"]
+    check(names and all("half" in k and "bfloat16" not in k for k in names),
+          f"{tag}: the traced flash kernels {names} are not the float16 "
+          "instance")
+    emit({"phase": tag, "step": "profile_prefill", **prof})
+
+    # the float32 twin: the same weights upcast, at the depth the card fits
+    # beside the float16 model
+    cfg32 = _fit_depth(dataclasses.replace(cfg, dtype="float32",
+                                           param_dtype="float32"))
+    n = cfg32.n_layers
+    if n < cfg.n_layers:
+        del model.layers[n:]
+        model.cfg = dataclasses.replace(cfg, n_layers=n)
+        full, _ = model.prefill({"tokens": toks})
+    params = model.params()
+    twin = LM(cfg32, device=dev, params=tr.map_(lambda x: x.float(),
+                                                params))
+    fa_ops.LAUNCHES_BY_IMPL.update(wgmma=0, scalar=0)
+    want, _ = twin.prefill({"tokens": toks})
+    twin_by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
+    check(twin_by_impl == {"wgmma": 0, "scalar": n},
+          f"{tag}: the float32 twin's flash launches {twin_by_impl}")
+    diff = (full - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    agree = full.argmax(-1) == want.argmax(-1)
+    emit({"phase": tag, "step": "float32_twin",
+          "layers": f"{n} of {cfg.n_layers}", "bound": LM_F16_TWIN_BOUND,
+          "max_abs_diff": diff, "max_abs_logit": want.abs().max().item(),
+          "argmax_agree": int(agree.sum()), "rows": LM_B,
+          "top2_gap_min": gap.min().item(),
+          "flash_launches_by_impl": twin_by_impl})
+    check(diff <= LM_F16_TWIN_BOUND, f"{tag}: float16 against float32 max "
+          f"abs diff {diff} > {LM_F16_TWIN_BOUND}")
+    check(bool((agree | (gap <= 2 * diff)).all()),
+          f"{tag}: float16 and float32 disagree on a clear argmax")
+    del model, twin, params, full, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wgmma": by_impl["wgmma"], "scalar": twin_by_impl["scalar"]}
 
 
 # ------------------------------------------------------- LM model families
@@ -4148,10 +4420,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "library": str(_build.LIB_PATH.relative_to(REPO))})
 
-    at_path, at_lm = phase_kernels(dev)
+    at_path, at_lm, at_case = phase_kernels(dev)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         launches, raw, scan_ref = phase_scan(dev, tmp)
         launches["harmonize"] = phase_harmonize(raw)
+        week = phase_harmonize_week(dev)
         fused_run = phase_fused(dev, tmp)
         _, fused_ref = phase_fused_decide(dev, tmp, scan_ref)
         refs = {"scan": scan_ref, "scan_fused_decide": fused_ref}
@@ -4171,6 +4444,14 @@ def main() -> int:
     by_path = {name: ({"harmonize_op": n} if name == "harmonize" else
                       {"decision_loop": n}) for name, n in launches.items()}
     by_path["flash_attention"] = {f"lm_{LM_ARCH}": phase_lm(dev)}
+    f16 = phase_lm_float16(dev)
+    by_path["flash_attention"][f"lm_{LM_ARCH}_float16"] = sum(f16.values())
+    by_path["harmonize"]["harmonize_op_week"] = week
+    by_instance = {
+        "flash_attention_f16": {f"lm_{LM_ARCH}_float16": f16["wgmma"]},
+        "flash_attention_scalar": {f"lm_{LM_ARCH}_float16_twin":
+                                   f16["scalar"]},
+        "harmonize_tiled": {"harmonize_op_week": week}}
     for arch in FAMILIES:
         for name, n in phase_lm_family(dev, arch).items():
             if n:
@@ -4178,19 +4459,23 @@ def main() -> int:
     for name, paths in train_in_child().items():
         by_path[name].update(paths)
 
-    def entry(name):
-        t = at_path[name]
+    def entry(name, t, source, replaces, paths, **extra):
         us = {f"{k[:-3]}_us": (None if t[k] is None else t[k] * 1e3)
               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         us["us"] = us.pop("_us")
-        extra = {"at_lm_shape": at_lm[name]} if name in at_lm else {}
-        return dict(name=name, route="cuda", parity="ok",
-                    source=KERNEL_META[name][0],
-                    replaces=KERNEL_META[name][1],
-                    launches=sum(by_path[name].values()),
-                    launches_by_path=by_path[name], **t, **us, **extra)
+        return dict(name=name, route="cuda", parity="ok", source=source,
+                    replaces=replaces, launches=sum(paths.values()),
+                    launches_by_path=paths, **t, **us, **extra)
 
-    emit({"kernels": [entry(name) for name in KERNEL_META]})
+    kernels = [entry(name, at_path[name], *KERNEL_META[name], by_path[name],
+                     **({"at_lm_shape": at_lm[name]} if name in at_lm
+                        else {}))
+               for name in KERNEL_META]
+    for name, (kernel, case, instance, source) in INSTANCE_ENTRIES.items():
+        kernels.append(entry(name, at_case[(kernel, case)], source,
+                             KERNEL_META[kernel][1], by_instance[name],
+                             kernel=kernel, instance=instance, case=case))
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,12 +12,24 @@ five guard JAX version seams and buffer donation, which torch has not):
 
 The AST logic is a copy of the reference's (``repro.analysis.lint``), so
 that the port imports nothing of ``repro``. Suppress one line with
-``# lint: allow[<rule-id>]`` on it or on the line above. There is no
-baseline: the tree lints clean.
+``# lint: allow[<rule-id>]`` on it or on the line above.
+
+The command line is the reference's: a baseline of grandfathered findings
+fingerprinted on (rule, file, stripped code), so that line shifts keep
+them (``--baseline PATH``, default ``lint_baseline.json`` beside this
+module; a missing file is an empty baseline, and none is committed: the
+tree lints clean), ``--no-baseline``, ``--update-baseline``; ``--format
+text|json|github`` with the reference's fields and GitHub Actions
+``::error`` annotations; and ``--builtins``, the counterpart of its
+``--jaxpr-builtins``: ``analysis.check.check_builtins`` over every
+builtin policy, reward and decide path, with every registry policy
+certified.
 
 CLI::
 
-    python -m repro_torch.analysis.lint [paths...]
+    python -m repro_torch.analysis.lint [paths...] [--format json]
+    python -m repro_torch.analysis.lint --builtins
+    python -m repro_torch.analysis.lint --update-baseline
     python -m repro_torch.analysis.lint --list-rules
 """
 from __future__ import annotations
@@ -25,9 +37,11 @@ from __future__ import annotations
 import argparse
 import ast
 import glob
+import json
 import os
 import re
 import sys
+import time
 from typing import Dict, List, Optional, Set
 
 from repro_torch.analysis.contracts import LINT_RULES, Violation
@@ -226,6 +240,64 @@ def run_paths(paths) -> List[Violation]:
     return out
 
 
+# ------------------------------------------------------------- baseline
+DEFAULT_BASELINE = os.path.join(os.path.dirname(__file__),
+                                "lint_baseline.json")
+
+
+def _fingerprint(v: Violation, lines_cache: Dict[str, List[str]]) -> dict:
+    """Line numbers shift; fingerprint on (rule, file, stripped code)."""
+    fname, _, lineno = v.source.rpartition(":")
+    code = ""
+    try:
+        if fname not in lines_cache:
+            with open(fname, "r", encoding="utf-8") as f:
+                lines_cache[fname] = f.read().splitlines()
+        code = lines_cache[fname][int(lineno) - 1].strip()
+    except (OSError, ValueError, IndexError):
+        pass
+    return {"rule": v.rule, "file": fname.replace(os.sep, "/"),
+            "code": code}
+
+
+def apply_baseline(violations: List[Violation], baseline_path: str):
+    """Split into (new, baselined) against the baseline's fingerprints,
+    each fingerprint absorbing one finding; no file is an empty
+    baseline."""
+    try:
+        with open(baseline_path, "r", encoding="utf-8") as f:
+            entries = json.load(f).get("violations", [])
+    except FileNotFoundError:
+        entries = []
+    pool = [tuple(sorted(e.items())) for e in entries]
+    cache: Dict[str, List[str]] = {}
+    new, old = [], []
+    for v in violations:
+        fp = tuple(sorted(_fingerprint(v, cache).items()))
+        if fp in pool:
+            pool.remove(fp)
+            old.append(v)
+        else:
+            new.append(v)
+    return new, old
+
+
+def write_baseline(violations: List[Violation], baseline_path: str):
+    cache: Dict[str, List[str]] = {}
+    data = {"comment": "lint findings grandfathered for their own PR; "
+                       "python -m repro_torch.analysis.lint "
+                       "--update-baseline",
+            "violations": [_fingerprint(v, cache) for v in violations]}
+    with open(baseline_path, "w", encoding="utf-8") as f:
+        json.dump(data, f, indent=2, sort_keys=True)
+        f.write("\n")
+
+
+def _annotation(text: str) -> str:
+    """A GitHub Actions workflow-command message: % and newlines escaped."""
+    return text.replace("%", "%25").replace("\n", "%0A")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis.lint",
@@ -234,19 +306,85 @@ def main(argv=None) -> int:
     ap.add_argument("paths", nargs="*",
                     help="files/dirs to lint (default: src/repro_torch and "
                          "examples/port_*.py)")
+    ap.add_argument("--baseline", default=DEFAULT_BASELINE)
+    ap.add_argument("--no-baseline", action="store_true")
+    ap.add_argument("--update-baseline", action="store_true",
+                    help="rewrite the baseline with the current findings")
     ap.add_argument("--list-rules", action="store_true")
+    ap.add_argument("--builtins", action="store_true",
+                    help="also run the contract checks over every builtin "
+                         "policy/reward/decide path and certify the policy "
+                         "registry (analysis.check.check_builtins)")
+    ap.add_argument("--format", choices=("text", "json", "github"),
+                    default="text",
+                    help="finding output: human text (default), a "
+                         "machine-readable JSON document (rule, file, "
+                         "line, fingerprint per finding), or GitHub "
+                         "Actions ::error per-line annotations")
     args = ap.parse_args(argv)
     if args.list_rules:
         for rid, desc in LINT_RULES.items():
             print(f"  {rid}: {desc}")
         return 0
+
+    t0 = time.perf_counter()
     paths = args.paths or default_paths()
     found = run_paths(paths)
-    for v in found:
-        print(f"{v.source}: {v.format()}")
+    if args.update_baseline:
+        write_baseline(found, args.baseline)
+        print(f"wrote {len(found)} finding(s) to {args.baseline}")
+        return 0
+    if args.no_baseline:
+        new, old = found, []
+    else:
+        new, old = apply_baseline(found, args.baseline)
+
+    if args.format == "github":
+        for v in new:
+            fname, _, lineno = v.source.rpartition(":")
+            print(f"::error file={fname},line={lineno or 1},"
+                  f"title=lint {v.rule}::{_annotation(v.format())}")
+    elif args.format == "text":
+        for v in new:
+            print(f"{v.source}: {v.format()}")
+
+    n_builtin, builtin_error = 0, None
+    if args.builtins:
+        from repro_torch.analysis.check import check_builtins
+        try:
+            n_builtin = check_builtins()
+        except Exception as e:
+            builtin_error = str(e)
+            if args.format == "text":
+                print(f"builtin contract check FAILED:\n{e}")
+            elif args.format == "github":
+                print("::error title=builtin contract check::"
+                      + _annotation(builtin_error))
+
+    dt = time.perf_counter() - t0
     files = len(list(iter_py_files(paths)))
-    print(f"lint: {files} files, {len(found)} finding(s)")
-    return 1 if found or not files else 0
+    if args.format == "json":
+        cache: Dict[str, List[str]] = {}
+
+        def entry(v, baselined):
+            fname, _, lineno = v.source.rpartition(":")
+            return {"rule": v.rule, "file": fname.replace(os.sep, "/"),
+                    "line": int(lineno) if lineno.isdigit() else 0,
+                    "message": v.message, "baselined": baselined,
+                    "fingerprint": _fingerprint(v, cache)}
+
+        doc = {"files": files, "new": len(new), "baselined": len(old),
+               "elapsed_s": round(dt, 3),
+               "findings": [entry(v, False) for v in new]
+               + [entry(v, True) for v in old]}
+        if args.builtins:
+            doc["builtins"] = {"checked": n_builtin, "error": builtin_error}
+        print(json.dumps(doc, indent=2, sort_keys=True))
+    else:
+        extra = f", {n_builtin} builtin fns checked" if n_builtin else ""
+        print(f"lint: {files} files, {len(new)} finding(s), {len(old)} "
+              f"baselined{extra} [{dt:.1f}s]")
+    return 1 if new or builtin_error is not None or not files else 0
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ Everything arrives as numpy arrays (the reference's leaves converted with
     the same state. The port's LM checkpoints (``train.loop``) keep the
     port's per-layer layout and do not restore into the reference, whose
     layers are stacked; the online trainer's checkpoints do.
-Dtypes are kept as the reference has them: float32 or bfloat16 values,
+Dtypes are kept as the reference has them: float32, bfloat16 or float16
+values (a float16 model's weights and caches cross as they are),
 int32 counters (``tick_index``, ``tick_idx``, ``version``, ``cursor``,
 ``lengths``, ``tick``) and bool flags (``valid``, ``have_prev``).
 """

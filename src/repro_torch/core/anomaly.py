@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 POLICIES = ("clip", "mean", "missing")
 
 
@@ -21,7 +23,8 @@ class AnomalyState(NamedTuple):
     count: torch.Tensor   # (E, S)
 
 
-def init_state(E, S, device="cpu") -> AnomalyState:
+def init_state(E, S, device=None) -> AnomalyState:
+    device = resolve_device(device)
     z = torch.zeros((E, S), dtype=torch.float32, device=device)
     return AnomalyState(z, torch.ones_like(z), z.clone())
 

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class RawWindow(NamedTuple):
     """Raw samples collected in one window. Shapes (E, S, M)."""
@@ -65,7 +67,8 @@ def make_raw_window(values, timestamps, valid=None, *,
     return RawWindow(v, t, m)
 
 
-def empty_tick_frame(E, S, T, device="cpu") -> TickFrame:
+def empty_tick_frame(E, S, T, device=None) -> TickFrame:
+    device = resolve_device(device)
     z = torch.zeros((E, S, T), dtype=torch.float32, device=device)
     f = torch.zeros((E, S, T), dtype=torch.bool, device=device)
     return TickFrame(z, f, f, f)

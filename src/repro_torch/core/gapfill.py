@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 STRATEGIES = ("locf", "linear", "ewma", "seasonal")
 
 
@@ -30,7 +32,8 @@ class GapFillState(NamedTuple):
     seasonal_n: torch.Tensor   # (E, S, K)
 
 
-def init_state(E, S, K=24, device="cpu") -> GapFillState:
+def init_state(E, S, K=24, device=None) -> GapFillState:
+    device = resolve_device(device)
     z = torch.zeros((E, S), dtype=torch.float32, device=device)
     zk = torch.zeros((E, S, K), dtype=torch.float32, device=device)
     return GapFillState(z, z - 1e30, z.clone(), zk, zk.clone())

@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class NormState(NamedTuple):
     count: torch.Tensor  # (E, S)
@@ -19,7 +21,8 @@ class NormState(NamedTuple):
     max: torch.Tensor
 
 
-def init_state(E, S, device="cpu") -> NormState:
+def init_state(E, S, device=None) -> NormState:
+    device = resolve_device(device)
     z = torch.zeros((E, S), dtype=torch.float32, device=device)
     inf = torch.full((E, S), float("inf"), dtype=torch.float32,
                      device=device)

@@ -109,8 +109,10 @@ class PipelineConfig:
         return n * (self.n_ticks if self.per_tick_features else 1)
 
 
-def init_state(cfg: PipelineConfig, device="cpu") -> PipelineState:
+def init_state(cfg: PipelineConfig, device=None) -> PipelineState:
+    """The pipeline's zero state on ``device`` (``None``: the card)."""
     E, S = cfg.n_envs, cfg.n_streams
+    device = resolve_device(device)
     return PipelineState(
         gapfill=gf.init_state(E, S, cfg.seasonal_slots, device=device),
         anomaly=an.init_state(E, S, device=device),

@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class ReplayBuffer(NamedTuple):
     obs: torch.Tensor        # (E, C, F)
@@ -40,7 +42,9 @@ class ReplayBuffer(NamedTuple):
         return torch.clamp(self.cursor, max=self.capacity)
 
 
-def init(E, capacity, n_features, n_actions, device="cpu") -> ReplayBuffer:
+def init(E, capacity, n_features, n_actions, device=None) -> ReplayBuffer:
+    """An empty ring on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return ReplayBuffer(

@@ -52,14 +52,14 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, ctypes.c_float, ctypes.c_float, _I, _P],
     # q, k, v, out, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap,
-    # scale, stream (bf16)
+    # scale, dtype, stream
     "flash_attention_sm90_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _I, ctypes.c_float, ctypes.c_float,
-                                    _P],
+                                    _I, _P],
     # values, timestamps, valid, window_start, out, observed, E, S, M, T,
-    # tick_s, vec, stream
+    # tick_s, impl, vec, stream
     "harmonize_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _P],
+                         ctypes.c_float, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -131,6 +131,23 @@ def library():
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def as_float32(x):
+    """An op entry's value input as the kernels read it: float32 (any
+    floating, integer or bool dtype cast, as the reference's op entries
+    cast with ``astype(float32)``), densely packed. A float32 contiguous
+    tensor passes through as it is."""
+    return x.to(torch.float32).contiguous()
+
+
+def as_mask(x):
+    """An op entry's mask input as the reference's op entries read one:
+    ``astype(float32) > 0``, so a mask of -1 (or NaN) is False. A bool
+    tensor passes through as it is."""
+    if x.dtype == torch.bool:
+        return x.contiguous()
+    return (x.to(torch.float32) > 0).contiguous()
 
 
 def require(name: str, t, dtype, shape, device) -> None:

@@ -1,6 +1,7 @@
-// Causal GQA flash attention for Hopper's tensor cores: bfloat16 in and out,
-// float32 scores, softmax and accumulators; optional sliding window and tanh
-// softcap. Head dims 64, 128 and 256.
+// Causal GQA flash attention for Hopper's tensor cores: bfloat16 or float16
+// in and out (E, one instance each), float32 scores, softmax and
+// accumulators; optional sliding window and tanh softcap. Head dims 64, 128
+// and 256.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_kernel, called through flash_attention_pallas), which tiles (Qb, D) and
@@ -18,8 +19,8 @@
 // window) flops (pos the row's position, window = Skv when there is none;
 // 4*B*H*S^2*D/2 for a whole causal pass) against
 // (B*Sq*2*H + 2*B*Skv*Hkv)*D elements moved, far above the card's
-// flops-per-byte line, so the bound is the bf16 tensor cores (989 TFLOP/s
-// dense), reached only through wgmma.
+// flops-per-byte line, so the bound is the 16-bit tensor cores (989 TFLOP/s
+// dense in bf16 and in fp16), reached only through wgmma.
 //
 // Design: one CTA per (128 q rows, q head, batch), q blocks launched
 // heaviest first (the last causal block has the most key tiles). Three
@@ -43,16 +44,22 @@
 //     the diagonal, the window edge or Skv; tiles wholly in a warpgroup's
 //     causal future or before its window are skipped (they add p = 0 and
 //     leave alpha at 1, so skipping is exact).
-//   * O += P V with p split in two bf16 halves, P_hi = bf16(p) and
-//     P_lo = bf16(p - P_hi), both register A fragments against the same V
+//   * O += P V with p split in two halves of E, P_hi = E(p) and
+//     P_lo = E(p - P_hi), both register A fragments against the same V
 //     tile in shared memory (MN-major: the transpose flag). A single bf16 p
 //     would move outputs near zero by tens of bf16 ulps of the float32-p
 //     reference; the split keeps p to ~16 bits at half again the tensor work.
-//   * epilogue: O / max(l, 1e-30), rounded once to bf16, written swizzled
+//     float16 keeps the split: one f16 p (11 bits) would still move such
+//     outputs by several f16 ulps, and the pair holds ~22 bits of p (fewer
+//     only where P_lo falls below f16's normal range, 2^-14, a term too
+//     small to move an output by 1e-5).
+//   * epilogue: O / max(l, 1e-30), rounded once to E, written swizzled
 //     into the warpgroup's own rows of the Q tile and stored by TMA.
 #include <cstdint>
+#include <type_traits>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -173,146 +180,178 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 }
 
 // D(64 x N, f32) (+)= A(64 x 16) B(16 x N): A and B from shared memory, both
-// K-major; scale_d = 0 overwrites D
-template <int N>
+// K-major; scale_d = 0 overwrites D. E (bf16 or f16) is the inputs' type.
+template <int N, typename E>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                          int scale_d);
-// D(64 x N, f32) += A(64 x 16, bf16 registers) B(16 x N): B from shared
+// D(64 x N, f32) += A(64 x 16, E in registers) B(16 x N): B from shared
 // memory, MN-major (transposed)
-template <int N>
+template <int N, typename E>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t b);
 
 // The instructions name every accumulator register, so the operand lists
-// are spelled out per width.
-
+// are spelled out per width, once for both types: TY is the instruction's
+// type suffix ("bf16" or "f16").
+#define WGMMA_SS_64(TY)                                                                \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                                       \
+      : "l"(a), "l"(b), "r"(scale_d))
 template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<64, __nv_bfloat16>(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  WGMMA_SS_64("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<64, __half>(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  WGMMA_SS_64("f16");
 }
 
+#define WGMMA_SS_128(TY)                                                                 \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                               \
+      : "l"(a), "l"(b), "r"(scale_d))
 template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+__device__ __forceinline__ void wgmma_ss<128, __nv_bfloat16>(
+    float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  WGMMA_SS_128("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128, __half>(
+    float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  WGMMA_SS_128("f16");
 }
 
+#define WGMMA_RS_64(TY)                                                                \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+__device__ __forceinline__ void wgmma_rs<64, __nv_bfloat16>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS_64("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64, __half>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS_64("f16");
 }
 
+#define WGMMA_RS_128(TY)                                                                 \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+__device__ __forceinline__ void wgmma_rs<128, __nv_bfloat16>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS_128("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128, __half>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS_128("f16");
 }
 
+#define WGMMA_RS_256(TY)                                                                               \
+  asm volatile(                                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                    \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                                    \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "               \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "               \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "               \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "               \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "   \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),                        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),                  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),                  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),                  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),                  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),                  \
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),                  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),                  \
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),                  \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),                  \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),                  \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),                \
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),            \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),            \
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),            \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),            \
+        "+f"(d[126]), "+f"(d[127])                                                                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+__device__ __forceinline__ void wgmma_rs<256, __nv_bfloat16>(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS_256("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256, __half>(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  WGMMA_RS_256("f16");
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -324,16 +363,35 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+// x0 and x1 rounded to E and packed low to high as one 32-bit register;
+// r0 and r1 receive the rounded values
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float x0, float x1, float& r0,
+                                          float& r1);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x0, float x1,
+                                                         float& r0,
+                                                         float& r1) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(x0, x1);
+  r0 = __low2float(x);
+  r1 = __high2float(x);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float x0, float x1,
+                                                  float& r0, float& r1) {
+  __half2 x = __floats2half2_rn(x0, x1);
+  r0 = __low2float(x);
+  r1 = __high2float(x);
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
 // Accumulator fragment of wgmma m64nN (f32): in each warpgroup, register i of
 // thread (warp w, lane) holds row 16 w + lane / 4 + 8 ((i / 2) % 2) and
 // column 8 (i / 4) + 2 (lane % 4) + i % 2. Registers 8j..8j+7 of a score
-// fragment are then exactly the bf16 A fragment of keys 16j..16j+15 for the
-// P V product (pairs of neighbouring columns packed low to high).
-template <int D, int BN>
+// fragment are then exactly the 16-bit A fragment of keys 16j..16j+15 for
+// the P V product (pairs of neighbouring columns packed low to high).
+template <typename E, int D, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
@@ -424,7 +482,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;   // 16 columns = 32 bytes
-          wgmma_ss<BN>(sc,
+          wgmma_ss<BN, E>(sc,
                        sw128_desc(q_wg + (kk / 4) * T::kQChunk + off, 16,
                                   1024),
                        sw128_desc(ks + (kk / 4) * T::kKVChunk + off, 16,
@@ -471,10 +529,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
             const float p1 = expf(sc[i + 1] - m[r]);
             sum[r] += p0;
             sum[r] += p1;
-            const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-            p_hi[j][e] = bf16x2_bits(hi);
-            p_lo[j][e] = bf16x2_bits(__floats2bfloat162_rn(
-                p0 - __low2float(hi), p1 - __high2float(hi)));
+            float h0, h1, unused0, unused1;
+            p_hi[j][e] = pack2<E>(p0, p1, h0, h1);
+            p_lo[j][e] = pack2<E>(p0 - h0, p1 - h1, unused0, unused1);
           }
         }
 #pragma unroll
@@ -490,8 +547,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           // each) sit T::kKVChunk apart, the leading byte offset
           const uint64_t vd = sw128_desc(vs + 16 * j * kRowBytes,
                                          T::kKVChunk, 1024);
-          wgmma_rs<D>(o, p_hi[j], vd);
-          wgmma_rs<D>(o, p_lo[j], vd);
+          wgmma_rs<D, E>(o, p_hi[j], vd);
+          wgmma_rs<D, E>(o, p_lo[j], vd);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -513,11 +570,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const int row = 16 * warp + lane / 4 + 8 * r;      // within 64 rows
       const int col = 8 * (i / 4) + 2 * (lane % 4);
       const int unit = ((col % 64) / 8) ^ (row % 8);
-      const __nv_bfloat162 x = __floats2bfloat162_rn(
-          o[i] / denom[r], o[i + 1] / denom[r]);
-      *reinterpret_cast<__nv_bfloat162*>(
+      float unused0, unused1;
+      *reinterpret_cast<uint32_t*>(
           q_ptr + (col / 64) * T::kQChunk + row * kRowBytes + unit * 16 +
-          (col % 8) * 2) = x;
+          (col % 8) * 2) = pack2<E>(o[i] / denom[r], o[i + 1] / denom[r],
+                                    unused0, unused1);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -554,11 +611,11 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (D, heads, S, B) bf16 tensor in the model layout, boxes of 64 columns x
-// `rows` rows of one head and one batch row, 128-byte swizzle; reads past S
-// give zeros, stores past S are dropped
-bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D,
-              int heads, int S, int B, int rows) {
+// (D, heads, S, B) 16-bit tensor (bf16 or f16, `type`) in the model
+// layout, boxes of 64 columns x `rows` rows of one head and one batch row,
+// 128-byte swizzle; reads past S give zeros, stores past S are dropped
+bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
+              const void* ptr, int D, int heads, int S, int B, int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
                               cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(D) * 2,
@@ -566,14 +623,14 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D,
                                  cuuint64_t(S) * heads * D * 2};
   const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode(map, type, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int BN>
+template <typename E, int D, int BN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Skv, int q_offset, int H, int Hkv,
                    int window, float softcap, float scale,
@@ -587,47 +644,64 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
     err = cudaFuncSetAttribute(
-        flash_attention_sm90_kernel<D, BN>,
+        flash_attention_sm90_kernel<E, D, BN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapDataType type = std::is_same<E, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qm, km, vm, om;
-  if (!make_map(&qm, encode, q, D, H, Sq, B, kBlockM) ||
-      !make_map(&km, encode, k, D, Hkv, Skv, B, BN) ||
-      !make_map(&vm, encode, v, D, Hkv, Skv, B, BN) ||
-      !make_map(&om, encode, o, D, H, Sq, B, 64))
+  if (!make_map(&qm, encode, type, q, D, H, Sq, B, kBlockM) ||
+      !make_map(&km, encode, type, k, D, Hkv, Skv, B, BN) ||
+      !make_map(&vm, encode, type, v, D, Hkv, Skv, B, BN) ||
+      !make_map(&om, encode, type, o, D, H, Sq, B, 64))
     return cudaErrorInvalidValue;
   const dim3 grid(H, B, (Sq + kBlockM - 1) / kBlockM);
-  flash_attention_sm90_kernel<D, BN><<<grid, kThreads, smem, stream>>>(
+  flash_attention_sm90_kernel<E, D, BN><<<grid, kThreads, smem, stream>>>(
       qm, km, vm, om, Sq, Skv, q_offset, H, Hkv, window, softcap, scale);
   return cudaGetLastError();
 }
 
+template <typename E>
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* o, int B, int Sq, int Skv, int q_offset, int H,
+                     int Hkv, int window, float softcap, float scale,
+                     cudaStream_t st) {
+  switch (D) {
+    case 64: return launch<E, 64, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+    case 128: return launch<E, 128, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+    case 256: return launch<E, 256, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// bfloat16 q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte
-// aligned; query row i at position q_offset + i, q_offset + Sq <= Skv; D in
-// {64, 128, 256} (256 on 64-key tiles, to fit shared memory and registers)
+// dtype: 1 = bfloat16, 2 = float16 (the scalar entry's codes). q/o
+// (B, Sq, H, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte aligned; query
+// row i at position q_offset + i, q_offset + Sq <= Skv; D in {64, 128,
+// 256} (256 on 64-key tiles, to fit shared memory and registers)
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int Sq, int Skv, int q_offset,
                                            int H, int Hkv, int D, int window,
                                            float softcap, float scale,
-                                           void* stream) {
+                                           int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
       q_offset > Skv - Sq || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       B > 65535 || (Sq + kBlockM - 1) / kBlockM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (D) {
-    case 64: err = launch<64, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st); break;
-    case 128: err = launch<128, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st); break;
-    case 256: err = launch<256, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    err = dispatch<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+  else if (dtype == 2)
+    err = dispatch<__half>(D, q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

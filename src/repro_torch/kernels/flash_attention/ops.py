@@ -4,13 +4,17 @@ Two CUDA kernels compute the same function; which one runs is a static
 choice by (dtype, head dim), made by :func:`impl_for` and never by a
 failure: a build or launch error of either raises.
 
-- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bfloat16 at head dims
-  64, 128 and 256, on the tensor cores (TMA-fed ``wgmma``, p split into
-  bf16 hi and lo halves for the PV product).
-- ``"scalar"`` (``csrc/flash_attention.cu``): float32 at every head dim,
-  and bfloat16 at head dims 16 and 32, whose 32- and 64-byte rows are
-  narrower than the 128-byte swizzled boxes the wgmma kernel reads. It
-  runs on the float32 FMA units.
+- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bfloat16 and float16
+  at head dims 64, 128 and 256, on the tensor cores (TMA-fed ``wgmma``, p
+  split into hi and lo halves of the input type for the PV product).
+- ``"scalar"`` (``csrc/flash_attention.cu``): every other (dtype, head
+  dim): float32 at every D, and bfloat16 and float16 at every D but 64,
+  128 and 256. It runs on the float32 FMA units. Its instances are 16,
+  32, 64, 128 and 256 columns wide; a head dim runs on the narrowest
+  that holds it, its columns past D read as zeros, and D > 256 on the
+  256-wide one with a grid axis over 256-column chunks of the output
+  (each chunk's block reads all of D for the scores and does its own
+  PV).
 
 Both take a query offset (:func:`flash_attention`'s ``q_offset``): q
 holds Sq rows at positions ``q_offset`` .. ``q_offset + Sq - 1`` against
@@ -32,15 +36,15 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 LAUNCHES = 0
 LAUNCHES_BY_IMPL = {"wgmma": 0, "scalar": 0}
 LAUNCHES_BY_OFFSET = {}               # (impl, q_offset) -> launches
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the scalar kernel's template instances
-WGMMA_HEAD_DIMS = (64, 128, 256)     # the wgmma kernel's
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the scalar kernel's instance widths
+WGMMA_HEAD_DIMS = (64, 128, 256)     # the wgmma kernel's head dims
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def impl_for(dtype, D: int) -> str:
     """The kernel that computes attention for this dtype and head dim:
     ``"wgmma"`` or ``"scalar"``."""
-    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+    if dtype in (torch.bfloat16, torch.float16) and D in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "scalar"
 
@@ -48,20 +52,21 @@ def impl_for(dtype, D: int) -> str:
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
                     scale=None, q_offset: int = 0):
     """Causal GQA attention in the model layout: q (B, Sq, H, D); k, v
-    (B, Skv, Hkv, D), float32 or bfloat16, all one dtype; q head h reads kv
-    head h // (H // Hkv). Query row i sits at position ``q_offset + i``
-    and keys at 0..Skv-1, with ``q_offset + Sq <= Skv``; a key is seen by
-    a query at or after its position. ``window`` > 0 keeps keys with
-    0 <= q_pos - k_pos < window; ``softcap`` > 0 applies
-    ``tanh(s / softcap) * softcap`` before the mask. ``scale`` defaults to
-    1/sqrt(D). Returns (B, Sq, H, D) in q's dtype."""
+    (B, Skv, Hkv, D), float32, bfloat16 or float16, all one dtype, any
+    head dim D >= 1; q head h reads kv head h // (H // Hkv). Query row i
+    sits at position ``q_offset + i`` and keys at 0..Skv-1, with
+    ``q_offset + Sq <= Skv``; a key is seen by a query at or after its
+    position. ``window`` > 0 keeps keys with 0 <= q_pos - k_pos <
+    window; ``softcap`` > 0 applies ``tanh(s / softcap) * softcap``
+    before the mask. ``scale`` defaults to 1/sqrt(D). Returns (B, Sq, H,
+    D) in q's dtype."""
     global LAUNCHES
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev = q.device
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: q is {q.dtype}, expected float32 "
-                        "or bfloat16")
+        raise TypeError(f"flash_attention: q is {q.dtype}, expected float32, "
+                        "bfloat16 or float16")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: {H} q heads over {Hkv} kv heads")
     q_offset = int(q_offset)
@@ -79,8 +84,6 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
                              scale=scale, q_offset=q_offset)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -90,11 +93,9 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
             Skv, q_offset, H, Hkv, D, int(window), float(softcap), scale)
     with _build.on_device(dev):
         stream = _build.stream_ptr(dev)
-        if impl == "wgmma":
-            code = lib.flash_attention_sm90_launch(*args, stream)
-        else:
-            code = lib.flash_attention_launch(*args, _DTYPES[q.dtype],
-                                              stream)
+        launch = (lib.flash_attention_sm90_launch if impl == "wgmma"
+                  else lib.flash_attention_launch)
+        code = launch(*args, _DTYPES[q.dtype], stream)
     _build.check(code, f"flash_attention ({impl})")
     LAUNCHES += 1
     LAUNCHES_BY_IMPL[impl] += 1

@@ -26,7 +26,7 @@
 // each walking all M samples) far from that bound was its instruction
 // count: it bucketed every sample once per tick.
 //
-// This kernel buckets each sample exactly once, with that kernel's
+// The warp instance buckets each sample exactly once, with that kernel's
 // arithmetic (__fsub_rn; __fdiv_rn: IEEE division, no reciprocal
 // multiply; ceilf; the same float-to-int conversion), and add each tick's
 // hits one at a time (__fadd_rn) in M order onto a total that starts at
@@ -40,24 +40,35 @@
 // loop. Every add and divide is written _rn, so nvcc contracts nothing
 // into an FMA. No atomics on device memory.
 //
-// One instance, "warp" (ops.impl_for), for the decision loop's windows
-// (32 samples into 8 ticks) and the fleet's (128 into 64) alike: one warp
-// per row, four rows a block. The row goes in chunks of 32 samples, lane l
-// holding sample 32c + l. Lanes that hit the same tick find each other
-// through a mask per tick in shared memory (atomicOr, then a read; at 128
-// samples a row this is cheaper than __match_any_sync, which
-// tools/harmonize_variants.py times beside it). Each group's first lane
-// adds the group's values, taken by shuffle in lane (= M) order, onto the
-// tick's total; the totals, counts and masks are the warp's own 12 * T
-// bytes of shared memory, one group per tick, so the lanes of a warp write
-// different addresses. Loads: with `vec` (16-byte aligned pointers and
-// M % 4 == 0, so that every row starts aligned) a warp reads 128 samples
-// at once as a float4 of values, a float4 of timestamps and a 4-byte word
-// of flags a lane (512, 512 and 128 contiguous bytes) and stages them in
-// shared memory; else each lane reads its samples as scalars (128 and 32
-// contiguous bytes a warp instruction). Either way every input byte is
-// read once, coalesced, and each lane writes its ticks of the row, 32
-// contiguous outputs a warp instruction.
+// Two instances, chosen by ops.impl_for from T. "warp" (T <= ops.MAX_T) serves
+// the decision loop's windows (32 samples into 8 ticks) and the fleet's (128
+// into 64) alike: one warp per row, four rows a block. The row goes in chunks
+// of 32 samples, lane l holding sample 32c + l. Lanes that hit the same tick
+// find each other through a mask per tick in shared memory (atomicOr, then a
+// read; at 128 samples a row this is cheaper than __match_any_sync, which
+// tools/harmonize_variants.py times beside it). Each group's first lane adds
+// the group's values, taken by shuffle in lane (= M) order, onto the tick's
+// total; the totals, counts and masks are the warp's own 12 * T bytes of shared
+// memory, one group per tick, so the lanes of a warp write different addresses.
+// Loads: with `vec` (16-byte aligned pointers and M % 4 == 0, so that every row
+// starts aligned) a warp reads 128 samples at once as a float4 of values, a
+// float4 of timestamps and a 4-byte word of flags a lane (512, 512 and 128
+// contiguous bytes) and stages them in shared memory; else each lane reads its
+// samples as scalars (128 and 32 contiguous bytes a warp instruction). Either
+// way every input byte is read once, coalesced, and each lane writes its ticks
+// of the row, 32 contiguous outputs a warp instruction.
+//
+// "tiled" (T > ops.MAX_T, where a row's 12 * T bytes no longer fit a
+// block's shared memory; a week of 30 s ticks is 20,160): the same warp
+// code over one tile of kTile ticks. Grid axis y walks the tiles; each warp
+// owns one row and one tile, walks ALL M samples of its row, buckets each
+// one with the same arithmetic against the full T, and adds only the hits
+// inside its tile, in M order, as above. Every tile computes its row's
+// non-finite summary itself over all M samples, so a tile's means equal
+// the sequential float32 loop bit for bit, NaN and inf included, as the
+// warp instance's do. Each sample is bucketed once a tile, ceil(T / kTile)
+// times in all: the price of keeping the tiles independent (no atomics on
+// device memory, no second pass).
 // Indices are 64-bit where they multiply rows by M or T.
 #include <climits>
 
@@ -76,6 +87,7 @@ struct Args {
   uint8_t* observed;
   int R, S, M, T;
   float tick_s;
+  int tile;   // ticks a warp keeps: T ("warp"), kTile ("tiled")
 };
 
 __device__ __forceinline__ int bucket_key(float ts, bool ok, float t0,
@@ -104,6 +116,7 @@ struct NonFinite {
 constexpr int kWarpRows = 4;              // rows (warps) a block
 constexpr int kStage = 128;               // samples a warp stages (vec)
 constexpr int kStageBytes = kStage * 9;   // values, timestamps, valid
+constexpr int kTile = 2048;               // ticks a warp keeps ("tiled")
 
 // shared memory of one warp: the staged samples (vec), then T totals, T
 // counts and T group masks
@@ -111,24 +124,27 @@ __host__ __device__ constexpr int warp_bytes(int T, bool vec) {
   return ((vec ? kStageBytes : 0) + 12 * T + 15) / 16 * 16;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kWarpRows * 32)
-harmonize_warp_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// One warp's row. TILED: the warp keeps ticks [t_lo, t_lo + TT) of it,
+// the tile blockIdx.y; else all T of them (t_lo = 0).
+template <bool VEC, bool TILED>
+__device__ __forceinline__ void harmonize_row(const Args& a,
+                                              unsigned char* smem) {
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int r = blockIdx.x * (blockDim.x >> 5) + w;
   if (r >= a.R) return;   // the whole warp leaves together
   const int M = a.M, T = a.T;
-  unsigned char* mine = smem + w * warp_bytes(T, VEC);
+  const int t_lo = TILED ? static_cast<int>(blockIdx.y) * a.tile : 0;
+  const int TT = TILED ? min(a.tile, T - t_lo) : T;
+  unsigned char* mine = smem + w * warp_bytes(a.tile, VEC);
   float* stage_v = reinterpret_cast<float*>(mine);
   float* stage_ts = stage_v + kStage;
   uint8_t* stage_ok = reinterpret_cast<uint8_t*>(stage_ts + kStage);
   float* total_acc =
       reinterpret_cast<float*>(mine + (VEC ? kStageBytes : 0));
-  float* count_acc = total_acc + T;
-  unsigned* masks = reinterpret_cast<unsigned*>(count_acc + T);
-  for (int t = lane; t < T; t += 32) {
+  float* count_acc = total_acc + a.tile;
+  unsigned* masks = reinterpret_cast<unsigned*>(count_acc + a.tile);
+  for (int t = lane; t < TT; t += 32) {
     total_acc[t] = 0.0f;
     count_acc[t] = 0.0f;
     masks[t] = 0u;
@@ -187,13 +203,15 @@ harmonize_warp_kernel(const Args a) {
         nf.hi = max(nf.hi, __reduce_max_sync(kFull, fin ? INT_MIN : key));
       }
 
-      // the lanes of this chunk that hit the same tick, in M order
-      const int slot = max(key, 0);
-      if (key >= 0) atomicOr(masks + slot, 1u << lane);
+      // the lanes of this chunk that hit the same tick of this warp's
+      // ticks, in M order
+      const bool hit = TILED ? key >= t_lo && key - t_lo < TT : key >= 0;
+      const int slot = hit ? key - t_lo : 0;
+      if (hit) atomicOr(masks + slot, 1u << lane);
       __syncwarp();
-      const unsigned grp = key >= 0 ? masks[slot] : 0u;
+      const unsigned grp = hit ? masks[slot] : 0u;
       __syncwarp();   // every lane has its group before a mask is cleared
-      const bool first = key >= 0 && (grp & below) == 0;
+      const bool first = hit && (grp & below) == 0;
       const int pop = first ? __popc(grp) : 0;
       const int steps = __reduce_max_sync(kFull, pop);
       float total = total_acc[slot];
@@ -213,35 +231,55 @@ harmonize_warp_kernel(const Args a) {
     }
   }
 
-  float* out_row = a.out + static_cast<long long>(r) * T;
-  uint8_t* obs_row = a.observed + static_cast<long long>(r) * T;
-  for (int t = lane; t < T; t += 32) {
+  float* out_row = a.out + static_cast<long long>(r) * T + t_lo;
+  uint8_t* obs_row = a.observed + static_cast<long long>(r) * T + t_lo;
+  for (int t = lane; t < TT; t += 32) {
     const float count = count_acc[t];
     const bool obs = count > 0.0f;
-    out_row[t] =
-        obs ? __fdiv_rn(nf.total(t, total_acc[t]), fmaxf(count, 1.0f)) : 0.0f;
+    out_row[t] = obs ? __fdiv_rn(nf.total(t_lo + t, total_acc[t]),
+                                 fmaxf(count, 1.0f))
+                     : 0.0f;
     obs_row[t] = obs ? 1 : 0;
   }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kWarpRows * 32)
+harmonize_warp_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  harmonize_row<VEC, false>(a, smem);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kWarpRows * 32)
+harmonize_tiled_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  harmonize_row<VEC, true>(a, smem);
 }
 
 }  // namespace
 
 // values/timestamps (E*S, M) float32, valid (E*S, M) bool, window_start
 // (E,) float32 -> out (E*S, T) float32, observed (E*S, T) bool.
-// vec: staged float4 loads, which need 16-byte aligned values, timestamps
-// and valid, and M % 4 == 0.
+// impl: 0 = warp (T <= ops.MAX_T), 1 = tiled. vec: staged float4 loads,
+// which need 16-byte aligned values, timestamps and valid, and M % 4 == 0.
 extern "C" int harmonize_launch(const void* values, const void* timestamps,
                                 const void* valid, const void* window_start,
                                 void* out, void* observed, int E, int S,
-                                int M, int T, float tick_s, int vec,
-                                void* stream) {
+                                int M, int T, float tick_s, int impl,
+                                int vec, void* stream) {
   if (E <= 0 || S <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
   if (vec && !(aligned16(values) && aligned16(timestamps) &&
                aligned16(valid) && M % 4 == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(E) * S;
-  if (rows >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_warp = warp_bytes(T, vec != 0);
+  if (rows >= (1ll << 31) || (impl != 0 && impl != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tiled = impl == 1;
+  const int tile = tiled ? kTile : T;
+  const int n_tiles = (T + tile - 1) / tile;
+  if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_warp = warp_bytes(tile, vec != 0);
   if (per_warp > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = per_warp * kWarpRows <= kMaxSmem ? kWarpRows
                                                      : kMaxSmem / per_warp;
@@ -251,16 +289,18 @@ extern "C" int harmonize_launch(const void* values, const void* timestamps,
                static_cast<const uint8_t*>(valid),
                static_cast<const float*>(window_start),
                static_cast<float*>(out), static_cast<uint8_t*>(observed),
-               static_cast<int>(rows), S, M, T, tick_s};
-  auto kernel = vec ? harmonize_warp_kernel<true>
-                    : harmonize_warp_kernel<false>;
+               static_cast<int>(rows), S, M, T, tick_s, tile};
+  auto kernel = tiled ? (vec ? harmonize_tiled_kernel<true>
+                             : harmonize_tiled_kernel<false>)
+                      : (vec ? harmonize_warp_kernel<true>
+                             : harmonize_warp_kernel<false>);
   if (bytes > 48 * 1024) {   // beyond the default: opt in (large T only)
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const unsigned blocks = static_cast<unsigned>((rows + warps - 1) / warps);
-  kernel<<<blocks, warps * 32, bytes, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  const dim3 grid(static_cast<unsigned>((rows + warps - 1) / warps),
+                  static_cast<unsigned>(n_tiles));
+  kernel<<<grid, warps * 32, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

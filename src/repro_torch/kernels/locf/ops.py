@@ -19,10 +19,13 @@ LAUNCHES_BY_IMPL = {"row": 0, "warp": 0}
 
 
 def locf(values, observed, init_value, init_has):
-    """Batched entry: values/observed (E, S, T) float32/bool, carry-in
-    init_value/init_has (E, S) float32/bool. Returns (filled, has), both
-    (E, S, T)."""
+    """Batched entry: values/observed (E, S, T), carry-in
+    init_value/init_has (E, S). Values of any dtype are read as float32
+    and masks as ``> 0`` after a float32 cast, as the reference's entry
+    reads them. Returns (filled float32, has bool), both (E, S, T)."""
     global LAUNCHES
+    values, init_value = map(_build.as_float32, (values, init_value))
+    observed, init_has = map(_build.as_mask, (observed, init_has))
     E, S, T = values.shape
     dev = values.device
     _build.require("values", values, torch.float32, (E, S, T), dev)

@@ -15,9 +15,11 @@ LAUNCHES = 0
 
 
 def rglru_scan(a, b, h0):
-    """h_t = a_t h_{t-1} + b_t over axis 1. a, b: (B, T, W) float32;
-    h0: (B, W) float32. Returns (hs (B, T, W), h_last (B, W))."""
+    """h_t = a_t h_{t-1} + b_t over axis 1. a, b: (B, T, W); h0: (B, W);
+    any dtype, read as float32 (the reference's kernel path casts them).
+    Returns (hs (B, T, W), h_last (B, W)), float32."""
     global LAUNCHES
+    a, b, h0 = map(_build.as_float32, (a, b, h0))
     B, T, W = a.shape
     dev = a.device
     _build.require("a", a, torch.float32, (B, T, W), dev)

@@ -20,9 +20,14 @@ LAUNCHES_BY_IMPL = {"row": 0, "warp": 0}
 
 def window_agg(values, mask, state_mean, state_var, *,
                k_sigma: float = 6.0):
-    """Batched entry: values/mask (E, S, T) float32/bool; state (E, S)
-    float32. Returns (stats (E, S, N_STATS), spikes (E, S, T))."""
+    """Batched entry: values/mask (E, S, T); state (E, S). Values and
+    state of any dtype are read as float32 and the mask as ``> 0`` after a
+    float32 cast, as the reference's entry reads them. Returns (stats
+    (E, S, N_STATS) float32, spikes (E, S, T) bool)."""
     global LAUNCHES
+    values, state_mean, state_var = map(_build.as_float32,
+                                        (values, state_mean, state_var))
+    mask = _build.as_mask(mask)
     E, S, T = values.shape
     dev = values.device
     _build.require("values", values, torch.float32, (E, S, T), dev)

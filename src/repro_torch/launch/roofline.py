@@ -13,7 +13,7 @@ with the card's name and power limit beside it.
 """
 from __future__ import annotations
 
-BF16_FLOPS = 989e12      # bfloat16 tensor cores, dense
+BF16_FLOPS = 989e12      # bfloat16 (and float16) tensor cores, dense
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 

@@ -2,7 +2,8 @@
 ``repro.models.layers``.
 
 Numerics follow the reference step by step, so that float32 runs agree
-within summation order and bfloat16 runs round at the same places:
+within summation order and bfloat16 and float16 runs round at the same
+places:
   * ``rms_norm`` and ``rope`` compute in float32 and cast back;
   * ``blockwise_attention`` multiplies q by the scale in the activation
     dtype, then runs the flash-attention op with ``scale=1.0`` (the
@@ -35,10 +36,13 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.param import ParamDef
 
 NEG_INF = -1e30
-_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+       "float16": torch.float16}
 
 
 def dtype_of(name: str) -> torch.dtype:
+    """A config's dtype name as a torch dtype: every model dtype the
+    reference's ``jnp.dtype(cfg.dtype)`` takes."""
     return _DT[name]
 
 

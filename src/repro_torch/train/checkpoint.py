@@ -11,7 +11,9 @@ Leaves are numbered in ``jax.tree.flatten``'s order (``train.tree``: dicts
 by sorted key), so a checkpoint written by either package restores in the
 other, bit for bit. numpy has no bfloat16: the port saves such a leaf (an
 LM's weights) as its raw 16-bit words, dtype ``bfloat16`` in the manifest,
-and restores it by that name.
+and restores it by that name. float16 (a float16 model's weights) is a
+numpy dtype and is saved as it is, ``float16`` in the manifest, as the
+reference saves it.
 
 A sharded run saves its trees gathered (``sharding.gather_tree``): the
 leaves are global tensors, so a checkpoint from a (2, 4) mesh restores

@@ -9,10 +9,12 @@ construction and, with ``unchecked=True``, at the sharded system's
 construction — with the reference's rule ids; ``reward-shape``;
 ``callback-in-scan`` in a decide step and in a train step;
 ``time-cast`` of the tick counter and of the replay's ``tick_idx``; the
-two lint rules on fixture sources; ``check_builtins`` and the lint over
-the tree; and an import guard: every ``repro_torch`` module imports with
+two lint rules on fixture sources; the lint's command line (baseline,
+formats, ``--builtins``); ``check_builtins`` and the lint over the tree;
+and an import guard: every ``repro_torch`` module imports with
 ``jax`` and ``repro`` made unimportable.
 """
+import json
 import logging
 import os
 import subprocess
@@ -33,6 +35,7 @@ from repro_torch.core import PipelineConfig
 from repro_torch.core import replay as rp
 from repro_torch.core.reward import RewardSpec, RewardTerm
 from repro_torch.distribution import sharding as sh
+from repro_torch.runtime.policies import POLICIES
 from repro_torch.runtime.predictor import (ActionSpace, DecideFns,
                                            ModelAdapter, Predictor,
                                            linear_policy)
@@ -244,7 +247,7 @@ def test_real_decide_fns_accepted_dense_and_elastic():
 def _train_fixture():
     """An empty ring, as at trainer construction: the check probes a
     seeded full ring of its layout."""
-    buf = rp.init(E, 16, F, A)
+    buf = rp.init(E, 16, F, A, "cpu")
     params = {"w": torch.zeros(F, A)}
     tstate = {"m": {"w": torch.zeros(F, A)},
               "step": torch.zeros((), dtype=torch.int32)}
@@ -398,6 +401,98 @@ def test_repo_is_lint_clean():
     assert "0 finding(s)" in out.stdout
     n = int(out.stdout.split("lint: ")[1].split()[0])
     assert n > 80                     # the package and the port examples
+
+
+def _lint_cli(capsys, *argv):
+    """``lint.main`` with ``argv``: (exit code, its standard output)."""
+    code = lint_mod.main(list(argv))
+    return code, capsys.readouterr().out
+
+
+def test_lint_baseline_grandfathers_by_fingerprint(tmp_path, capsys,
+                                                   monkeypatch):
+    """``--update-baseline`` records the findings by (rule, file, stripped
+    code); they then pass, also after a line shift, while a new finding,
+    ``--no-baseline`` and a missing baseline file (an empty one) fail."""
+    monkeypatch.chdir(tmp_path)
+    src = tmp_path / "fixture.py"
+    src.write_text("norm = system.state.norm\n")
+    bl = str(tmp_path / "baseline.json")
+    code, out = _lint_cli(capsys, str(src), "--baseline", bl,
+                          "--update-baseline")
+    assert code == 0 and "wrote 1 finding(s)" in out
+    entry, = json.loads((tmp_path / "baseline.json").read_text())[
+        "violations"]
+    assert entry == {"rule": "state-leaf-alias", "file": "fixture.py",
+                     "code": "norm = system.state.norm"}
+    code, out = _lint_cli(capsys, str(src), "--baseline", bl)
+    assert code == 0 and "0 finding(s), 1 baselined" in out
+    src.write_text("\n\nnorm = system.state.norm\n")   # shifted
+    assert _lint_cli(capsys, str(src), "--baseline", bl)[0] == 0
+    src.write_text("norm = system.state.norm\nx = system.state.anomaly\n")
+    code, out = _lint_cli(capsys, str(src), "--baseline", bl)
+    assert code == 1 and "fixture.py:2: [state-leaf-alias]" in out
+    assert "1 finding(s), 1 baselined" in out
+    assert _lint_cli(capsys, str(src), "--baseline", bl,
+                     "--no-baseline")[0] == 1
+    code, out = _lint_cli(capsys, str(src), "--baseline",
+                          str(tmp_path / "missing.json"))
+    assert code == 1 and "2 finding(s), 0 baselined" in out
+
+
+def test_lint_formats(tmp_path, capsys, monkeypatch):
+    """``--format json``: the reference's document (files, new,
+    baselined, elapsed_s, findings with rule, file, line, message,
+    baselined, fingerprint); ``--format github``: one ``::error``
+    workflow command per new finding, on its file and line."""
+    monkeypatch.chdir(tmp_path)
+    src = tmp_path / "fixture.py"
+    src.write_text("x = 1\nnorm = system.state.norm\n")
+    bl = str(tmp_path / "none.json")
+    code, out = _lint_cli(capsys, str(src), "--baseline", bl,
+                          "--format", "json")
+    doc = json.loads(out)
+    assert code == 1
+    assert {k: doc[k] for k in ("files", "new", "baselined")} == \
+        {"files": 1, "new": 1, "baselined": 0}
+    finding, = doc["findings"]
+    assert {k: finding[k] for k in ("rule", "file", "line", "baselined")} \
+        == {"rule": "state-leaf-alias", "file": "fixture.py", "line": 2,
+            "baselined": False}
+    assert finding["fingerprint"]["code"] == "norm = system.state.norm"
+    code, out = _lint_cli(capsys, str(src), "--baseline", bl,
+                          "--format", "github")
+    lines = out.splitlines()
+    assert code == 1 and [x for x in lines if x.startswith("::")] == \
+        lines[:1]
+    assert lines[0].startswith(
+        "::error file=fixture.py,line=2,title=lint state-leaf-alias::")
+
+
+def test_lint_builtins(tmp_path, capsys, monkeypatch):
+    """``--builtins`` runs ``check_builtins`` (every registry policy
+    certified) beside the lint; a failing builtin fails the command, in
+    every format."""
+    src = tmp_path / "clean.py"
+    src.write_text("x = 1\n")
+    code, out = _lint_cli(capsys, str(src), "--builtins")
+    assert code == 0 and "builtin fns checked" in out
+    n = int(out.split("baselined, ")[1].split()[0])
+    assert n >= 10 + len(POLICIES)
+
+    def broken(verbose=False):
+        raise ContractViolation([], label="a broken builtin")
+    monkeypatch.setattr(ck, "check_builtins", broken)
+    code, out = _lint_cli(capsys, str(src), "--builtins")
+    assert code == 1 and "builtin contract check FAILED" in out
+    code, out = _lint_cli(capsys, str(src), "--builtins", "--format",
+                          "json")
+    assert code == 1 and "a broken builtin" in \
+        json.loads(out)["builtins"]["error"]
+    code, out = _lint_cli(capsys, str(src), "--builtins", "--format",
+                          "github")
+    assert code == 1 and out.startswith(
+        "::error title=builtin contract check::")
 
 
 def test_rule_catalogs():

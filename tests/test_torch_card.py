@@ -15,21 +15,30 @@ offset of one element; the row instance of window_agg adds in the
 sequential order, so its mean/var/sum equal a sequential float32 loop bit
 for bit.
 Harmonize: ``observed`` exact, means within atol 1e-5 / rtol 1e-4 (both
-add the same values, the plain version in torch's reduction order). The
-kernel's instance (``warp``; asserted through ``LAUNCHES_BY_IMPL``) adds in
-M order, so its means are bit-equal to a sequential float32 loop, NaN
-positions included, aligned and at an offset of one element, with NaN and
-+-inf in invalid, out-of-range and hitting samples.
+add the same values, the plain version in torch's reduction order). Both
+of the kernel's instances (``warp`` up to ``MAX_T`` ticks, ``tiled``
+above; asserted through ``LAUNCHES_BY_IMPL``) add in M order, so their
+means are bit-equal to a sequential float32 loop, NaN positions included,
+aligned and at an offset of one element, with NaN and +-inf in invalid,
+out-of-range and hitting samples.
 Flash attention (each case also asserts which kernel ran, through
 ``LAUNCHES_BY_IMPL``): max abs error 2e-3 in float32 (``tests/test_kernels.py``'s
 bound): the kernel sums its products with FMAs in tile order and the plain
 version through a matrix product. In bfloat16 one bfloat16 ulp of the
 plain output, |out - ref| <= 2^-7 |ref| + 1e-5: both compute in float32
 and round the output once (the wgmma kernel feeds PV with p split into
-two bf16 halves, ~16 bits of p), so they differ by at most one rounding
-step (an absolute bound would be as large as the outputs of late rows, which
-attend to many keys and so are small). Softcap cases scale q by 8, so that
-scores reach tens and the cap changes the output far beyond the bound.
+two halves of the input type), so they differ by at most one rounding
+step (an absolute bound would be as large as the outputs of late rows,
+which attend to many keys and so are small). In float16 two float16
+ulps, 2^-9 |ref| + 1e-5: its ulp is 8x finer, and the kernel's tanhf
+and expf and the plain version's torch.tanh and torch.exp differ in the
+last float32 bits, which at softcapped scores in the tens moves p, and
+the output before rounding, by ~1e-5 relative: one rounding step more
+(one case of 63 read 1.06 x the one-ulp bound on an H100, a softcap of
+50 over scores in the tens). Softcap cases scale q by 8, so that scores
+reach tens and the cap changes the output far beyond the bound.
+Every head dim runs a hand-written kernel: off the instances' widths the
+scalar one (``FA_ANY_D_CASES``, every dtype), within the same bounds.
 At a query offset (a context-parallel shard's rows against every key) both
 instances meet the same bounds against ``attention_ref`` at that offset,
 and an offset launch's rows equal the same rows of one launch over every
@@ -275,7 +284,8 @@ FA_CASES = [(2, 100, 4, 2, 64, 0, 0.0), (1, 128, 4, 4, 32, 48, 0.0),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
-                                       (torch.bfloat16, "one ulp")])
+                                       (torch.bfloat16, "one ulp"),
+                                       (torch.float16, "one ulp")])
 @pytest.mark.parametrize("B,S,H,Hkv,D,window,softcap", FA_CASES)
 def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
                                                H, Hkv, D, window, softcap):
@@ -293,12 +303,7 @@ def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
     assert fa_ops.LAUNCHES_BY_IMPL == by_impl, (impl, by_impl)
     ref = attention_ref(q, k, v, window=window, softcap=softcap)
     assert out.dtype == dtype and out.shape == q.shape
-    err = (out.float() - ref.float()).abs()
-    if dtype == torch.bfloat16:
-        bound = 2.0 ** -7 * ref.float().abs() + 1e-5
-        assert (err <= bound).all(), (err / bound).max().item()
-    else:
-        assert err.max().item() <= tol, err.max().item()
+    _flash_close(out, ref, dtype)
     if softcap:
         uncapped = attention_ref(q, k, v, window=window)
         assert (uncapped.float() - ref.float()).abs().max().item() > 0.1
@@ -325,17 +330,63 @@ def _flash_case(rng, card, dtype, B, Sq, Skv, H, Hkv, D, softcap):
             C(1, B, Skv, Hkv, D))
 
 
+# the 16-bit types' bounds, relative to the plain output: one bfloat16
+# ulp; two float16 ulps (module docstring)
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -9}
+
+
 def _flash_close(out, ref, dtype):
     err = (out.float() - ref.float()).abs()
-    if dtype == torch.bfloat16:
-        bound = 2.0 ** -7 * ref.float().abs() + 1e-5
+    if dtype in ULP:
+        bound = ULP[dtype] * ref.float().abs() + 1e-5
         assert (err <= bound).all(), (err / bound).max().item()
     else:
         assert err.max().item() <= 2e-3, err.max().item()
 
 
+# B, S, H, Hkv, D, window, softcap at head dims off the instances' widths:
+# below the narrowest (1, 8), inside wider ones (24, 48, 80, 96, 200), a
+# multiple of 64 that is no wgmma instance (192), and above 256 (320 and
+# 513: two and three 256-column chunks), with a ragged S, GQA, windows and
+# softcaps
+FA_ANY_D_CASES = [(1, 70, 2, 1, 1, 0, 0.0), (2, 33, 4, 2, 8, 8, 30.0),
+                  (1, 100, 4, 2, 24, 0, 0.0), (2, 129, 4, 2, 48, 0, 0.0),
+                  (1, 300, 4, 2, 80, 100, 50.0), (1, 257, 4, 4, 96, 0, 0.0),
+                  (1, 96, 2, 1, 192, 0, 0.0), (1, 64, 4, 2, 200, 16, 0.0),
+                  (1, 130, 4, 2, 320, 0, 50.0), (2, 70, 2, 1, 513, 40, 0.0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,softcap", FA_ANY_D_CASES)
+def test_flash_attention_any_head_dim_on_card(card, rng, dtype, B, S, H,
+                                              Hkv, D, window, softcap):
+    """Every head dim runs a hand-written kernel, the one ``impl_for``
+    names (the scalar one at these), within the bounds above against
+    ``attention_ref``, at offset 0 and at a query offset."""
+    q, k, v = _flash_case(rng, card, dtype, B, S, S, H, Hkv, D, softcap)
+    impl = fa_ops.impl_for(dtype, D)
+    assert impl == "scalar"
+    by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
+    out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    by_impl[impl] += 1
+    assert fa_ops.LAUNCHES_BY_IMPL == by_impl
+    assert out.dtype == dtype and out.shape == q.shape
+    _flash_close(out, attention_ref(q, k, v, window=window,
+                                    softcap=softcap), dtype)
+    off = S // 3
+    rows = q[:, off:].contiguous()
+    part = fa_ops.flash_attention(rows, k, v, window=window,
+                                  softcap=softcap, q_offset=off)
+    _flash_close(part, attention_ref(rows, k, v, window=window,
+                                     softcap=softcap, q_offset=off), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("B,Sq,Skv,off,H,Hkv,D,window,softcap",
                          FA_OFFSET_CASES)
 def test_flash_attention_at_offset_matches_plain_on_card(
@@ -570,7 +621,7 @@ def test_harmonize_bit_equal_sequential_on_card(card, rng, T, M, offset):
         buf[offset:] = flat
         return buf[offset:].view(x.shape)
     v, t, ok, w = C(vals), C(ts), C(valid), C(ws)
-    impl, vec = hz_ops.impl_for(M, aligned(v, t, ok))
+    impl, vec = hz_ops.impl_for(M, aligned(v, t, ok), T)
     assert (impl, vec) == ("warp", offset == 0 and M % 4 == 0)
     by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
     out, obs = hz_ops.harmonize(v, t, ok, w, tick_s=tick, n_ticks=T)
@@ -592,24 +643,75 @@ def test_harmonize_bit_equal_sequential_on_card(card, rng, T, M, offset):
 @pytest.mark.cuda
 def test_harmonize_tick_limit_on_card(card, rng):
     """``MAX_T`` ticks fit one warp's shared memory (a block of one warp)
-    and stay bit-equal to the sequential loop; one more is refused before
-    any launch."""
-    T, M, tick = hz_ops.MAX_T, 17, 0.5
+    and run the warp instance, bit-equal to the sequential loop; one more
+    runs the tiled instance (``LAUNCHES_BY_IMPL``), bit-equal to it too."""
+    M, tick = 17, 0.5
     C = lambda x: torch.from_numpy(x).to(card)
-    ts = C(rng.uniform(-1, T * tick, (2, 3, M)).astype(np.float32))
-    v = C(rng.normal(0, 5, (2, 3, M)).astype(np.float32))
-    ok = C(rng.rand(2, 3, M) > 0.3)
-    ws = torch.zeros((2,), device=card)
-    out, obs = hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=T)
-    seq, seq_obs = _sequential_harmonize(
-        v.reshape(6, M), ts.reshape(6, M), ok.reshape(6, M),
-        ws.repeat_interleave(3), tick, T)
-    assert torch.equal(obs.reshape(6, T), seq_obs) and seq_obs.any()
-    assert _bits_equal(out.reshape(6, T), seq)
-    before = hz_ops.LAUNCHES
-    with pytest.raises(ValueError, match="shared memory"):
-        hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=T + 1)
-    assert hz_ops.LAUNCHES == before
+    for T, impl in ((hz_ops.MAX_T, "warp"), (hz_ops.MAX_T + 1, "tiled")):
+        ts = C(rng.uniform(-1, T * tick, (2, 3, M)).astype(np.float32))
+        v = C(rng.normal(0, 5, (2, 3, M)).astype(np.float32))
+        ok = C(rng.rand(2, 3, M) > 0.3)
+        ws = torch.zeros((2,), device=card)
+        by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
+        out, obs = hz_ops.harmonize(v, ts, ok, ws, tick_s=tick, n_ticks=T)
+        torch.cuda.synchronize()
+        by_impl[impl] += 1
+        assert hz_ops.LAUNCHES_BY_IMPL == by_impl
+        seq, seq_obs = _sequential_harmonize(
+            v.reshape(6, M), ts.reshape(6, M), ok.reshape(6, M),
+            ws.repeat_interleave(3), tick, T)
+        assert torch.equal(obs.reshape(6, T), seq_obs) and seq_obs.any()
+        assert _bits_equal(out.reshape(6, T), seq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("M", [17, 128, 2048])
+@pytest.mark.parametrize("T", [hz_ops.MAX_T + 1, 20_160])
+def test_harmonize_tiled_bit_equal_sequential_on_card(card, rng, T, M,
+                                                      offset):
+    """The tiled instance (T above ``MAX_T``; 20,160 is a week of 30 s
+    ticks) against the sequential float32 loop on the card, bit for bit
+    with NaN positions, ``observed`` against it too; (E, S) = (5, 3) rows,
+    aligned and at a storage offset of one element (scalar loads),
+    samples from a tick before the window to one after it, non-finite
+    values as ``_nonfinite_rows`` places them (hits, misses, invalid)."""
+    E, S, tick = 5, 3, 30.0
+    ts = rng.uniform(-tick, (T + 1) * tick, (E, S, M)).astype(np.float32)
+    vals = rng.normal(0, 5, (E, S, M)).astype(np.float32)
+    valid = rng.rand(E, S, M) > 0.3
+    ws = rng.uniform(-50, 50, (E,)).astype(np.float32)
+    ts += ws[:, None, None]
+    _nonfinite_rows(vals, ts, valid, ws, S, tick)
+
+    def C(x):
+        flat = torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(card)
+        buf = torch.empty(flat.numel() + offset, dtype=flat.dtype,
+                          device=card)
+        buf[offset:] = flat
+        return buf[offset:].view(x.shape)
+    v, t, ok, w = C(vals), C(ts), C(valid), C(ws)
+    impl, vec = hz_ops.impl_for(M, aligned(v, t, ok), T)
+    assert (impl, vec) == ("tiled", offset == 0 and M % 4 == 0)
+    by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
+    out, obs = hz_ops.harmonize(v, t, ok, w, tick_s=tick, n_ticks=T)
+    torch.cuda.synchronize()
+    by_impl[impl] += 1
+    assert hz_ops.LAUNCHES_BY_IMPL == by_impl
+    R = E * S
+    t0 = w.repeat_interleave(S)
+    args = (v.reshape(R, M), t.reshape(R, M), ok.reshape(R, M))
+    seq, seq_obs = _sequential_harmonize(*args, t0, tick, T)
+    out, obs = out.reshape(R, T), obs.reshape(R, T)
+    assert torch.equal(obs, seq_obs) and seq_obs.any()
+    assert _bits_equal(out, seq)
+    # the non-finite rows did reach the output
+    assert torch.isnan(out[:6]).any() and torch.isinf(out[6, 0])
+    # the last rows, all finite, against the plain version too (it holds
+    # (rows, M, T) at once)
+    ref, ref_obs = harmonize_ref(*(x[-2:] for x in args), t0[-2:], tick, T)
+    assert torch.equal(obs[-2:], ref_obs)
+    torch.testing.assert_close(out[-2:], ref, rtol=1e-4, atol=1e-5)
 
 
 def _big_window(rng, K, E, S, M, T, tick, device):
@@ -890,10 +992,10 @@ def test_elastic_trees_on_card_equal_the_cpu(card, rng):
     noisy = lambda t: tree.map_(
         lambda x: torch.from_numpy(rng.normal(0, 1, x.shape).astype(
             np.float32)).to(x.dtype) if x.dim() else x, t)
-    state = noisy(pl.init_state(cfg))
-    ring = noisy(rp.init(E, 16, 8, 2))
-    for t, tmpl in ((state, pl.init_state(cfg)), (ring, rp.init(E, 16, 8,
-                                                                 2))):
+    state = noisy(pl.init_state(cfg, "cpu"))
+    ring = noisy(rp.init(E, 16, 8, 2, "cpu"))
+    for t, tmpl in ((state, pl.init_state(cfg, "cpu")),
+                    (ring, rp.init(E, 16, 8, 2, "cpu"))):
         on_card = tree.map_(lambda x: x.to(card), t)
         got = el.reset_env_rows(on_card, tree.map_(lambda x: x.to(card),
                                                    tmpl), [1, 4])
@@ -901,7 +1003,7 @@ def test_elastic_trees_on_card_equal_the_cpu(card, rng):
         assert _tree_bits_equal(tree.map_(lambda x: x.cpu(), got), want)
     grown = el.grow_env_tree(tree.map_(lambda x: x.to(card), state),
                              pl.init_state(big, card), E)
-    want = el.grow_env_tree(state, pl.init_state(big), E)
+    want = el.grow_env_tree(state, pl.init_state(big, "cpu"), E)
     assert _tree_bits_equal(tree.map_(lambda x: x.cpu(), grown), want)
 
 

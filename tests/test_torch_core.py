@@ -303,3 +303,29 @@ def test_run_many_equals_k_ticks_bitwise(rng):
     for a, b in zip(jax.tree.leaves(tuple(st)), jax.tree.leaves(tuple(fst))):
         assert torch.equal(a, b)
     assert int(fst.tick_index) == K and fst.tick_index.dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", ["pipeline.init_state", "replay.init",
+                                  "normalize.init_state",
+                                  "gapfill.init_state",
+                                  "anomaly.init_state",
+                                  "frame.empty_tick_frame"])
+def test_state_constructors_default_to_the_card(name):
+    """Every state constructor takes ``device=None``, the card, as the
+    port's entry points do: where there is no card it raises
+    ``resolve_device``'s error rather than build the state on the CPU
+    beside an engine on the card; ``device="cpu"`` builds it there."""
+    from repro_torch.core import frame, pipeline, replay
+    mod, fn = name.split(".")
+    mods = {"pipeline": pipeline, "replay": replay, "normalize": nz,
+            "gapfill": gf, "anomaly": an, "frame": frame}
+    args = {"pipeline": (PipelineConfig(n_envs=E, n_streams=S),),
+            "replay": (E, 8, 3, 2), "frame": (E, S, T)}.get(mod, (E, S))
+    build = getattr(mods[mod], fn)
+    leaves = [x for x in jax.tree.leaves(tuple(build(*args, device="cpu")))
+              if torch.is_tensor(x)]
+    assert leaves and all(x.device.type == "cpu" for x in leaves)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build(*args)

@@ -87,9 +87,9 @@ def test_replay_add_many_matches_jax_and_sequential_adds(C, K, rng):
     ver = np.arange(K, dtype=np.int32) % 3
     want = jrp.add_many(jrp.init(E, C, F, A), *map(jnp.asarray, (
         obs, act, rew, nxt, tick)), jnp.asarray(mask), jnp.asarray(ver))
-    got = rp.add_many(rp.init(E, C, F, A), *map(T_, (obs, act, rew, nxt,
+    got = rp.add_many(rp.init(E, C, F, A, "cpu"), *map(T_, (obs, act, rew, nxt,
                                                      tick)), mask, ver)
-    seq = rp.init(E, C, F, A)
+    seq = rp.init(E, C, F, A, "cpu")
     for k in range(K):
         if mask[k]:
             rp.add(seq, T_(obs[k]), T_(act[k]), T_(rew[k]), T_(nxt[k]),

@@ -432,9 +432,9 @@ def test_grow_env_tree_matches_jax(rng):
         el.grow_env_tree({k: T_(v) for k, v in tree.items()}, bad, 3)
     # a pipeline state: the init sentinels arrive in the new rows
     cfg = PipelineConfig(**_cfg_kw(3))
-    st = pl.init_state(cfg)
+    st = pl.init_state(cfg, "cpu")
     st = st._replace(prev_ts=torch.zeros_like(st.prev_ts))
-    grown = el.grow_env_tree(st, pl.init_state(PipelineConfig(**_cfg_kw(5))),
+    grown = el.grow_env_tree(st, pl.init_state(PipelineConfig(**_cfg_kw(5)), "cpu"),
                              3)
     assert grown.prev_ts[:3].eq(0).all() and grown.prev_ts[3:].eq(-1e30).all()
     assert torch.isinf(grown.norm.min[3:]).all()
@@ -467,7 +467,7 @@ def test_add_and_add_many_env_mask_match_jax(rng):
     the JAX functions: ``valid`` takes the mask, every other leaf and the
     cursor are written as without it."""
     E, C, F, A, K = 4, 5, 3, 2, 7
-    buf, jbuf = rp.init(E, C, F, A), jrp.init(E, C, F, A)
+    buf, jbuf = rp.init(E, C, F, A, "cpu"), jrp.init(E, C, F, A)
     xs = [rng.normal(0, 1, (K, E, F)).astype(np.float32),
           rng.normal(0, 1, (K, E, A)).astype(np.float32),
           rng.normal(0, 1, (K, E)).astype(np.float32),

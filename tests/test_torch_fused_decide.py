@@ -62,7 +62,8 @@ def test_add_batch_matches_jax_and_sequential_adds(K, C, row0, rng):
     ``add_batch``, bit for bit: masked rows, the cursor, K > capacity; and
     a second batch from mid-ring."""
     E, F, A = 3, 4, 2
-    ring = [(rp.init(E, C, F, A), jrp.init(E, C, F, A), rp.init(E, C, F, A))]
+    ring = [(rp.init(E, C, F, A, "cpu"), jrp.init(E, C, F, A),
+             rp.init(E, C, F, A, "cpu"))]
     seq, want, got = ring[0]
     for b in range(2):
         obs = rng.normal(0, 1, (K, E, F)).astype(np.float32)
@@ -97,8 +98,8 @@ def test_add_batch_env_mask_matches_jax(K, C, rng):
     ``add`` calls with the per-window mask, bit for bit: ring positions
     and every other leaf as without it, K > capacity included."""
     E, F, A = 4, 3, 2
-    seq, got, want = rp.init(E, C, F, A), rp.init(E, C, F, A), \
-        jrp.init(E, C, F, A)
+    seq, got = rp.init(E, C, F, A, "cpu"), rp.init(E, C, F, A, "cpu")
+    want = jrp.init(E, C, F, A)
     obs = rng.normal(0, 1, (K, E, F)).astype(np.float32)
     act = rng.normal(0, 1, (K, E, A)).astype(np.float32)
     rew = rng.normal(0, 1, (K, E)).astype(np.float32)

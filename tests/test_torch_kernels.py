@@ -447,9 +447,11 @@ def _jax_harmonize(vals, ts, valid, ws, T, use_pallas):
     (300, True, ("warp", True)), (32, False, ("warp", False)),
     (128, False, ("warp", False))])
 def test_harmonize_impl_for(M, aligned, want):
-    """harmonize's one instance serves every shape; it stages float4 loads
-    only where the pointers are 16-byte aligned and M % 4 == 0."""
-    assert hz_ops.impl_for(M, aligned) == want
+    """harmonize's warp instance serves every M up to ``MAX_T`` ticks; it
+    stages float4 loads only where the pointers are 16-byte aligned and
+    M % 4 == 0."""
+    assert hz_ops.impl_for(M, aligned, 8) == want
+    assert hz_ops.impl_for(M, aligned, hz_ops.MAX_T) == want
     assert want[0] in hz_ops.LAUNCHES_BY_IMPL
 
 

@@ -104,7 +104,7 @@ def test_run_many_sharded_equals_unsharded(n, elastic, rng):
     assert mesh.size == n
     fn, _ = pl.make_run_many_sharded(cfg, mesh, elastic=elastic)
     active = torch.from_numpy(rng.rand(E) < 0.7) if elastic else None
-    state = pl.init_state(cfg)
+    state = pl.init_state(cfg, "cpu")
     shards = sh.place_env_tree(state, 0, mesh)
     for _ in range(2):
         raws = _batch(rng, 3, E)

@@ -259,21 +259,30 @@ def test_unknown_policy_raises():
 
 
 def test_ops_raise_on_unsupported_dtype():
-    """No wrapper falls back: a float64 input raises before any dispatch."""
+    """No wrapper falls back. flash_attention takes float32, bfloat16 and
+    float16 and raises on float64 before any dispatch. The other four op
+    entries take every dtype the reference's take (values cast to
+    float32, masks read as ``> 0``): a float64 input and an int mask give
+    the float32/bool call's result, nothing raises."""
     f64 = torch.zeros((2, 2, 4), dtype=torch.float64)
-    b = torch.zeros((2, 2, 4), dtype=torch.bool)
-    c64 = torch.zeros((2, 2), dtype=torch.float64)
-    with pytest.raises(TypeError):
-        locf_ops.locf(f64, b, c64, torch.zeros((2, 2), dtype=torch.bool))
-    with pytest.raises(TypeError):
-        wagg_ops.window_agg(f64, b, c64, c64)
-    with pytest.raises(TypeError):
-        rglru_ops.rglru_scan(f64, f64, c64)
-    with pytest.raises(TypeError):   # an int mask is not a bool mask
-        locf_ops.locf(f64.float(), b.int(), c64.float(),
-                      torch.zeros((2, 2), dtype=torch.bool))
-    with pytest.raises(TypeError):
-        hz_ops.harmonize(f64, f64, b, torch.zeros((2,), dtype=torch.float64),
-                         tick_s=1.0, n_ticks=4)
     with pytest.raises(TypeError):
         fa_ops.flash_attention(f64[None], f64[None], f64[None])
+    v = torch.arange(16, dtype=torch.float64).reshape(2, 2, 4) - 5
+    b = (v > 0)
+    c = torch.ones((2, 2), dtype=torch.float64)
+    want = locf_ops.locf(v.float(), b, c.float(), c > 0)
+    got = locf_ops.locf(v, b.int() - (~b).int(), c, c.int())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    want = wagg_ops.window_agg(v.float(), b, c.float(), c.float())
+    got = wagg_ops.window_agg(v, b.int(), c, c)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    h0 = v[:, 0]
+    want = rglru_ops.rglru_scan(v.float(), v.float(), h0.float())
+    got = rglru_ops.rglru_scan(v, v, h0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ws = torch.zeros((2,), dtype=torch.float64)
+    want = hz_ops.harmonize(v.float(), v.abs().float(), b, ws.float(),
+                            tick_s=1.0, n_ticks=4)
+    got = hz_ops.harmonize(v, v.abs(), b.int() - (~b).int(), ws,
+                           tick_s=1.0, n_ticks=4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -3,7 +3,7 @@
     python3 tools/harmonize_variants.py
 
 Builds ``src/repro_torch/kernels/harmonize/csrc/harmonize.cu`` twice into
-``build/variants/``: as committed (lanes that hit the same tick find each
+``build/variants/`` and runs its ``warp`` instance (impl 0): as committed (lanes that hit the same tick find each
 other through an ``atomicOr`` mask per tick in shared memory) and with that
 grouping replaced by ``__match_any_sync``. Both must give the same bits.
 Then it times both at ``chip_smoke.py``'s harmonize shapes (the path's
@@ -32,14 +32,14 @@ from repro_torch.kernels import _build  # noqa: E402
 SRC = REPO / "src/repro_torch/kernels/harmonize/csrc/harmonize.cu"
 OUT = REPO / "build" / "variants"
 GROUPING = """\
-      if (key >= 0) atomicOr(masks + slot, 1u << lane);
+      if (hit) atomicOr(masks + slot, 1u << lane);
       __syncwarp();
-      const unsigned grp = key >= 0 ? masks[slot] : 0u;
+      const unsigned grp = hit ? masks[slot] : 0u;
       __syncwarp();   // every lane has its group before a mask is cleared
 """
 MATCH = """\
       const unsigned same = __match_any_sync(kFull, key);
-      const unsigned grp = key >= 0 ? same : 0u;
+      const unsigned grp = hit ? same : 0u;
 """
 
 
@@ -94,7 +94,7 @@ def main() -> int:
                     _build.check(lib.harmonize_launch(
                         v.data_ptr(), ts.data_ptr(), ok.data_ptr(),
                         ws.data_ptr(), out.data_ptr(), obs.data_ptr(), e, s,
-                        m, t, cs.TICK_S, vec, _build.stream_ptr(dev)),
+                        m, t, cs.TICK_S, 0, vec, _build.stream_ptr(dev)),
                         name)
                 ms = cs.device_ms(call)
                 if ms is None:

@@ -1,6 +1,7 @@
 """Time kernels of two source trees on one card, in turns.
 
     python3 tools/kernel_ab.py PARENT_TREE [--kernels locf,window_agg]
+                               [--shapes path,fleet]
 
 PARENT_TREE is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``). Each turn is a fresh
@@ -11,8 +12,11 @@ one profiled scan batch of the E=256 system (``chip_smoke.make_system``)
 for its count of device activities. The turns run parent, this tree, this
 tree, parent. One JSON line per measurement, then a summary line: each
 kernel's device microseconds per tree (two readings a turn, each the
-mean of 20 calls) and the scan batch's device activities. Needs one
-NVIDIA card.
+mean of 20 calls) and the scan batch's device activities. ``--shapes``
+keeps only the named cases: a tree older than this one's cases raises on
+the inputs it did not take yet (earlier trees refuse float16 and other
+head dims in flash_attention, and more than 19,000 ticks in harmonize).
+Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def worker(tree: Path, names: list[str]) -> None:
+def worker(tree: Path, names: list[str], shapes) -> None:
     """Time ``names`` from ``tree``'s kernels (its ``src`` first on the
     path, so ``chip_smoke``'s cases import its ops)."""
     sys.path[:0] = [str(tree / "src"), str(HERE)]
@@ -42,7 +46,8 @@ def worker(tree: Path, names: list[str]) -> None:
     _build.build()
     g = torch.Generator(device=dev).manual_seed(0)
     for case in cs.kernel_cases(dev, g):
-        if case["name"] not in names:
+        if case["name"] not in names or (shapes and
+                                         case["shape"] not in shapes):
             continue
         ms = [cs.device_ms(case["kernel"]) for _ in range(2)]
         cs.emit({"tree": str(tree), "kernel": case["name"],
@@ -60,11 +65,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", type=Path)
     ap.add_argument("--kernels", default="locf,window_agg")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated case shapes (default: all)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     names = args.kernels.split(",")
+    shapes = [x for x in args.shapes.split(",") if x]
     if args.worker:
-        worker(args.worker.resolve(), names)
+        worker(args.worker.resolve(), names, shapes)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -76,7 +84,8 @@ def main() -> int:
     for side in ("parent", "change", "change", "parent"):
         proc = subprocess.run(
             [sys.executable, __file__, str(trees["parent"]), "--kernels",
-             args.kernels, "--worker", str(trees[side])],
+             args.kernels, "--shapes", args.shapes, "--worker",
+             str(trees[side])],
             capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
