@@ -12,18 +12,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      at its path's shapes and at larger ones, with device times from the
      profiler (CUDA event pairs where the trace holds no device time).
      Kernels with instances (flash_attention: ``wgmma`` for bfloat16 and
-     float16 at head dims 64/128/256, ``scalar`` otherwise; locf and
+     float16 at head dims that are multiples of 8 up to 256, ``scalar``
+     otherwise; locf and
      window_agg: ``row`` at T <= 16, ``warp`` above; harmonize: ``warp``
      up to ``MAX_T`` ticks, ``tiled`` above) name the instance each case
      ran, from the launch counts and the profiler's trace. flash_attention
      also runs in float16 (``path_f16``), at head dims off the instances'
-     widths (``d48``, ``d80``, ``d96``, ``d320``) and at query offsets
+     widths (``d48``, ``d80``, ``d96`` wgmma; ``d320``, ``d36`` scalar)
+     and at query offsets
      (``ctx_shard*``, context parallelism's shard shapes, each counted in
      ``LAUNCHES_BY_OFFSET`` under its instance and offset); harmonize
      over a week of 30 s ticks (``long``, T = 20,160).
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
-     policy: 4 batches (128 windows) timed, with every kernel launch
+     policy: 3 batches (96 windows) timed, with every kernel launch
      counted (locf and window_agg all on their ``row`` instance), then one
      batch untimed with the bytes fetched to the host counted. Every batch
      mode is timed by the same host-clock instrument (``instrument``).
@@ -62,7 +64,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      grid's argmax) and the calibration seconds.
   5d. online_train — ``scan_fused_decide`` at the same config with the
      ``mlp`` policy (hidden 32) and ``train="online"`` (128 rows a step,
-     a checkpoint every applied step), 4 batches a run, fresh systems
+     a checkpoint every applied step), 3 batches a run, fresh systems
      without and with training in the order off, on, on, off (the two
      runs of each kind bit-equal; windows/s and their means). Checks:
      (a) a step on a fresh ring is an exact no-op at version 0; (b) two
@@ -100,7 +102,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      (28 layers, d_model 1024, vocab 151936, bfloat16, seeded random
      weights): ``LM.prefill`` on 4 x 2048 tokens with one flash-attention
      launch per layer counted, decode against prefill, and a
-     ``ServeEngine`` run at ``launch/serve.py``'s defaults.
+     ``ServeEngine`` drain at ``SERVE`` (``launch/serve.py``'s slots and
+     max_seq, fewer and shorter requests).
   7a. lm_float16 — the same model in float16 (``phase_lm_float16``):
      prefill with its 28 flash launches on the wgmma kernel's float16
      instance (named in a trace), decode against prefill (reported), a
@@ -146,8 +149,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      at query offsets, each counted and traced), heads that do not
      divide, ``seq_parallel``, RWKV-6 and the ``embeddings``/``vlm``
      frontends, each beside its unsharded twin.
-  Phases 9 to 12 run in a child process of the script (``--train``),
-  which it waits for (see ``train_in_child``).
+  Phase 8 runs in a child process of the script (``--families``), and
+  phases 9 to 12 in another (``--train``); the script waits for each
+  (see ``in_child``).
 The line before the last holds one JSON object with every kernel's
 numbers (``launches`` summed over the paths and instances,
 ``launches_by_path`` each path's, ``at_lm_shape`` the times at the LM
@@ -174,19 +178,25 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-E, K, BATCHES, CAPACITY = 256, 32, 4, 4096
+# BATCHES timed batches a mode: 3, so that online_train applies a step on
+# top of another (the decision loop's phases are host-bound: each batch a
+# mode costs ~7 s on a slow host, see SERVE for the room made for it)
+E, K, BATCHES, CAPACITY = 256, 32, 3, 4096
 N_TICKS, TICK_S, MAX_SAMPLES, HIDDEN = 8, 60.0, 32, 16
 # the LM side-car: prefill batch and prompt length, the decode-vs-prefill
-# tail, and launch/serve.py's defaults but for its requests, whose default
-# is 8 of 16 tokens, two waves of the 4 slots (the drains of qwen3 and five
-# families took ~54 s of the script at 8; phase 12 needed the room): 5
-# requests, the first asking for `refill_at` tokens and the last for the
-# rest of 16, so that the last is admitted into the first's freed slot
-# (lengths reset, the slot's cache rows overwritten) and every slot ends
-# at tick 16, one wave's ticks
+# tail, and launch/serve.py's slots and max_seq but for its requests, whose
+# default is 8 prompts of 8 tokens asking for 16, two waves of the 4 slots.
+# The engines' depth is cut to make room for the decision loop's third
+# batch (seven drains took ~54 s of the script at 8 requests and ~54 s
+# again at 5 of 8 + 16 tokens, 51 engine steps each, on a slow host): 5
+# requests of 4 prompt tokens (3 prefill steps an admission), the first
+# asking for `refill_at` tokens and the last for the rest of 8, so that
+# the last is admitted into the first's freed slot (lengths reset, the
+# slot's cache rows overwritten) and every slot ends at tick 8, one wave's
+# ticks: 23 engine steps a drain
 LM_ARCH, LM_B, LM_S, LM_TAIL = "qwen3-0.6b", 4, 2048, 8
-SERVE = dict(slots=4, max_seq=128, requests=5, prompt_len=8, new_tokens=16,
-             refill_at=4)
+SERVE = dict(slots=4, max_seq=128, requests=5, prompt_len=4, new_tokens=8,
+             refill_at=2)
 # the kernel cases at the LM families' prefill shapes (phase 3), by kernel
 LM_SHAPE = {"rglru_scan": "lm_recurrentgemma",
             "flash_attention": "lm_recurrentgemma"}
@@ -317,7 +327,16 @@ def _missing(events, want):
     return [w for w in want if not any(w in k for k in keys)]
 
 
-def device_ms(fn, reps=20, warmup=3, tries=3, want=()):
+def _records(events, want):
+    """The device records among ``events`` of kernels whose names contain
+    a name in ``want``: their count and summed duration (us)."""
+    from torch.autograd import DeviceType
+    hits = [e for e in events if e.device_type == DeviceType.CUDA
+            and any(w in e.key for w in want)]
+    return sum(e.count for e in hits), _device_us(hits)
+
+
+def device_ms(fn, reps=20, warmup=3, tries=3, want=(), info=None):
     """Device time of one call: the card's busy time (every kernel the call
     launched, gaps between them excluded), from the profiler's CUPTI trace,
     averaged over ``reps`` calls. A trace now and then holds no device
@@ -325,7 +344,13 @@ def device_ms(fn, reps=20, warmup=3, tries=3, want=()):
     library (PERF.md §7); then it is taken again, up to ``tries`` times.
     If every trace came back empty, None is returned (the caller then
     reports event times); if every one lacks a kernel named in ``want``,
-    the check fails rather than read low."""
+    the check fails rather than read low. The kernels in ``want`` are
+    timed by the mean of the records the trace holds: in this script's
+    process a trace of 20 calls kept 17 or 18 of their records, the same
+    share for every kernel and shape (PERF.md §7), which divided by the
+    20 calls read every kernel 10-15% low. ``info`` gets the records
+    held and the records the calls made (``reps`` times the launches a
+    call, the nearest whole number to records over ``reps``)."""
     for _ in range(warmup):
         fn()
     missing = []
@@ -337,7 +362,15 @@ def device_ms(fn, reps=20, warmup=3, tries=3, want=()):
         total = _device_us(events)
         missing = _missing(events, want)
         if total > 0 and not missing:
-            return total / reps / 1e3
+            if not want:
+                return total / reps / 1e3
+            n, wanted_us = _records(events, want)
+            per_call = max(1, round(n / reps))
+            if info is not None:
+                info.update(trace_records=n,
+                            trace_records_made=per_call * reps)
+            return (wanted_us / n * per_call
+                    + (total - wanted_us) / reps) / 1e3
     check(not missing, f"device_ms: every trace lacks kernels {missing}")
     return None
 
@@ -707,13 +740,16 @@ FLASH_SPECS = (
     (LM_SHAPE["flash_attention"], torch.bfloat16, LM_S, 2048, 0.0,
      (10, 1, 256), "wgmma"))
 # the reference's whole input domain: float16 at qwen3's prefill shape,
-# and head dims off the instances' widths
+# and head dims off the instances' widths: 48, 80 and 96 on the wgmma
+# kernel's 64- and 128-column instances (TMA zero-fills the columns past
+# D), 320 (above 256) and 36 (not a multiple of 8) on the scalar one
 FLASH_DOMAIN_SPECS = (
     ("path_f16", torch.float16, LM_S, 0, 0.0, (16, 8, 128), "wgmma"),
-    ("d48", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 48), "scalar"),
-    ("d80", torch.float16, LM_S, 0, 0.0, (16, 8, 80), "scalar"),
-    ("d96", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 96), "scalar"),
-    ("d320", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 320), "scalar"))
+    ("d48", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 48), "wgmma"),
+    ("d80", torch.float16, LM_S, 0, 0.0, (16, 8, 80), "wgmma"),
+    ("d96", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 96), "wgmma"),
+    ("d320", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 320), "scalar"),
+    ("d36", torch.bfloat16, LM_S, 0, 0.0, (16, 8, 36), "scalar"))
 
 
 def _attention_f64(q, k, v, window, softcap):
@@ -749,9 +785,6 @@ def flash_specs(dev, g, specs):
     B = LM_B
     cases = []
     for label, dtype, S, window, softcap, (H, HKV, D), impl in specs:
-        check(fa_ops.impl_for(dtype, D) == impl,
-              f"flash_attention {label}: impl_for gives "
-              f"{fa_ops.impl_for(dtype, D)}, expected {impl}")
         q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev)
                    .to(dtype) for h in (H, HKV, HKV))
         if softcap:
@@ -761,6 +794,10 @@ def flash_specs(dev, g, specs):
 
         def cmp(q=q, k=k, v=v, kw=kw, dtype=dtype, label=label, info=info,
                 impl=impl):
+            D = q.shape[-1]
+            check(fa_ops.impl_for(dtype, D) == impl,
+                  f"flash_attention {label}: impl_for gives "
+                  f"{fa_ops.impl_for(dtype, D)}, expected {impl}")
             out = check_instance(
                 fa_ops, "flash_attention", label,
                 lambda: fa_ops.flash_attention(q, k, v, **kw), impl, info,
@@ -811,9 +848,9 @@ def flash_specs(dev, g, specs):
 def flash_cases(dev, g):
     """qwen3-0.6b's prefill attention (B=4, 16 q / 8 kv heads, head dim
     128, S=2048) in bfloat16, float16 and float32, a ragged S, a window
-    and a softcap; the same shape at head dims 48, 80, 96 and 320, off the
-    instances' widths (the scalar kernel, zero-filled columns, and at 320
-    two 256-column output chunks); gemma2-2b's (8 q / 4 kv heads, head
+    and a softcap; the same shape at head dims 48, 80, 96, 320 and 36,
+    off the instances' widths (FLASH_DOMAIN_SPECS); gemma2-2b's (8 q / 4
+    kv heads, head
     dim 256, its 4096 window and attention cap of 50); and
     recurrentgemma-2b's (10 q heads over 1 kv head, head dim 256, window
     2048). Each case names the
@@ -930,8 +967,11 @@ def phase_kernels(dev):
         reps = 20 if long_ else 50
         calls = {k: call_ms(case[k], reps=reps) for k in
                  ("kernel", "plain", "library") if case[k] is not None}
+        records = {}
         dev_ms = {k: device_ms(case[k], want=(TRACE_NAME[case["name"]],)
-                               if k == "kernel" else ()) for k in calls}
+                               if k == "kernel" else (),
+                               info=records if k == "kernel" else None)
+                  for k in calls}
         timer = "profiler" if all(v is not None
                                   for v in dev_ms.values()) else "events"
         t = dev_ms if timer == "profiler" else calls
@@ -941,7 +981,7 @@ def phase_kernels(dev):
         us = lambda x: None if x is None else x * 1e3
         emit(dict(kernel=case["name"], shape=case["shape"], **case["dims"],
                   parity="ok", max_abs_err=err, **case.get("info", {}),
-                  timer=timer, us=us(ms),
+                  timer=timer, **records, us=us(ms),
                   plain_us=us(plain_ms), library_us=us(lib_ms),
                   bound_us=us(bound_ms), bound_by=bound_by,
                   call_us=us(calls["kernel"]),
@@ -2323,7 +2363,7 @@ def _sync_ms(fn):
 
 
 def _serve_drain(model, tag):
-    """A ``ServeEngine`` drain at ``launch/serve.py``'s defaults (SERVE),
+    """A ``ServeEngine`` drain at SERVE (``launch/serve.py``'s slots),
     every engine step timed (host clock, synchronized). The timing hook
     makes a cycle engine -> hook -> engine: the caller collects it."""
     from repro_torch.serve.engine import Request, ServeEngine
@@ -4333,14 +4373,16 @@ def phase_lm_sharded_more(dev, readings):
     return {"flash_attention": fa, "rglru_scan": rg_paths}
 
 
-# The two LM training phases run in a child process of this script
-# (``--train``), which the parent waits for: in the script's own process,
-# after the families' phases, three runs each traced 51 of the 52
-# rglru_scan launches of recurrentgemma-2b's train step in every retry
-# (the counters showed 52), while the phase alone in a fresh process traced
-# all 52 (PERF.md §7). The child's lines pass through; its last line gives
-# its launches.
-TRAIN_CHILD_TIMEOUT_S = 700
+# The LM families' phases and the LM training phases each run in a child
+# process of this script (``--families``, ``--train``), which the parent
+# waits for: in the script's own process, after the families' phases,
+# three runs each traced 51 of the 52 rglru_scan launches of
+# recurrentgemma-2b's train step in every retry (the counters showed 52),
+# while the phase alone in a fresh process traced all 52; and one run, on a
+# slow host, traced 17 of the 18 rglru_scan launches of recurrentgemma-2b's
+# prefill in every retry after the decision loop's phases (PERF.md §7). A
+# child's lines pass through; its last line gives its launches.
+CHILD_TIMEOUT_S = 700
 
 
 def run_train_phases(dev):
@@ -4357,29 +4399,43 @@ def run_train_phases(dev):
     return by_path
 
 
-def train_in_child():
-    """run_train_phases in a child process on the same card, the parent's
-    cached device memory released first; returns its launches."""
+def run_family_phases(dev):
+    """The LM families' phases; returns {kernel: {path: launches}}."""
+    by_path = {}
+    for arch in FAMILIES:
+        for name, n in phase_lm_family(dev, arch).items():
+            if n:
+                by_path.setdefault(name, {})[f"lm_{arch}"] = n
+    return by_path
+
+
+CHILD_PHASES = {"--families": run_family_phases, "--train": run_train_phases}
+
+
+def in_child(flag):
+    """The phases of ``flag`` (CHILD_PHASES) in a child process on the same
+    card, the parent's cached device memory released first; returns their
+    launches."""
     gc.collect()
     torch.cuda.empty_cache()
     proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--train",
+        [sys.executable, str(Path(__file__).resolve()), flag,
          str(time.perf_counter() - T_START)],
-        stdout=subprocess.PIPE, text=True, timeout=TRAIN_CHILD_TIMEOUT_S)
+        stdout=subprocess.PIPE, text=True, timeout=CHILD_TIMEOUT_S)
     launches = None
     for line in proc.stdout.splitlines():
-        if line.startswith('{"train_launches"'):
-            launches = json.loads(line)["train_launches"]
+        if line.startswith('{"child_launches"'):
+            launches = json.loads(line)["child_launches"]
         else:
             print(line, flush=True)
     check(proc.returncode == 0 and launches is not None,
-          f"the training phases' process exited {proc.returncode}")
+          f"the {flag[2:]} phases' process exited {proc.returncode}")
     return launches
 
 
-def train_main(offset_s: float) -> int:
-    """The child of train_in_child: its phase lines' ``at_s`` go on from
-    the parent's ``offset_s``."""
+def child_main(flag, offset_s: float) -> int:
+    """The child of in_child: its phase lines' ``at_s`` go on from the
+    parent's ``offset_s``."""
     global T_START
     T_START -= offset_s
     sys.path.insert(0, str(REPO / "src"))
@@ -4388,7 +4444,7 @@ def train_main(offset_s: float) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
-    print(json.dumps({"train_launches": run_train_phases(
+    print(json.dumps({"child_launches": CHILD_PHASES[flag](
         torch.device("cuda"))}), flush=True)
     return 0
 
@@ -4452,12 +4508,9 @@ def main() -> int:
         "flash_attention_scalar": {f"lm_{LM_ARCH}_float16_twin":
                                    f16["scalar"]},
         "harmonize_tiled": {"harmonize_op_week": week}}
-    for arch in FAMILIES:
-        for name, n in phase_lm_family(dev, arch).items():
-            if n:
-                by_path[name][f"lm_{arch}"] = n
-    for name, paths in train_in_child().items():
-        by_path[name].update(paths)
+    for flag in CHILD_PHASES:
+        for name, paths in in_child(flag).items():
+            by_path[name].update(paths)
 
     def entry(name, t, source, replaces, paths, **extra):
         us = {f"{k[:-3]}_us": (None if t[k] is None else t[k] * 1e3)
@@ -4483,6 +4536,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--train"]:
-        sys.exit(train_main(float(sys.argv[2])))
+    if len(sys.argv) > 1 and sys.argv[1] in CHILD_PHASES:
+        sys.exit(child_main(sys.argv[1], float(sys.argv[2])))
     sys.exit(main())

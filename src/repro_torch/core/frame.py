@@ -56,10 +56,12 @@ class FeatureFrame(NamedTuple):
 
 
 def make_raw_window(values, timestamps, valid=None, *,
-                    device="cpu") -> RawWindow:
-    """Build a RawWindow on ``device`` from host arrays, always copied: the
-    host staging buffers are reused between batches, and
-    ``torch.from_numpy`` alone would alias them on the CPU."""
+                    device=None) -> RawWindow:
+    """Build a RawWindow on ``device`` (``None``: the card, as
+    :func:`repro_torch.device.resolve_device` resolves it) from host
+    arrays, always copied: the host staging buffers are reused between
+    batches, and ``torch.from_numpy`` alone would alias them on the CPU."""
+    device = resolve_device(device)
     to = lambda x, dt: torch.from_numpy(np.array(x, dtype=dt)).to(device)
     v, t = to(values, np.float32), to(timestamps, np.float32)
     m = (torch.ones(v.shape, dtype=torch.bool, device=v.device)

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``kernels/*/csrc/*.cu`` sources compile in ONE ``nvcc`` call into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), under ``build/kernels/`` at the repository root. The
+All ``kernels/*/csrc/*.cu`` sources compile into one shared library with
+a plain C interface (no PyTorch headers), under ``build/kernels/`` at the
+repository root: one ``nvcc`` process per source, all started together,
+then one link, so the build takes as long as its slowest source. The
 library is built at first use and rebuilt when a source or a
 ``kernels/*.cuh`` header they include is newer than it; it is loaded with
 ``ctypes``. A failed build raises with ``nvcc``'s
@@ -30,8 +31,9 @@ import torch
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "librepro_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = [*COMPILE_FLAGS, "-shared"]   # one source straight to a library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,16 +101,37 @@ def build(verbose: bool = False) -> float:
     if not _stale():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = LIB_PATH.with_suffix(f".{pid}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.parents[1].name}.{src.stem}.{pid}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+            elif verbose:
+                print(err, end="")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            obj.unlink(missing_ok=True)
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 

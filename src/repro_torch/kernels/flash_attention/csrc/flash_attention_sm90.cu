@@ -1,7 +1,8 @@
 // Causal GQA flash attention for Hopper's tensor cores: bfloat16 or float16
 // in and out (E, one instance each), float32 scores, softmax and
-// accumulators; optional sliding window and tanh softcap. Head dims 64, 128
-// and 256.
+// accumulators; optional sliding window and tanh softcap. Any head dim D
+// that is a multiple of 8 up to 256, on the narrowest of three instances,
+// DW = 64, 128 or 256 columns wide, that holds it.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_kernel, called through flash_attention_pallas), which tiles (Qb, D) and
@@ -31,9 +32,21 @@
 // dims (D, H, Sq, B) for q/out and (D, Hkv, Skv, B) for k/v, so no transpose
 // precedes the launch and q head h reads kv head h / G directly. Every box is
 // 64 columns (128 bytes) wide with the 128-byte swizzle that wgmma reads; a
-// tile of D columns is D / 64 such chunks. TMA fills rows past Sq and keys
+// tile of DW columns is DW / 64 such chunks. TMA fills rows past Sq and keys
 // past Skv with zeros; keys >= Skv are masked, and the store of a partial
 // last q block stops at Sq (TMA clips the box).
+// Head dim and instance width: the maps describe the tensors as they are
+// (dim 0 = D, rows D * 2 bytes apart, so D % 8 == 0 keeps every row
+// 16-byte aligned). Columns D .. DW - 1 of a chunk that starts below D
+// are filled with zeros on load and clipped on the store; a chunk that
+// starts at or past D (D <= 192 on the 256 instance) is neither loaded nor
+// stored, and its places in the Q tile and the K/V ring are zeroed once
+// when the CTA starts. The consumers do not read D: they run every k-step
+// and every column as at D = DW, so the scores add the products of the D
+// real columns and exact zeros, the columns past D are computed and never
+// stored, and at D = DW the kernel computes exactly what it did when D was
+// the instance, bit for bit, in the same registers. The softmax scale is
+// the caller's (1/sqrt(D), never 1/sqrt(DW)).
 //   * S = Q K^T: wgmma m64nBNk16, A (Q) and B (K) from shared memory, both
 //     K-major, f32 accumulators in registers. The softmax scale multiplies
 //     the f32 scores (the model calls with scale 1, its q already scaled).
@@ -74,9 +87,9 @@ constexpr float kMasked = -1e30f;
 constexpr float kMaxFloor = -1e29f;
 constexpr float kDenomFloor = 1e-30f;
 
-template <int D, int BN>
+template <int DW, int BN>
 struct Tiles {
-  static constexpr int kChunks = D / 64;                  // 64-column chunks
+  static constexpr int kChunks = DW / 64;                 // 64-column chunks
   static constexpr int kQChunk = kBlockM * kRowBytes;     // bytes
   static constexpr int kKVChunk = BN * kRowBytes;
   static constexpr int kQBytes = kChunks * kQChunk;
@@ -391,15 +404,15 @@ __device__ __forceinline__ uint32_t pack2<__half>(float x0, float x1,
 // column 8 (i / 4) + 2 (lane % 4) + i % 2. Registers 8j..8j+7 of a score
 // fragment are then exactly the 16-bit A fragment of keys 16j..16j+15 for
 // the P V product (pairs of neighbouring columns packed low to high).
-template <typename E, int D, int BN>
+template <typename E, int DW, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __grid_constant__ CUtensorMap o_map,
                             int Sq, int Skv, int q_offset, int H, int Hkv,
-                            int window, float softcap, float scale) {
-  using T = Tiles<D, BN>;
+                            int D, int window, float softcap, float scale) {
+  using T = Tiles<DW, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023) & ~1023u;       // Q tile, chunk-major
@@ -417,6 +430,30 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int k_begin = window > 0 ? max(0, p0 - window + 1) / BN * BN : 0;
   const int n_tiles = (q_last - k_begin) / BN + 1;
   const int wg = threadIdx.x / 128;
+  const int n_chunks = (D + 63) / 64;           // chunks that hold columns
+
+  if (n_chunks < T::kChunks) {
+    // the chunks past D are never loaded: zeros in the Q tile and in every
+    // stage's K and V tiles, visible to the tensor cores' (async) proxy
+    uint8_t* const base = smem_raw + (sq - raw);
+    const int per_chunk = T::kQChunk / 16 + kStages * 2 * T::kKVChunk / 16;
+    const int n = (T::kChunks - n_chunks) * per_chunk;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int c = n_chunks + i / per_chunk;
+      int j = i % per_chunk;
+      uint32_t off;
+      if (j < T::kQChunk / 16) {
+        off = c * T::kQChunk + 16 * j;
+      } else {
+        j -= T::kQChunk / 16;
+        const int tile = j / (T::kKVChunk / 16);   // stage s: 2 s K, 2 s + 1 V
+        off = T::kQBytes + tile * T::kTileBytes + c * T::kKVChunk +
+              16 * (j % (T::kKVChunk / 16));
+      }
+      *reinterpret_cast<uint4*>(base + off) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -432,10 +469,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     // ------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(q_bar, T::kQBytes);
+      mbar_expect_tx(q_bar, n_chunks * T::kQChunk);
 #pragma unroll
       for (int c = 0; c < T::kChunks; ++c)
-        tma_load(sq + c * T::kQChunk, &q_map, q_bar, 64 * c, h, q0, b);
+        if (c < n_chunks)
+          tma_load(sq + c * T::kQChunk, &q_map, q_bar, 64 * c, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(empty_bar + 8 * s, (t / kStages - 1) & 1);
@@ -443,9 +481,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t ks = skv + s * 2 * T::kTileBytes;
         const uint32_t vs = ks + T::kTileBytes;
         const int k0 = k_begin + t * BN;
-        mbar_expect_tx(full, 2 * T::kTileBytes);
+        mbar_expect_tx(full, 2 * n_chunks * T::kKVChunk);
 #pragma unroll
         for (int c = 0; c < T::kChunks; ++c) {
+          if (c >= n_chunks) break;
           tma_load(ks + c * T::kKVChunk, &k_map, full, 64 * c, hk, k0, b);
           tma_load(vs + c * T::kKVChunk, &v_map, full, 64 * c, hk, k0, b);
         }
@@ -462,9 +501,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     const int row0 = wg_lo + 16 * warp + lane / 4;  // and row0 + 8
     const uint32_t q_wg = sq + 64 * wg * kRowBytes;
 
-    float o[D / 2];
+    float o[DW / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DW / 2; ++i) o[i] = 0.f;
     float m[2] = {kMasked, kMasked};
     float l[2] = {0.f, 0.f};
 
@@ -480,7 +519,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         float sc[BN / 2];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DW / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;   // 16 columns = 32 bytes
           wgmma_ss<BN, E>(sc,
                        sw128_desc(q_wg + (kk / 4) * T::kQChunk + off, 16,
@@ -537,18 +576,18 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+        for (int i = 0; i < DW / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
         pin(o);
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < BN / 16; ++j) {
-          // keys 16j..16j+15 of every chunk; the chunks (64 columns of D
+          // keys 16j..16j+15 of every chunk; the chunks (64 columns of DW
           // each) sit T::kKVChunk apart, the leading byte offset
           const uint64_t vd = sw128_desc(vs + 16 * j * kRowBytes,
                                          T::kKVChunk, 1024);
-          wgmma_rs<D, E>(o, p_hi[j], vd);
-          wgmma_rs<D, E>(o, p_lo[j], vd);
+          wgmma_rs<DW, E>(o, p_hi[j], vd);
+          wgmma_rs<DW, E>(o, p_lo[j], vd);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -565,7 +604,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                                 fmaxf(l[1], kDenomFloor)};
     uint8_t* const q_ptr = smem_raw + (q_wg - raw);
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DW / 2; i += 2) {
       const int r = (i / 2) % 2;
       const int row = 16 * warp + lane / 4 + 8 * r;      // within 64 rows
       const int col = 8 * (i / 4) + 2 * (lane % 4);
@@ -582,7 +621,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     if (tid == 0 && wg_row < Sq) {
 #pragma unroll
       for (int c = 0; c < T::kChunks; ++c)
-        tma_store(&o_map, q_wg + c * T::kQChunk, 64 * c, h, wg_row, b);
+        if (64 * c < D)
+          tma_store(&o_map, q_wg + c * T::kQChunk, 64 * c, h, wg_row, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
@@ -613,7 +653,8 @@ EncodeTiled encoder() {
 
 // (D, heads, S, B) 16-bit tensor (bf16 or f16, `type`) in the model
 // layout, boxes of 64 columns x `rows` rows of one head and one batch row,
-// 128-byte swizzle; reads past S give zeros, stores past S are dropped
+// 128-byte swizzle; reads past D or S give zeros, stores past D or S are
+// dropped
 bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
               const void* ptr, int D, int heads, int S, int B, int rows) {
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
@@ -630,12 +671,12 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename E, int D, int BN>
+template <typename E, int DW, int BN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Skv, int q_offset, int H, int Hkv,
-                   int window, float softcap, float scale,
+                   int D, int window, float softcap, float scale,
                    cudaStream_t stream) {
-  constexpr int smem = Tiles<D, BN>::kSmem;
+  constexpr int smem = Tiles<DW, BN>::kSmem;
   // the opt-in belongs to the current device: once per device
   static bool configured[kMaxDevices] = {};
   int dev = 0;
@@ -644,7 +685,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
     err = cudaFuncSetAttribute(
-        flash_attention_sm90_kernel<E, D, BN>,
+        flash_attention_sm90_kernel<E, DW, BN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured[dev] = true;
@@ -661,8 +702,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !make_map(&om, encode, type, o, D, H, Sq, B, 64))
     return cudaErrorInvalidValue;
   const dim3 grid(H, B, (Sq + kBlockM - 1) / kBlockM);
-  flash_attention_sm90_kernel<E, D, BN><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, om, Sq, Skv, q_offset, H, Hkv, window, softcap, scale);
+  flash_attention_sm90_kernel<E, DW, BN><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, om, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -671,20 +712,20 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* o, int B, int Sq, int Skv, int q_offset, int H,
                      int Hkv, int window, float softcap, float scale,
                      cudaStream_t st) {
-  switch (D) {
-    case 64: return launch<E, 64, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
-    case 128: return launch<E, 128, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
-    case 256: return launch<E, 256, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  // the narrowest instance that holds D
+  if (D <= 0 || D % 8 != 0 || D > 256) return cudaErrorInvalidValue;
+  if (D <= 64) return launch<E, 64, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
+  if (D <= 128) return launch<E, 128, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
+  return launch<E, 256, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
 }
 
 }  // namespace
 
 // dtype: 1 = bfloat16, 2 = float16 (the scalar entry's codes). q/o
 // (B, Sq, H, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte aligned; query
-// row i at position q_offset + i, q_offset + Sq <= Skv; D in {64, 128,
-// 256} (256 on 64-key tiles, to fit shared memory and registers)
+// row i at position q_offset + i, q_offset + Sq <= Skv; D % 8 == 0 and
+// D <= 256, on the 64-, 128- or 256-column instance (256 on 64-key tiles,
+// to fit shared memory and registers)
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int Sq, int Skv, int q_offset,

@@ -5,16 +5,23 @@ choice by (dtype, head dim), made by :func:`impl_for` and never by a
 failure: a build or launch error of either raises.
 
 - ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bfloat16 and float16
-  at head dims 64, 128 and 256, on the tensor cores (TMA-fed ``wgmma``, p
-  split into hi and lo halves of the input type for the PV product).
+  at every head dim that is a multiple of 8 up to 256, on the tensor
+  cores (TMA-fed ``wgmma``, p split into hi and lo halves of the input
+  type for the PV product). Its instances are 64, 128 and 256 columns
+  wide; a head dim runs on the narrowest that holds it, TMA filling the
+  columns past D with zeros on load and clipping them on the store (D %
+  8 == 0 keeps every row 16-byte aligned, as TMA needs).
 - ``"scalar"`` (``csrc/flash_attention.cu``): every other (dtype, head
-  dim): float32 at every D, and bfloat16 and float16 at every D but 64,
-  128 and 256. It runs on the float32 FMA units. Its instances are 16,
-  32, 64, 128 and 256 columns wide; a head dim runs on the narrowest
-  that holds it, its columns past D read as zeros, and D > 256 on the
-  256-wide one with a grid axis over 256-column chunks of the output
-  (each chunk's block reads all of D for the scores and does its own
-  PV).
+  dim): float32 at every D, and bfloat16 and float16 at D % 8 != 0 or D >
+  256. It runs on the float32 FMA units as a register-tiled product, 64
+  q rows x 64 keys a tile, the output accumulator in registers. Up to D
+  = 128 a "narrow" block of 128 threads (instances 64 and 128 columns
+  wide, columns past D read as zeros) gives each thread an 8 x 4
+  micro-tile of scores (rows ty + 8 i, keys tx + 16 j). Above, a "wide"
+  block of 256 threads gives each a 4 x 4 micro-tile and computes each
+  tile's scores once over all of D, Q and K staged in 64-column chunks;
+  it holds up to 384 output columns (instances of 256, 320 and 384), and
+  a larger D splits its output columns over blocks.
 
 Both take a query offset (:func:`flash_attention`'s ``q_offset``): q
 holds Sq rows at positions ``q_offset`` .. ``q_offset + Sq - 1`` against
@@ -36,15 +43,19 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 LAUNCHES = 0
 LAUNCHES_BY_IMPL = {"wgmma": 0, "scalar": 0}
 LAUNCHES_BY_OFFSET = {}               # (impl, q_offset) -> launches
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the scalar kernel's instance widths
-WGMMA_HEAD_DIMS = (64, 128, 256)     # the wgmma kernel's head dims
+WGMMA_WIDTHS = (64, 128, 256)        # the wgmma kernel's instance widths
+# q rows a block of each kernel computes: an offset launch's rows equal a
+# full launch's bit for bit when the offset is a multiple of it
+Q_BLOCK = {"wgmma": 128, "scalar": 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def impl_for(dtype, D: int) -> str:
     """The kernel that computes attention for this dtype and head dim:
-    ``"wgmma"`` or ``"scalar"``."""
-    if dtype in (torch.bfloat16, torch.float16) and D in WGMMA_HEAD_DIMS:
+    ``"wgmma"`` for bfloat16 and float16 at D % 8 == 0 and D <= 256,
+    ``"scalar"`` for the rest. A static choice, never made by a failure."""
+    if (dtype in (torch.bfloat16, torch.float16) and D % 8 == 0
+            and D <= WGMMA_WIDTHS[-1]):
         return "wgmma"
     return "scalar"
 

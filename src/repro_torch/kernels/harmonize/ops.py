@@ -5,9 +5,13 @@ the kernel or raises. The kernel has two instances, named by
 :func:`impl_for` from the tick count, statically: ``"warp"`` (one warp per
 row, each sample bucketed once, each tick's hits added in M order; T <=
 ``MAX_T``), which serves the decision loop's windows (M = 32, T = 8) and
-the fleet's (M = 128, T = 64) alike, and ``"tiled"`` (T > ``MAX_T``: a
-warp per row and tile of ``TILE`` ticks, walking all M samples; a week of
-30 s ticks, T = 20,160). Both equal a sequential float32 loop bit for bit.
+the fleet's (M = 128, T = 64) alike, and ``"tiled"`` (T > ``MAX_T``; a
+week of 30 s ticks, T = 20,160: a block per row buckets each sample once,
+sorts each chunk of ``SORT_CHUNK`` samples by tick with a stable radix
+sort, adds each tick's run of hits in M order into a staging tile of
+``TILE`` ticks, or of a whole week's where M exceeds one chunk, and
+writes the tile's means). Both equal a sequential float32 loop bit for
+bit.
 ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_IMPL`` the same per
 instance. Like the reference's op entry point, this is not wired into the
 pipeline tick, which harmonizes through ``core.harmonize.harmonize_segment``.
@@ -26,7 +30,10 @@ _IMPLS = {"warp": 0, "tiled": 1}   # the C entry point's `impl` argument
 # the warp instance keeps a row's T totals, counts and group masks in
 # shared memory (12 bytes a tick); a block has 227 KB of it
 MAX_T = 19_000
-TILE = 2048   # ticks a warp of the tiled instance keeps (csrc: kTile)
+# the tiled instance: samples a sort covers (csrc: kSortChunk), and ticks a
+# staging tile holds when the row is one chunk (csrc: kTile)
+SORT_CHUNK = 2048
+TILE = 2048
 
 
 def impl_for(M: int, aligned: bool, n_ticks: int) -> tuple[str, bool]:

@@ -37,8 +37,11 @@ the output before rounding, by ~1e-5 relative: one rounding step more
 (one case of 63 read 1.06 x the one-ulp bound on an H100, a softcap of
 50 over scores in the tens). Softcap cases scale q by 8, so that scores
 reach tens and the cap changes the output far beyond the bound.
-Every head dim runs a hand-written kernel: off the instances' widths the
-scalar one (``FA_ANY_D_CASES``, every dtype), within the same bounds.
+Every head dim runs a hand-written kernel, the one ``impl_for`` names
+(``FA_ANY_D_CASES``, every dtype): bfloat16 and float16 at multiples of 8
+up to 256 on the wgmma kernel's narrowest instance that holds them, the
+rest (float32, D % 8 != 0, D > 256) on the scalar one, within the same
+bounds.
 At a query offset (a context-parallel shard's rows against every key) both
 instances meet the same bounds against ``attention_ref`` at that offset,
 and an offset launch's rows equal the same rows of one launch over every
@@ -311,7 +314,7 @@ def test_flash_attention_matches_plain_on_card(card, rng, dtype, tol, B, S,
 
 # B, Sq, Skv, q_offset, H, Hkv, D, window, softcap: a context-parallel
 # shard's rows at an offset against every key; Sq not a multiple of either
-# kernel's q block (128 rows wgmma, 32 scalar), offsets on and off a block
+# kernel's q block (``fa_ops.Q_BLOCK``), offsets on and off a block
 # edge, the last shard of an S % m != 0 split (Sq + offset = Skv), windows
 # that start inside the shard, and a softcap
 FA_OFFSET_CASES = [(2, 100, 400, 300, 4, 2, 64, 0, 0.0),
@@ -345,15 +348,21 @@ def _flash_close(out, ref, dtype):
 
 
 # B, S, H, Hkv, D, window, softcap at head dims off the instances' widths:
-# below the narrowest (1, 8), inside wider ones (24, 48, 80, 96, 200), a
-# multiple of 64 that is no wgmma instance (192), and above 256 (320 and
-# 513: two and three 256-column chunks), with a ragged S, GQA, windows and
-# softcaps
+# below the narrowest (1, 8), inside wider ones (24, 36, 48, 72, 80, 96,
+# 200), a multiple of 64 that is no wgmma instance (192), and above 256
+# (300 and 320: the scalar kernel's wide block, 320 output columns in
+# registers; 513 and 700: more than one block's 384 output columns, two
+# blocks a head), with a ragged S, GQA, windows and softcaps.
+# In 16 bits, 8, 24, 48, 72, 80, 96, 192 and 200 run on the wgmma kernel
+# (columns past D zero-filled by TMA), 1, 36, 300, 320, 513 and 700 on the
+# scalar one.
 FA_ANY_D_CASES = [(1, 70, 2, 1, 1, 0, 0.0), (2, 33, 4, 2, 8, 8, 30.0),
                   (1, 100, 4, 2, 24, 0, 0.0), (2, 129, 4, 2, 48, 0, 0.0),
                   (1, 300, 4, 2, 80, 100, 50.0), (1, 257, 4, 4, 96, 0, 0.0),
                   (1, 96, 2, 1, 192, 0, 0.0), (1, 64, 4, 2, 200, 16, 0.0),
-                  (1, 130, 4, 2, 320, 0, 50.0), (2, 70, 2, 1, 513, 40, 0.0)]
+                  (1, 130, 4, 2, 320, 0, 50.0), (2, 70, 2, 1, 513, 40, 0.0),
+                  (1, 200, 4, 2, 72, 64, 30.0), (2, 150, 4, 2, 36, 0, 50.0),
+                  (1, 140, 4, 1, 300, 48, 0.0), (1, 70, 2, 1, 700, 0, 30.0)]
 
 
 @pytest.mark.cuda
@@ -363,11 +372,13 @@ FA_ANY_D_CASES = [(1, 70, 2, 1, 1, 0, 0.0), (2, 33, 4, 2, 8, 8, 30.0),
 def test_flash_attention_any_head_dim_on_card(card, rng, dtype, B, S, H,
                                               Hkv, D, window, softcap):
     """Every head dim runs a hand-written kernel, the one ``impl_for``
-    names (the scalar one at these), within the bounds above against
+    names (wgmma for 16 bits at D % 8 == 0 up to 256, else scalar),
+    launched and counted, within the bounds above against
     ``attention_ref``, at offset 0 and at a query offset."""
     q, k, v = _flash_case(rng, card, dtype, B, S, S, H, Hkv, D, softcap)
     impl = fa_ops.impl_for(dtype, D)
-    assert impl == "scalar"
+    assert impl == ("wgmma" if dtype != torch.float32 and D % 8 == 0
+                    and D <= 256 else "scalar")
     by_impl = dict(fa_ops.LAUNCHES_BY_IMPL)
     out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
@@ -380,6 +391,9 @@ def test_flash_attention_any_head_dim_on_card(card, rng, dtype, B, S, H,
     rows = q[:, off:].contiguous()
     part = fa_ops.flash_attention(rows, k, v, window=window,
                                   softcap=softcap, q_offset=off)
+    torch.cuda.synchronize()
+    by_impl[impl] += 1
+    assert fa_ops.LAUNCHES_BY_IMPL == by_impl
     _flash_close(part, attention_ref(rows, k, v, window=window,
                                      softcap=softcap, q_offset=off), dtype)
 
@@ -412,10 +426,13 @@ def test_flash_attention_at_offset_matches_plain_on_card(
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
                                      (torch.bfloat16, 16),
                                      (torch.bfloat16, 128),
-                                     (torch.bfloat16, 256)])
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 320),
+                                     (torch.bfloat16, 36)])
 @pytest.mark.parametrize("off,Sq,window", [(0, 300, 0), (128, 200, 0),
                                            (256, 77, 0), (100, 150, 0),
-                                           (32, 96, 64), (200, 133, 64)])
+                                           (32, 96, 64), (200, 133, 64),
+                                           (64, 150, 64)])
 def test_flash_offset_rows_equal_full_launch_on_card(card, rng, dtype, D,
                                                      off, Sq, window):
     """An offset launch's rows against the same rows of one launch over
@@ -428,7 +445,7 @@ def test_flash_offset_rows_equal_full_launch_on_card(card, rng, dtype, D,
     rows = q[:, off:off + Sq].contiguous()
     part = fa_ops.flash_attention(rows, k, v, window=window, q_offset=off)
     torch.cuda.synchronize()
-    block = 128 if fa_ops.impl_for(dtype, D) == "wgmma" else 32
+    block = fa_ops.Q_BLOCK[fa_ops.impl_for(dtype, D)]
     want = full[:, off:off + Sq]
     if off % block == 0:
         assert torch.equal(part, want)
@@ -666,8 +683,8 @@ def test_harmonize_tick_limit_on_card(card, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("M", [17, 128, 2048])
-@pytest.mark.parametrize("T", [hz_ops.MAX_T + 1, 20_160])
+@pytest.mark.parametrize("M", [17, 128, 2048, 5000])
+@pytest.mark.parametrize("T", [hz_ops.MAX_T + 1, 20_160, 30_000])
 def test_harmonize_tiled_bit_equal_sequential_on_card(card, rng, T, M,
                                                       offset):
     """The tiled instance (T above ``MAX_T``; 20,160 is a week of 30 s
@@ -675,7 +692,9 @@ def test_harmonize_tiled_bit_equal_sequential_on_card(card, rng, T, M,
     with NaN positions, ``observed`` against it too; (E, S) = (5, 3) rows,
     aligned and at a storage offset of one element (scalar loads),
     samples from a tick before the window to one after it, non-finite
-    values as ``_nonfinite_rows`` places them (hits, misses, invalid)."""
+    values as ``_nonfinite_rows`` places them (hits, misses, invalid).
+    M = 5000 takes three sorted chunks (``hz_ops.SORT_CHUNK``), and at
+    T = 30,000 more than one staging tile of them."""
     E, S, tick = 5, 3, 30.0
     ts = rng.uniform(-tick, (T + 1) * tick, (E, S, M)).astype(np.float32)
     vals = rng.normal(0, 5, (E, S, M)).astype(np.float32)
@@ -712,6 +731,37 @@ def test_harmonize_tiled_bit_equal_sequential_on_card(card, rng, T, M,
     ref, ref_obs = harmonize_ref(*(x[-2:] for x in args), t0[-2:], tick, T)
     assert torch.equal(obs[-2:], ref_obs)
     torch.testing.assert_close(out[-2:], ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2048, 5000])
+def test_harmonize_tiled_dense_ticks_bit_equal_on_card(card, rng, M):
+    """Many samples a tick: the rows' samples fall on 40 ticks of a week
+    (so every hit tick sums tens of values, where the order of the adds
+    shows), in random M order, with repeated timestamps; the tiled
+    instance's sorted runs against the sequential float32 loop, bit for
+    bit."""
+    E, S, T, tick = 4, 2, 20_160, 30.0
+    hot = rng.choice(T, 40, replace=False)
+    ts = ((hot[rng.randint(0, 40, (E, S, M))] + rng.choice(
+        [0.25, 0.5, 0.75], (E, S, M))) * tick).astype(np.float32)
+    vals = rng.normal(0, 5, (E, S, M)).astype(np.float32) * \
+        rng.choice([1e-3, 1.0, 1e3], (E, S, M)).astype(np.float32)
+    valid = rng.rand(E, S, M) > 0.1
+    C = lambda x: torch.from_numpy(x).to(card)
+    v, t, ok, w = C(vals), C(ts), C(valid), torch.zeros((E,), device=card)
+    by_impl = dict(hz_ops.LAUNCHES_BY_IMPL)
+    out, obs = hz_ops.harmonize(v, t, ok, w, tick_s=tick, n_ticks=T)
+    torch.cuda.synchronize()
+    by_impl["tiled"] += 1
+    assert hz_ops.LAUNCHES_BY_IMPL == by_impl
+    R = E * S
+    seq, seq_obs = _sequential_harmonize(
+        v.reshape(R, M), t.reshape(R, M), ok.reshape(R, M),
+        w.repeat_interleave(S), tick, T)
+    out, obs = out.reshape(R, T), obs.reshape(R, T)
+    assert torch.equal(obs, seq_obs) and int(seq_obs.sum()) == R * 40
+    assert _bits_equal(out, seq)
 
 
 def _big_window(rng, K, E, S, M, T, tick, device):

@@ -64,7 +64,8 @@ def test_harmonize_segment_both_branches(m, t, a, rng):
     ticks = _ticks(2, t)
     want_v, want_o = jhz.harmonize_segment(jax_raw_window(v, ts, ok),
                                            jnp.asarray(ticks), 60.0, a)
-    got_v, got_o = hz.harmonize_segment(make_raw_window(v, ts, ok),
+    got_v, got_o = hz.harmonize_segment(make_raw_window(v, ts, ok,
+                                                        device="cpu"),
                                         T_(ticks), 60.0, a)
     assert np.array_equal(got_o.numpy(), np.asarray(want_o))
     _close(got_v, want_v)
@@ -80,7 +81,8 @@ def test_harmonize_onehot(a, rng):
                                    jnp.asarray(ticks), 60.0,
                                    stream_agg=None if sa is None
                                    else jnp.asarray(sa), **kw)
-    got_v, got_o = hz.harmonize(make_raw_window(v, ts, ok), T_(ticks), 60.0,
+    got_v, got_o = hz.harmonize(make_raw_window(v, ts, ok, device="cpu"),
+                                T_(ticks), 60.0,
                                 stream_agg=sa, **kw)
     assert np.array_equal(got_o.numpy(), np.asarray(want_o))
     _close(got_v, want_v)
@@ -93,7 +95,8 @@ def test_tick_grid_and_bucketize(rng):
     got_grid = hz.tick_grid(T_(ws), 60.0, T)
     assert np.array_equal(got_grid.numpy(), np.asarray(want_grid))
     want_i, want_ok = jhz.bucketize(jax_raw_window(v, ts, ok), want_grid, 60.)
-    got_i, got_ok = hz.bucketize(make_raw_window(v, ts, ok), got_grid, 60.)
+    got_i, got_ok = hz.bucketize(make_raw_window(v, ts, ok, device="cpu"),
+                                 got_grid, 60.)
     assert np.array_equal(got_i.numpy(), np.asarray(want_i))
     assert np.array_equal(got_ok.numpy(), np.asarray(want_ok))
 
@@ -270,7 +273,8 @@ def test_tick_matches_jax_from_warmed_state(gap_strategy, anomaly_policy,
     pst = convert.pipeline_state_from_numpy(_np(st))
     win = _raw(rng)
     wst, wfeat, wframe = jp.run_tick(st, jax_raw_window(*win), ws)
-    gst, gfeat, gframe = tick(cfg, pst, make_raw_window(*win), T_(ws))
+    gst, gfeat, gframe = tick(cfg, pst, make_raw_window(*win, device="cpu"),
+                                T_(ws))
     for name in ("observed", "filled", "anomalous"):
         assert np.array_equal(getattr(gframe, name).numpy(),
                               np.asarray(getattr(wframe, name))), name
@@ -287,7 +291,7 @@ def test_run_many_equals_k_ticks_bitwise(rng):
     _, cfg = _cfgs(gap_strategy="seasonal")
     K = 3
     wins = [_raw(rng) for _ in range(K)]
-    raws = make_raw_window(*(np.stack(x) for x in zip(*wins)))
+    raws = make_raw_window(*(np.stack(x) for x in zip(*wins)), device="cpu")
     starts = torch.zeros((K, E))
     st0 = convert.pipeline_state_from_numpy(_np(
         JaxPipeline(_cfgs()[0]).init_state()))
@@ -329,3 +333,19 @@ def test_state_constructors_default_to_the_card(name):
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build(*args)
+
+
+def test_make_raw_window_defaults_to_the_card(rng):
+    """``make_raw_window`` resolves ``device=None`` to the card as the
+    reference's puts its window on the default device: where there is no
+    card it raises ``resolve_device``'s error rather than build the window
+    on the CPU; ``device="cpu"`` builds it there, a copy of the arrays."""
+    v, ts, ok = _raw(rng)
+    raw = make_raw_window(v, ts, ok, device="cpu")
+    assert all(x.device.type == "cpu" for x in raw)
+    v[...] = 0.0
+    assert not torch.equal(raw.values, torch.zeros_like(raw.values))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_raw_window(v, ts, ok)

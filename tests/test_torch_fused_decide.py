@@ -173,8 +173,8 @@ def test_run_many_decide_matches_jax_from_a_carried_state(policy, rng):
                                   starts)
     pp = _port_predictor(policy, jmodel, C)
     got_s, got_d, got = pl.run_many_decide(
-        cfg, pp.make_decide_fn(), pstate, pdstate, make_raw_window(*batch2),
-        T_(starts))
+        cfg, pp.make_decide_fn(), pstate, pdstate,
+        make_raw_window(*batch2, device="cpu"), T_(starts))
     for key in ("violated", "observed", "filled", "anomalous"):
         g, w = getattr(got, key).numpy(), np.asarray(getattr(want, key))
         assert g.dtype == w.dtype and np.array_equal(g, w), key
@@ -213,7 +213,7 @@ def test_run_many_decide_equals_run_many_and_on_windows(policy, rng):
     dstate = fus.decide_state()
     starts = torch.zeros((K, E))
     for b in range(2):
-        raws = make_raw_window(*_raws(rng, K))
+        raws = make_raw_window(*_raws(rng, K), device="cpu")
         state, feats, frames = pipe.run_many(state, raws, starts)
         times = [480.0 * (b * K + j + 1) for j in range(K)]
         acts, rews, per = ref.on_windows(feats.features, times,

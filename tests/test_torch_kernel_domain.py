@@ -123,14 +123,18 @@ def test_flash_attention_at_offset_matches_jax(dtype, D, rng):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("D", [1, 8, 48, 64, 80, 96, 128, 192, 256, 320,
-                               1000])
+                               1000, 16, 200, 36])
 def test_flash_attention_impl_for_every_dtype_and_head_dim(dtype, D):
     """The static kernel choice over the whole domain: bfloat16 and
-    float16 at head dims 64, 128 and 256 on the wgmma kernel, every other
-    (dtype, D) on the scalar one."""
-    want = "wgmma" if dtype != torch.float32 and D in (64, 128, 256) \
-        else "scalar"
+    float16 at every head dim that is a multiple of 8 up to 256 on the
+    wgmma kernel (D = 8 and 48 on its 64-column instance, 80 and 96 on
+    128, 192 and 200 on 256), every other (dtype, D) on the scalar one:
+    float32 at every D, and 16-bit at D = 1, 36 (not a multiple of 8, so
+    its rows are not 16-byte aligned for TMA), 320 and 1000."""
+    want = ("wgmma" if dtype != torch.float32 and D % 8 == 0 and D <= 256
+            else "scalar")
     assert fa_ops.impl_for(dtype, D) == want
+    assert fa_ops.Q_BLOCK[want] in (64, 128)
 
 
 def test_flash_attention_refuses_other_dtypes():
@@ -182,6 +186,119 @@ def test_wgmma_float16_split_p_holds_one_ulp_bound(window, softcap, rng):
     outputs near zero by more than ten times that bound."""
     assert _wgmma_f16_over_bound(rng, window, softcap, True) <= 1.0
     assert _wgmma_f16_over_bound(rng, window, softcap, False) > 10.0
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c): the product is exact in float64 (24 + 24
+    bits), the sum rounded once to float64 and then to float32 (a double
+    rounding the card's fused op does not have, rare enough for an order
+    emulation)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _scalar_flash(q, k, v, *, window=0, softcap=0.0, q_offset=0,
+                  block=None):
+    """The redesigned scalar kernel's order in numpy float32, (B, Sq, H,
+    D) q and (B, Skv, Hkv, D) k, v: blocks of ``Q_BLOCK`` rows against
+    tiles of 64 keys from the first tile a block's window reaches to the
+    one holding its last row; each score one FMA chain over d in column
+    order from 0 (q scaled first); softcap before the mask, the mask only
+    on edge tiles, masked scores -1e30; each row's max and sum over the 16
+    threads that share it (4 keys a thread: tx + 16 j in the narrow kernel,
+    D <= 128, 4 tx + j in the wide one; summed in that order, then the xor
+    butterfly 8, 4, 2, 1, so each thread keeps its own bits of l), the
+    running max floored at -1e29, ``l = fma(l, alpha, sum)``; the
+    accumulator times alpha, then one FMA chain over the tile's keys in
+    order; out = acc / max(l of the column's thread, 1e-30)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    BQ = block or fa_ops.Q_BLOCK["scalar"]
+    BK = 64
+    scale = np.float32(1.0 / np.sqrt(D))
+    qf = (q * scale).astype(np.float32)
+    kv_head = np.arange(H) // G
+    kf, vf = k[:, :, kv_head], v[:, :, kv_head]           # (B, Skv, H, D)
+    out = np.zeros((B, Sq, H, D), np.float32)
+    lane = np.arange(16)
+    col_lane = (np.arange(D) % 64) // 4                     # a column's tx
+    for q0 in range(0, Sq, BQ):
+        rows = np.arange(q0, min(q0 + BQ, Sq))
+        n = len(rows)
+        p0 = q_offset + q0
+        pos = q_offset + rows
+        q_last = pos[-1]
+        k_begin = max(0, p0 - window + 1) // BK * BK if window else 0
+        m = np.full((B, H, n, 1), NEG_INF, np.float32)
+        l = np.zeros((B, H, n, 16), np.float32)
+        acc = np.zeros((B, H, n, D), np.float32)
+        qb = qf[:, rows].transpose(0, 2, 1, 3)              # (B, H, n, D)
+        for k0 in range(k_begin, q_last + 1, BK):
+            keys = np.arange(k0, k0 + BK)
+            live = keys < Skv
+            kt = np.zeros((B, H, BK, D), np.float32)
+            vt = np.zeros((B, H, BK, D), np.float32)
+            kt[:, :, live] = kf[:, keys[live]].transpose(0, 2, 1, 3)
+            vt[:, :, live] = vf[:, keys[live]].transpose(0, 2, 1, 3)
+            sc = np.zeros((B, H, n, BK), np.float32)
+            for d in range(D):
+                sc = _fma(qb[..., d, None], kt[..., None, :, d], sc)
+            if softcap:
+                sc = (np.tanh(sc / np.float32(softcap)) *
+                      np.float32(softcap)).astype(np.float32)
+            edge = (k0 + BK - 1 > p0 or k0 + BK > Skv or
+                    (window and p0 + BQ - 1 - k0 >= window))
+            if edge:
+                ok = (keys[None] <= pos[:, None]) & live[None]
+                if window:
+                    ok &= pos[:, None] - keys[None] < window
+                sc = np.where(ok, sc, np.float32(NEG_INF))
+            m_new = np.maximum(np.maximum(m, sc.max(-1, keepdims=True)),
+                               np.float32(MAX_FLOOR))
+            alpha = np.exp(m - m_new).astype(np.float32)
+            m = m_new
+            p = np.exp(sc - m_new).astype(np.float32)
+            # (B, H, n, lane, key of the lane)
+            part = (p.reshape(B, H, n, 4, 16).swapaxes(-1, -2) if D <= 128
+                    else p.reshape(B, H, n, 16, 4))
+            t = ((part[..., 0] + part[..., 1]) + part[..., 2]) + part[..., 3]
+            for o in (8, 4, 2, 1):
+                t = (t + t[..., lane ^ o]).astype(np.float32)
+            l = _fma(l, alpha, t)
+            acc = (acc * alpha).astype(np.float32)
+            for j in range(BK):
+                acc = _fma(p[..., j, None], vt[..., j, None, :], acc)
+        denom = np.maximum(l[..., col_lane], np.float32(DENOM_FLOOR))
+        out[:, rows] = (acc / denom).astype(np.float32).transpose(0, 2, 1, 3)
+    return out
+
+
+@pytest.mark.parametrize("D,window,softcap", [(24, 0, 0.0), (36, 40, 30.0),
+                                              (136, 0, 50.0)])
+def test_scalar_flash_order_holds_the_float32_bound(D, window, softcap, rng):
+    """The redesigned scalar kernel's order (64-row blocks, 64-key tiles,
+    each thread's 4 keys of a row: tx + 16 j in the narrow kernel at D <=
+    128, 4 tx + j in the wide one; FMA chains over d and over keys,
+    per-thread l),
+    emulated in numpy float32 with GQA, a window and a softcap, against
+    ``attention_ref`` at the card tests' float32 bound (2e-3, max abs),
+    at offset 0 and at a query offset; and bit-equal to itself between an
+    offset launch and the same rows of the full launch where the offset
+    is a multiple of its 64-row q block (the same tiles in the same order:
+    what ``tests/test_torch_card.py`` asks of the kernel)."""
+    q, k, v = _flash_inputs(rng, torch.float32, 1, 150, 4, 2, D, softcap)
+    kw = dict(window=window, softcap=softcap)
+    qn, kn, vn = (x.numpy() for x in (q, k, v))
+    full = _scalar_flash(qn, kn, vn, **kw)
+    ref = attention_ref(q, k, v, **kw).numpy()
+    assert np.abs(full - ref).max() <= 2e-3
+    for off in (64, 40):
+        part = _scalar_flash(qn[:, off:], kn, vn, q_offset=off, **kw)
+        want = attention_ref(q[:, off:], k, v, q_offset=off, **kw).numpy()
+        assert np.abs(part - want).max() <= 2e-3
+        if off % fa_ops.Q_BLOCK["scalar"] == 0:
+            assert np.array_equal(part.view(np.int32),
+                                  full[:, off:].view(np.int32))
 
 
 # ----------------------------------------------------------- harmonize
@@ -256,26 +373,43 @@ def _sequential(v, keys, T):
     return _means(total, count)
 
 
-def _tiled(v, keys, T, tile):
-    """The tiled instance's order: per tile of ``tile`` ticks, every sample
-    of the row walked in 32-sample chunks, each chunk's hits inside the
-    tile added in lane order onto their tick's total; then a tick's total
-    is NaN where the row holds a non-finite value (anywhere, in the tile
-    or not) that does not hit it."""
+def _tiled(v, keys, T, tile=hz_ops.TILE, chunk=hz_ops.SORT_CHUNK):
+    """The tiled instance's order: each row in chunks of ``chunk``
+    samples, each chunk's samples stably sorted by tick (a miss sorts
+    last), each tick's run of hits added one at a time, in M order, onto
+    its running total in a staging tile of ``tile`` ticks (the whole row's
+    ticks when it takes more than one chunk); then a tick's total is NaN
+    where the row holds a non-finite value (anywhere) that does not hit
+    it."""
     R, M = v.shape
+    if M > chunk:
+        tile = T
     total = np.zeros((R, T), np.float32)
     count = np.zeros_like(total)
-    for t_lo in range(0, T, tile):
-        t_hi = min(t_lo + tile, T)
-        for r in range(R):
-            for c0 in range(0, M, 32):
-                k, x = keys[r, c0:c0 + 32], v[r, c0:c0 + 32]
-                for key in np.unique(k[(k >= t_lo) & (k < t_hi)]):
-                    s = total[r, key]
-                    for j in np.flatnonzero(k == key):
-                        s = np.float32(s + x[j])
-                    total[r, key] = s
-                    count[r, key] += np.float32((k == key).sum())
+    for r in range(R):
+        runs = []    # per chunk: (tick, values in M order), tick ascending
+        for c0 in range(0, M, chunk):
+            k = np.where(keys[r, c0:c0 + chunk] >= 0, keys[r, c0:c0 + chunk],
+                         T)
+            order = np.argsort(k, kind="stable")
+            ks, xs = k[order], v[r, c0:c0 + chunk][order]
+            starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+            ends = np.r_[starts[1:], len(ks)]
+            runs.append([(ks[a], xs[a:b]) for a, b in zip(starts, ends)
+                         if ks[a] < T])
+        for t_lo in range(0, T, tile):
+            st = np.zeros(min(tile, T - t_lo), np.float32)
+            sc = np.zeros_like(st)
+            for chunk_runs in runs:
+                for key, xs in chunk_runs:
+                    if t_lo <= key < t_lo + tile:
+                        acc = st[key - t_lo]
+                        for x in xs:
+                            acc = np.float32(acc + x)
+                        st[key - t_lo] = acc
+                        sc[key - t_lo] += len(xs)
+            total[r, t_lo:t_lo + len(st)] = st
+            count[r, t_lo:t_lo + len(st)] = sc
     for r in range(R):
         nf = keys[r, ~np.isfinite(v[r])]
         if nf.size:
@@ -286,17 +420,19 @@ def _tiled(v, keys, T, tile):
 
 @pytest.mark.parametrize("nonfinite", [False, True])
 def test_harmonize_tiled_order_is_the_sequential_loop(nonfinite, rng):
-    """The tiled instance's order emulated in numpy float32 at T = 20,160
-    over ``hz_ops.TILE``-tick tiles: bit-equal to the sequential loop
-    (NaN positions included), ``observed`` equal, and within the repo's
-    bound of the reference's oracle."""
+    """The tiled instance's order (each sample bucketed once, the chunk
+    sorted by tick, each tick's run added in M order into
+    ``hz_ops.TILE``-tick staging tiles) emulated in numpy float32 at T =
+    20,160: bit-equal to the sequential loop (NaN positions included),
+    ``observed`` equal, and within the repo's bound of the reference's
+    oracle."""
     T = 20_160
     vals, ts, valid, ws = _long_rows(rng, 1, 3, 70, T, 30.0, nonfinite)
     R, M = 3, 70
     keys = _keys(ts.reshape(R, M), valid.reshape(R, M), np.repeat(ws, 3),
                  30.0, T)
     with np.errstate(invalid="ignore"):
-        got, got_obs = _tiled(vals.reshape(R, M), keys, T, hz_ops.TILE)
+        got, got_obs = _tiled(vals.reshape(R, M), keys, T)
         seq, seq_obs = _sequential(vals.reshape(R, M), keys, T)
     nan = np.isnan(got)
     assert (nan == np.isnan(seq)).all() and (got_obs == seq_obs).all()
@@ -308,6 +444,33 @@ def test_harmonize_tiled_order_is_the_sequential_loop(nonfinite, rng):
     assert (got_obs == want_obs.reshape(R, T)).all()
     assert_allclose(got, want.reshape(R, T), rtol=1e-4, atol=1e-5,
                     equal_nan=True)
+
+
+def test_harmonize_tiled_chunks_order_is_the_sequential_loop(rng):
+    """More samples than one sorted chunk (``hz_ops.SORT_CHUNK``), crowded
+    onto few ticks so that runs of three and more hits span chunks: the
+    order of the chunks' runs, one staging tile over the whole week, is
+    bit-equal to the sequential loop with NaN and +-inf in hits and
+    misses."""
+    T, R, M = 20_160, 2, hz_ops.SORT_CHUNK + 700
+    ts = (rng.randint(0, 300, (1, R, M)) * 30.0 + 15.0).astype(np.float32)
+    ts[0, :, ::7] = rng.uniform(-30, (T + 1) * 30, ts[0, :, ::7].shape)
+    vals = rng.normal(0, 5, (1, R, M)).astype(np.float32)
+    vals[0, 0, [5, 2500]] = [np.inf, -np.inf]
+    vals[0, 1, 17] = np.nan
+    valid = rng.rand(1, R, M) > 0.2
+    ws = np.zeros((1,), np.float32)
+    keys = _keys(ts.reshape(R, M), valid.reshape(R, M), np.repeat(ws, R),
+                 30.0, T)
+    assert np.bincount(keys[keys >= 0]).max() >= 3
+    with np.errstate(invalid="ignore"):
+        got, got_obs = _tiled(vals.reshape(R, M), keys, T)
+        seq, seq_obs = _sequential(vals.reshape(R, M), keys, T)
+    nan = np.isnan(got)
+    assert (nan == np.isnan(seq)).all() and (got_obs == seq_obs).all()
+    assert np.array_equal(np.where(nan, 0, got).view(np.int32),
+                          np.where(nan, 0, seq).view(np.int32))
+    assert nan.any()
 
 
 # ------------------------------------------------- op entries' dtypes

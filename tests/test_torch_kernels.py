@@ -372,11 +372,11 @@ def test_wgmma_single_bf16_p_breaks_one_ulp_bound(label, window, softcap,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", fa_ops.HEAD_DIMS)
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_flash_attention_impl_for(dtype, D):
-    """The static kernel choice: bf16 at head dims 64, 128 and 256 on the
-    wgmma kernel; float32, and bf16 at 16 and 32, on the scalar one."""
-    want = "wgmma" if dtype == torch.bfloat16 and D >= 64 else "scalar"
+    """The static kernel choice: bf16 at these head dims (multiples of 8
+    up to 256) on the wgmma kernel; float32 on the scalar one."""
+    want = "wgmma" if dtype == torch.bfloat16 else "scalar"
     assert fa_ops.impl_for(dtype, D) == want
     assert want in fa_ops.LAUNCHES_BY_IMPL
 

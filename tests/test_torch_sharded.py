@@ -83,7 +83,7 @@ def _batch(rng, K, n_envs):
     ts = rng.uniform(0, window, vals.shape).astype(np.float32)
     valid = rng.rand(*vals.shape) < 0.6
     valid[:, :, 1, :] &= rng.rand(K, n_envs, 1) < 0.5  # whole gaps
-    return make_raw_window(vals, ts, valid)
+    return make_raw_window(vals, ts, valid, device="cpu")
 
 
 def _predictor(policy, n=E, capacity=4):

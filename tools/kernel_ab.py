@@ -12,7 +12,12 @@ one profiled scan batch of the E=256 system (``chip_smoke.make_system``)
 for its count of device activities. The turns run parent, this tree, this
 tree, parent. One JSON line per measurement, then a summary line: each
 kernel's device microseconds per tree (two readings a turn, each the
-mean of 20 calls) and the scan batch's device activities. ``--shapes``
+mean of 20 calls; ``us_warm``: one more taken after
+``chip_smoke.call_ms``'s 25 calls, the order in which ``chip_smoke.py``'s
+phase 3 times, whose event median each line also gives as ``call_us``),
+the SHA-256 of each case's output from the seeded inputs per tree
+(``same_bytes``: every turn of both trees gave the same bytes) and the
+scan batch's device activities. ``--shapes``
 keeps only the named cases: a tree older than this one's cases raises on
 the inputs it did not take yet (earlier trees refuse float16 and other
 head dims in flash_attention, and more than 19,000 ticks in harmonize).
@@ -21,6 +26,7 @@ Needs one NVIDIA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -49,10 +55,20 @@ def worker(tree: Path, names: list[str], shapes) -> None:
         if case["name"] not in names or (shapes and
                                          case["shape"] not in shapes):
             continue
+        out = case["kernel"]()
+        digest = hashlib.sha256()
+        for t in (out if isinstance(out, tuple) else (out,)):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
         ms = [cs.device_ms(case["kernel"]) for _ in range(2)]
+        call = cs.call_ms(case["kernel"], reps=20)
+        warm = cs.device_ms(case["kernel"])
         cs.emit({"tree": str(tree), "kernel": case["name"],
                  "shape": case["shape"], **case["dims"],
-                 "us": [x * 1e3 for x in ms if x is not None]})
+                 "sha256": digest.hexdigest(),
+                 "us": [x * 1e3 for x in ms if x is not None],
+                 "us_warm": None if warm is None else warm * 1e3,
+                 "call_us": call * 1e3})
     with tempfile.TemporaryDirectory() as tmp:
         system = cs.make_system("scan", dev, tmp)
         system.run_windows(cs.K)            # warm-up batch
@@ -80,6 +96,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     trees = {"parent": args.parent.resolve(), "change": HERE}
     times: dict = {}
+    hashes: dict = {}
+    warm: dict = {}
     activities: dict = {}
     for side in ("parent", "change", "change", "parent"):
         proc = subprocess.run(
@@ -99,10 +117,19 @@ def main() -> int:
                 key = f"{row['kernel']}/{row['shape']}"
                 times.setdefault(key, {}).setdefault(side, []).extend(
                     row["us"])
+                if row["us_warm"] is not None:
+                    warm.setdefault(key, {}).setdefault(side, []).append(
+                        row["us_warm"])
+                hashes.setdefault(key, {}).setdefault(side, set()).add(
+                    row["sha256"])
             elif row.get("phase") == "scan_profile":
                 activities.setdefault(side, []).append(row["device_kernels"])
-    summary = {k: {side: dict(us=v, median_us=statistics.median(v))
-                   for side, v in t.items()} for k, t in times.items()}
+    summary = {k: {**{side: dict(us=v, median_us=statistics.median(v),
+                                 us_warm=warm.get(k, {}).get(side, []),
+                                 sha256=sorted(hashes[k][side]))
+                      for side, v in t.items()},
+                   "same_bytes": len(set().union(*hashes[k].values())) == 1}
+               for k, t in times.items()}
     print(json.dumps({"kernel_ab": summary,
                       "scan_device_activities": activities}), flush=True)
     return 0
