@@ -95,7 +95,10 @@ class PipelineConfig:
     # absolute tick position of the stream origin (round(t0 / tick_s))
     tick0: int = 0
 
-    def weights(self, device="cpu"):
+    def weights(self, device=None):
+        """The (F, S) cross-stream weights on ``device`` (``None``: the
+        card, as every other constructor; ``"cpu"`` builds them there)."""
+        device = resolve_device(device)
         if self.combine_weights is None:
             return torch.eye(self.n_streams, dtype=torch.float32,
                              device=device)

@@ -49,15 +49,31 @@ SIGNATURES = {
                           _I, _I, _P],
     # a, b, h0, hs, h_last, B, T, W, stream
     "rglru_scan_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, out, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap,
+    # q, k, v, out, lse, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap,
     # scale, dtype, stream
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, ctypes.c_float, ctypes.c_float, _I, _P],
-    # q, k, v, out, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap,
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_float, ctypes.c_float, _I,
+                               _P],
+    # q, k, v, out, lse, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap,
     # scale, dtype, stream
-    "flash_attention_sm90_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, ctypes.c_float, ctypes.c_float,
-                                    _I, _P],
+    "flash_attention_sm90_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, ctypes.c_float,
+                                    ctypes.c_float, _I, _P],
+    # out, dout, delta, B, Sq, H, D, dtype, stream
+    "flash_bwd_dot_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, part, B, Sq, Skv, q_offset, H, Hkv, D,
+    # window, softcap, scale, dtype, stream
+    "flash_bwd_dkdv_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, ctypes.c_float,
+                              ctypes.c_float, _I, _P],
+    # part, dk, dv, n, G, D, dtype, stream
+    "flash_bwd_dkdv_sum_launch": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+                                  _P],
+    # q, k, v, dout, lse, delta, dq, B, Sq, Skv, q_offset, H, Hkv, D,
+    # window, softcap, scale, dtype, stream
+    "flash_bwd_dq_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, ctypes.c_float, ctypes.c_float, _I,
+                            _P],
     # values, timestamps, valid, window_start, out, observed, E, S, M, T,
     # tick_s, impl, vec, stream
     "harmonize_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -52,6 +52,10 @@
 //   * P V: p goes through shared memory (key-major); each thread owns an
 //     R x 4G tile of the output (its rows, columns 4 tx + 64 g .. + 3, g <
 //     G), summing over keys in order onto acc * alpha.
+//   * logsumexp: where the caller passes an lse pointer, each row's
+//     m + log(max(l, 1e-30)) goes there beside the output (the backward
+//     recomputes p = exp(s - lse) from it); a null pointer stores nothing
+//     else and leaves the output's arithmetic as it was.
 //   * tiles wholly in the causal future of the block, or wholly before
 //     every row's window, are skipped: such a tile would add p = 0 and
 //     leave alpha at 1 (or 0 for a row that has seen nothing), so skipping
@@ -91,151 +95,14 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "../../flash_tiles.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;                        // q rows per CTA
 constexpr int kBK = 64;                        // keys per tile
 constexpr int kDC = 64;                        // wide: Q/K columns a chunk
 constexpr int kMaxOut = 384;                   // wide: output columns a CTA
-constexpr float kMasked = -1e30f;
-constexpr float kMaxFloor = -1e29f;
-constexpr float kDenomFloor = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;                // shared-memory opt-in slots
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ void store(__half* p, float x) {
-  *p = __float2half_rn(x);
-}
-
-// 4 consecutive elements, 4-element aligned, as float32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 load4(const __half* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// columns c0 .. c0 + 3 of a row (c0 % 4 == 0), zeros at and past n
-template <typename T>
-__device__ __forceinline__ float4 fetch4(const T* row, int c0, int n,
-                                         bool vec) {
-  if (vec && c0 + 3 < n) return load4(row + c0);
-  float x[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    x[e] = c0 + e < n ? to_f32(row[c0 + e]) : 0.f;
-  return make_float4(x[0], x[1], x[2], x[3]);
-}
-
-// Where a staged tile's element (row r, column c) goes in shared memory:
-// kDMajor dst[c * 64 + r]; kDMajorSlots dst[c * 64 + row_slot(r)] (the
-// rows R ty + .. of a strided owner lie side by side); kRowMajor
-// dst[r * LD + c].
-enum Layout { kDMajor, kDMajorSlots, kRowMajor };
-
-// row r's place in a narrow block's d-major Q tile and in its P: thread
-// ty's rows ty + 8 i lie at 8 ty + i
-__device__ __forceinline__ int row_slot(int r) { return 8 * (r % 8) + r / 8; }
-
-// A block of 64 rows x C columns on its way into shared memory: load()
-// reads rows `row0` + r (r < 64, valid below `n_rows`) of a (., heads, D)
-// tensor at head `hd`, columns c0 .. c0 + C - 1 (valid below D), into
-// registers, all of a thread's loads in flight at once; put() stores them
-// times `mul`, converted to float32. d-major layouts take consecutive rows
-// on consecutive threads (the scattered stores spread over the banks), the
-// row-major one consecutive column quads.
-template <typename T, int C, Layout L, int LD, int THREADS>
-struct Staged {
-  static constexpr int kQuads = C / 4;
-  static constexpr int kN = 64 * kQuads / THREADS;
-  float4 x[kN];
-
-  __device__ __forceinline__ static int row(int i) {
-    return L == kRowMajor ? i / kQuads : i % 64;
-  }
-  __device__ __forceinline__ static int quad(int i) {
-    return L == kRowMajor ? i % kQuads : i / 64;
-  }
-  __device__ __forceinline__ void load(const T* src, int row0, int n_rows,
-                                       int heads, int hd, int D, int c0,
-                                       bool vec) {
-#pragma unroll
-    for (int k = 0; k < kN; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      const int s = row0 + row(i);
-      x[k] = s < n_rows
-                 ? fetch4(src + (static_cast<size_t>(s) * heads + hd) * D +
-                              c0,
-                          4 * quad(i), D - c0, vec)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __device__ __forceinline__ void put(float* dst, float mul) const {
-#pragma unroll
-    for (int k = 0; k < kN; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      const float4 y = make_float4(x[k].x * mul, x[k].y * mul, x[k].z * mul,
-                                   x[k].w * mul);
-      if (L == kRowMajor) {
-        *reinterpret_cast<float4*>(dst + row(i) * LD + 4 * quad(i)) = y;
-      } else {
-        float* d = dst + 4 * quad(i) * 64 +
-                   (L == kDMajorSlots ? row_slot(row(i)) : row(i));
-        d[0] = y.x; d[64] = y.y; d[128] = y.z; d[192] = y.w;
-      }
-    }
-  }
-};
-
-// float32 rows straight into shared memory by cp.async, 16 bytes a copy
-// (no registers, nothing to convert): rows row0 .. row0 + 63 (valid below
-// n_rows), columns 0 .. C - 1 (valid below D; D % 4 == 0 and 16-byte
-// aligned rows) of a (., heads, D) tensor at head hd, row-major LD apart;
-// zeros where invalid (a source size of 0 reads nothing)
-template <int C, int LD, int THREADS>
-__device__ __forceinline__ void stage_async(float* dst, const float* src,
-                                            int row0, int n_rows, int heads,
-                                            int hd, int D) {
-#pragma unroll
-  for (int k = 0; k < 64 * C / 4 / THREADS; ++k) {
-    const int i = threadIdx.x + k * THREADS;
-    const int r = i / (C / 4), c = 4 * (i % (C / 4)), s = row0 + r;
-    const bool in = s < n_rows && c < D;
-    const float* g =
-        in ? src + (static_cast<size_t>(s) * heads + hd) * D + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     static_cast<uint32_t>(
-                         __cvta_generic_to_shared(dst + r * LD + c))),
-                 "l"(g), "r"(in ? 16 : 0)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Wide kernel's scores: s[i][j] += sum over d < n of qs[d][4 ty + i] *
 // ks[d][4 tx + j] (both d-major, 64 wide), one FMA chain per score in
@@ -391,11 +258,16 @@ __device__ __forceinline__ void pv(float (&o)[R][4 * G], const float* ps,
 }
 
 // o / max(l, 1e-30) into columns c0 + 4 tx + 64 g + e (< D) of the
-// thread's rows below Sq (STRIDED: rows ty + 8 i; else R ty + i)
+// thread's rows below Sq (STRIDED: rows ty + 8 i; else R ty + i); where
+// lse_row (the head's row 0 of the (B, H, Sq) logsumexp) is given, the
+// threads at tx = 0 of the block at c0 = 0 also write each row's
+// m + log(max(l, 1e-30)), the natural-log base the running max m is kept in
 template <typename T, int R, int G, bool STRIDED>
 __device__ __forceinline__ void store_rows(T* o_base,
                                            const float (&o)[R][4 * G],
-                                           const float (&l)[R], int q0,
+                                           const float (&m)[R],
+                                           const float (&l)[R],
+                                           float* lse_row, int q0,
                                            int Sq, int H, int h, int D,
                                            int c0, int tx, int ty) {
 #pragma unroll
@@ -403,6 +275,8 @@ __device__ __forceinline__ void store_rows(T* o_base,
     const int s = q0 + (STRIDED ? ty + 8 * i : R * ty + i);
     if (s >= Sq) continue;
     const float denom = fmaxf(l[i], kDenomFloor);
+    if (lse_row != nullptr && tx == 0 && c0 == 0)
+      lse_row[s] = m[i] + logf(denom);
     T* orow = o_base + (static_cast<size_t>(s) * H + h) * D;
 #pragma unroll
     for (int g = 0; g < G; ++g)
@@ -426,7 +300,15 @@ struct Params {
   int Sq, Skv, q_offset, H, Hkv, D, window;
   float softcap, scale;
   int vec;   // 4-element loads: D % 4 == 0 and the pointers aligned
+  float* lse;   // (B, H, Sq) logsumexp of the scores, or null
 };
+
+// head h of batch row b's logsumexp row, or null when none is asked for
+__device__ __forceinline__ float* lse_row(const Params& a, int b, int h) {
+  return a.lse == nullptr
+             ? nullptr
+             : a.lse + (static_cast<size_t>(b) * a.H + h) * a.Sq;
+}
 
 // ------------------------------------------------------------- narrow
 // 128 threads; thread (ty, tx) owns rows ty + 8 i (i < 8): scores in 8 x 4
@@ -549,7 +431,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   store_rows<T, R, G, true>(o + static_cast<size_t>(b) * a.Sq * a.H * a.D,
-                            acc, l, q0, a.Sq, a.H, h, a.D, 0, tx, ty);
+                            acc, m, l, lse_row(a, b, h), q0, a.Sq, a.H, h,
+                            a.D, 0, tx, ty);
 }
 
 // --------------------------------------------------------------- wide
@@ -644,26 +527,8 @@ flash_attention_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
     pv<R, G, 64 * G, false>(acc, ps, vs, tx, ty);
   }
   store_rows<T, R, G, false>(o + static_cast<size_t>(b) * a.Sq * a.H * a.D,
-                             acc, l, q0, a.Sq, a.H, h, a.D, c_lo, tx, ty);
-}
-
-// above 48 KB a block's shared memory must be opted into; the setting
-// belongs to the current device, so set once per kernel and device (a
-// repeated set is harmless)
-template <typename K>
-cudaError_t opt_in(K kernel, size_t bytes, bool (&configured)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
-  return cudaSuccess;
+                             acc, m, l, lse_row(a, b, h), q0, a.Sq, a.H, h,
+                             a.D, c_lo, tx, ty);
 }
 
 template <typename T, int DW, bool ASYNC>
@@ -688,11 +553,6 @@ cudaError_t wide(dim3 grid, const T* q, const T* k, const T* v, T* o,
   flash_attention_kernel_wide<T, G>
       <<<grid, kWideThreads, wide_smem<G>(), stream>>>(q, k, v, o, a);
   return cudaGetLastError();
-}
-
-template <typename T>
-bool aligned4(const void* p) {   // 4 elements
-  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
 }
 
 template <typename T>
@@ -732,17 +592,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. q/o (B, Sq, H, D), k/v
 // (B, Skv, Hkv, D), contiguous, D >= 1; query row i at position
-// q_offset + i, q_offset + Sq <= Skv.
+// q_offset + i, q_offset + Sq <= Skv. lse: a float32 (B, H, Sq) output for
+// each row's logsumexp of its scores (the backward's input), or null.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int q_offset, int H, int Hkv,
-                                      int D, int window, float softcap,
-                                      float scale, int dtype, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq, int Skv, int q_offset,
+                                      int H, int Hkv, int D, int window,
+                                      float softcap, float scale, int dtype,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
       q_offset > Skv - Sq || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params a{Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, 0};
+  const Params a{Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, 0,
+                 static_cast<float*>(lse)};
   cudaError_t err;
   if (dtype == 0)
     err = dispatch<float>(q, k, v, o, B, a, st);

@@ -67,7 +67,10 @@
 //     only where P_lo falls below f16's normal range, 2^-14, a term too
 //     small to move an output by 1e-5).
 //   * epilogue: O / max(l, 1e-30), rounded once to E, written swizzled
-//     into the warpgroup's own rows of the Q tile and stored by TMA.
+//     into the warpgroup's own rows of the Q tile and stored by TMA; where
+//     the caller passes an lse pointer, each row's m + log(max(l, 1e-30))
+//     too (the backward's input), after the main loop, so the loop's
+//     registers and the output's arithmetic are those of a null pointer.
 #include <cstdint>
 #include <type_traits>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
@@ -410,8 +413,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __grid_constant__ CUtensorMap o_map,
-                            int Sq, int Skv, int q_offset, int H, int Hkv,
-                            int D, int window, float softcap, float scale) {
+                            float* __restrict__ lse, int Sq, int Skv,
+                            int q_offset, int H, int Hkv, int D, int window,
+                            float softcap, float scale) {
   using T = Tiles<DW, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -615,6 +619,17 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           (col % 8) * 2) = pack2<E>(o[i] / denom[r], o[i + 1] / denom[r],
                                     unused0, unused1);
     }
+    // the logsumexp of each row, m + log(max(l, 1e-30)) (m in the natural
+    // log's base, as expf reads it), by one lane of the row's quad
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 64 * wg + 16 * warp + lane / 4 + 8 * r;
+        if (row < Sq)
+          lse[(static_cast<size_t>(blockIdx.y) * H + h) * Sq + row] =
+              m[r] + logf(denom[r]);
+      }
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     const int wg_row = q0 + 64 * wg;                // its first row
@@ -673,8 +688,8 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
 
 template <typename E, int DW, int BN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Skv, int q_offset, int H, int Hkv,
-                   int D, int window, float softcap, float scale,
+                   float* lse, int B, int Sq, int Skv, int q_offset, int H,
+                   int Hkv, int D, int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr int smem = Tiles<DW, BN>::kSmem;
   // the opt-in belongs to the current device: once per device
@@ -703,20 +718,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   const dim3 grid(H, B, (Sq + kBlockM - 1) / kBlockM);
   flash_attention_sm90_kernel<E, DW, BN><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, om, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale);
+      qm, km, vm, om, lse, Sq, Skv, q_offset, H, Hkv, D, window, softcap,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename E>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, int B, int Sq, int Skv, int q_offset, int H,
-                     int Hkv, int window, float softcap, float scale,
-                     cudaStream_t st) {
+                     void* o, float* lse, int B, int Sq, int Skv,
+                     int q_offset, int H, int Hkv, int window, float softcap,
+                     float scale, cudaStream_t st) {
   // the narrowest instance that holds D
   if (D <= 0 || D % 8 != 0 || D > 256) return cudaErrorInvalidValue;
-  if (D <= 64) return launch<E, 64, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
-  if (D <= 128) return launch<E, 128, 128>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
-  return launch<E, 256, 64>(q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
+  if (D <= 64) return launch<E, 64, 128>(q, k, v, o, lse, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
+  if (D <= 128) return launch<E, 128, 128>(q, k, v, o, lse, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
+  return launch<E, 256, 64>(q, k, v, o, lse, B, Sq, Skv, q_offset, H, Hkv, D, window, softcap, scale, st);
 }
 
 }  // namespace
@@ -725,13 +741,15 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 // (B, Sq, H, D), k/v (B, Skv, Hkv, D), contiguous, 16-byte aligned; query
 // row i at position q_offset + i, q_offset + Sq <= Skv; D % 8 == 0 and
 // D <= 256, on the 64-, 128- or 256-column instance (256 on 64-key tiles,
-// to fit shared memory and registers)
+// to fit shared memory and registers). lse: a float32 (B, H, Sq) output for
+// each row's logsumexp of its scores (the backward's input), or null.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int Sq, int Skv, int q_offset,
-                                           int H, int Hkv, int D, int window,
-                                           float softcap, float scale,
-                                           int dtype, void* stream) {
+                                           const void* v, void* o, void* lse,
+                                           int B, int Sq, int Skv,
+                                           int q_offset, int H, int Hkv,
+                                           int D, int window, float softcap,
+                                           float scale, int dtype,
+                                           void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
       q_offset > Skv - Sq || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       B > 65535 || (Sq + kBlockM - 1) / kBlockM > 65535)
@@ -739,9 +757,9 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+    err = dispatch<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
   else if (dtype == 2)
-    err = dispatch<__half>(D, q, k, v, o, B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
+    err = dispatch<__half>(D, q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, q_offset, H, Hkv, window, softcap, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -27,9 +27,23 @@ Both take a query offset (:func:`flash_attention`'s ``q_offset``): q
 holds Sq rows at positions ``q_offset`` .. ``q_offset + Sq - 1`` against
 Skv >= q_offset + Sq keys, the launch of one context-parallel shard.
 
-A CPU tensor takes the plain version in ``ref.py``. ``LAUNCHES`` counts
-kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel, and
-``LAUNCHES_BY_OFFSET`` the same per (kernel, ``q_offset``).
+Both also write each row's logsumexp of its scores when
+:func:`flash_attention` is given an ``lse`` tensor (training asks for it);
+without one they store nothing else and the output keeps its bits.
+
+The gradient, :func:`flash_attention_backward`, is four launches of
+``csrc/flash_attention_bwd.cu`` on the float32 FMA units (``"dot"``: delta
+= sum dout * out per row; ``"dkdv"``: each q head's float32 share of dK
+and dV per 64-key block; ``"dkdv_sum"``: dK and dV, the sum of a kv head's
+shares in head order; ``"dq"``: dQ per 64-row block), every (dtype, D) the
+forward takes, no float atomics, and no (Sq, Skv) buffer: it recomputes
+the scores tile by tile from the forward's logsumexp.
+
+A CPU tensor takes the plain versions in ``ref.py``. ``LAUNCHES`` counts
+forward kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel, and
+``LAUNCHES_BY_OFFSET`` the same per (kernel, ``q_offset``);
+``LAUNCHES_BWD`` counts the backward's kernel launches (four a call) and
+``LAUNCHES_BWD_BY_KERNEL`` the same per kernel.
 """
 from __future__ import annotations
 
@@ -38,7 +52,9 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_backward_ref,
+                                                    attention_lse_ref,
+                                                    attention_ref)
 
 LAUNCHES = 0
 LAUNCHES_BY_IMPL = {"wgmma": 0, "scalar": 0}
@@ -48,6 +64,8 @@ WGMMA_WIDTHS = (64, 128, 256)        # the wgmma kernel's instance widths
 # full launch's bit for bit when the offset is a multiple of it
 Q_BLOCK = {"wgmma": 128, "scalar": 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+LAUNCHES_BWD = 0
+LAUNCHES_BWD_BY_KERNEL = {"dot": 0, "dkdv": 0, "dq": 0, "dkdv_sum": 0}
 
 
 def impl_for(dtype, D: int) -> str:
@@ -60,8 +78,32 @@ def impl_for(dtype, D: int) -> str:
     return "scalar"
 
 
+def _check(name, q, k, v, window, softcap, q_offset):
+    """Validate the arguments the forward and the backward share; returns
+    (B, Sq, H, D, Skv, Hkv)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: q is {q.dtype}, expected float32, "
+                        "bfloat16 or float16")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"{name}: {H} q heads over {Hkv} kv heads")
+    if q_offset < 0 or q_offset + Sq > Skv:
+        raise ValueError(f"{name}: {Sq} query rows at offset "
+                         f"{q_offset} against {Skv} keys")
+    _build.require("q", q, q.dtype, (B, Sq, H, D), dev)
+    _build.require("k", k, q.dtype, (B, Skv, Hkv, D), dev)
+    _build.require("v", v, q.dtype, (B, Skv, Hkv, D), dev)
+    if window < 0 or softcap < 0:
+        raise ValueError(f"{name}: window and softcap must be >= 0")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return B, Sq, H, D, Skv, Hkv
+
+
 def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                    scale=None, q_offset: int = 0):
+                    scale=None, q_offset: int = 0, lse=None):
     """Causal GQA attention in the model layout: q (B, Sq, H, D); k, v
     (B, Skv, Hkv, D), float32, bfloat16 or float16, all one dtype, any
     head dim D >= 1; q head h reads kv head h // (H // Hkv). Query row i
@@ -70,38 +112,33 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     position. ``window`` > 0 keeps keys with 0 <= q_pos - k_pos <
     window; ``softcap`` > 0 applies ``tanh(s / softcap) * softcap``
     before the mask. ``scale`` defaults to 1/sqrt(D). Returns (B, Sq, H,
-    D) in q's dtype."""
+    D) in q's dtype. ``lse``, a float32 (B, H, Sq) tensor on q's device,
+    receives each row's logsumexp of its (scaled, softcapped, masked)
+    scores, the input of :func:`flash_attention_backward`."""
     global LAUNCHES
-    B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    dev = q.device
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: q is {q.dtype}, expected float32, "
-                        "bfloat16 or float16")
-    if Hkv == 0 or H % Hkv:
-        raise ValueError(f"flash_attention: {H} q heads over {Hkv} kv heads")
     q_offset = int(q_offset)
-    if q_offset < 0 or q_offset + Sq > Skv:
-        raise ValueError(f"flash_attention: {Sq} query rows at offset "
-                         f"{q_offset} against {Skv} keys")
-    _build.require("q", q, q.dtype, (B, Sq, H, D), dev)
-    _build.require("k", k, q.dtype, (B, Skv, Hkv, D), dev)
-    _build.require("v", v, q.dtype, (B, Skv, Hkv, D), dev)
-    if window < 0 or softcap < 0:
-        raise ValueError("flash_attention: window and softcap must be >= 0")
+    B, Sq, H, D, Skv, Hkv = _check("flash_attention", q, k, v, window,
+                                   softcap, q_offset)
+    if lse is not None:
+        _build.require("lse", lse, torch.float32, (B, H, Sq), q.device)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    if dev.type == "cpu":
-        return attention_ref(q, k, v, window=window, softcap=softcap,
-                             scale=scale, q_offset=q_offset)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    if q.device.type == "cpu":
+        kw = dict(window=window, softcap=softcap, scale=scale,
+                  q_offset=q_offset)
+        if lse is None:
+            return attention_ref(q, k, v, **kw)
+        out, rows = attention_lse_ref(q, k, v, **kw)
+        lse.copy_(rows)
+        return out
+    dev = q.device
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib = _build.library()
     impl = impl_for(q.dtype, D)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, q_offset, H, Hkv, D, int(window), float(softcap), scale)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Skv, q_offset, H,
+            Hkv, D, int(window), float(softcap), scale)
     with _build.on_device(dev):
         stream = _build.stream_ptr(dev)
         launch = (lib.flash_attention_sm90_launch if impl == "wgmma"
@@ -113,3 +150,51 @@ def flash_attention(q, k, v, *, window: int = 0, softcap: float = 0.0,
     key = (impl, q_offset)
     LAUNCHES_BY_OFFSET[key] = LAUNCHES_BY_OFFSET.get(key, 0) + 1
     return out
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, *, window: int = 0,
+                             softcap: float = 0.0, scale=None,
+                             q_offset: int = 0):
+    """The gradient (dq, dk, dv) of :func:`flash_attention` at ``dout``,
+    from its inputs, its output ``out`` and its ``lse`` (float32 (B, H,
+    Sq)), with the forward's ``window``, ``softcap``, ``scale`` and
+    ``q_offset``; each gradient in its input's dtype and shape. On the card
+    four launches (delta, each q head's share of dK/dV, their sum, dQ) and
+    a float32 (2, B, Skv, H, D) buffer of the shares; a CPU tensor takes
+    ``attention_backward_ref``."""
+    global LAUNCHES_BWD
+    q_offset = int(q_offset)
+    B, Sq, H, D, Skv, Hkv = _check("flash_attention_backward", q, k, v,
+                                   window, softcap, q_offset)
+    dev = q.device
+    _build.require("out", out, q.dtype, (B, Sq, H, D), dev)
+    _build.require("dout", dout, q.dtype, (B, Sq, H, D), dev)
+    _build.require("lse", lse, torch.float32, (B, H, Sq), dev)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return attention_backward_ref(q, k, v, out, dout, lse, window=window,
+                                      softcap=softcap, scale=scale,
+                                      q_offset=q_offset)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    part = torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    dtype = _DTYPES[q.dtype]
+    shape = (B, Sq, Skv, q_offset, H, Hkv, D, int(window), float(softcap),
+             scale)
+    ptr = lambda *ts: tuple(t.data_ptr() for t in ts)
+    launches = [
+        ("dot", (*ptr(out, dout, delta), B, Sq, H, D, dtype)),
+        ("dkdv", (*ptr(q, k, v, dout, lse, delta, part), *shape, dtype)),
+        ("dkdv_sum", (*ptr(part, dk, dv), dk.numel(), H // Hkv, D, dtype)),
+        ("dq", (*ptr(q, k, v, dout, lse, delta, dq), *shape, dtype))]
+    with _build.on_device(dev):
+        stream = _build.stream_ptr(dev)
+        for kernel, args in launches:
+            code = getattr(lib, f"flash_bwd_{kernel}_launch")(*args, stream)
+            _build.check(code, f"flash_attention_backward ({kernel})")
+            LAUNCHES_BWD += 1
+            LAUNCHES_BWD_BY_KERNEL[kernel] += 1
+    return dq, dk, dv

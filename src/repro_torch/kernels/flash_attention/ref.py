@@ -1,12 +1,22 @@
-"""Plain PyTorch version of the flash-attention kernel (twin of
-``repro.kernels.flash_attention.ref.attention_ref``).
+"""Plain PyTorch versions of the flash-attention kernels (the forward is the
+twin of ``repro.kernels.flash_attention.ref.attention_ref``).
 
-It materializes the full (Sq, Skv) score matrix and repeats the kernel's
-arithmetic: inputs upcast to float32, q scaled in float32 before the
-product, the tanh softcap before the mask, masked scores at ``NEG_INF``,
-the row max floored at ``MAX_FLOOR`` and the denominator at ``DENOM_FLOOR``
-(the constants of ``src/repro/kernels/flash_attention/kernel.py``), p kept
-in float32 for the PV product, and the result cast to q's dtype.
+:func:`attention_ref` materializes the full (Sq, Skv) score matrix and
+repeats the forward kernel's arithmetic: inputs upcast to float32, q scaled
+in float32 before the product, the tanh softcap before the mask, masked
+scores at ``NEG_INF``, the row max floored at ``MAX_FLOOR`` and the
+denominator at ``DENOM_FLOOR`` (the constants of
+``src/repro/kernels/flash_attention/kernel.py``), p kept in float32 for the
+PV product, and the result cast to q's dtype.
+
+:func:`attention_lse_ref` and :func:`attention_backward_ref` are the plain
+versions of what training needs, in chunks of ``Q_CHUNK`` query rows (the
+reference's ``q_chunk`` in ``src/repro/models/layers.py``
+``blockwise_attention``, whose gradient recomputes each chunk's scores),
+so that no tensor holds (Sq, Skv) scores: the forward with each row's
+logsumexp, and the gradient from that logsumexp.
+:func:`backward_error_bound` is the elementwise bound two float32
+computations of the gradient are held to.
 """
 from __future__ import annotations
 
@@ -17,19 +27,15 @@ import torch
 NEG_INF = -1e30
 MAX_FLOOR = -1e29
 DENOM_FLOOR = 1e-30
+Q_CHUNK = 512          # query rows a chunk of the training versions
 
 
-def attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                  scale=None, q_offset: int = 0):
-    """Causal GQA attention, model layout: q (B, Sq, H, D); k, v
-    (B, Skv, Hkv, D) with H % Hkv == 0, q head h reading kv head h // G.
-    Query row i sits at position ``q_offset + i``, keys at 0..Skv-1
-    (``q_offset + Sq <= Skv``; Sq = Skv at offset 0 is the whole causal
-    pass). Returns (B, Sq, H, D)."""
+def _attend(q, k, v, window, softcap, scale, q_offset):
+    """(out, m, denom) of the plain forward: out (B, Sq, H, D) in q's
+    dtype; m and denom (B, Hkv, G, Sq, 1) float32."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qf = (q.float() * scale).reshape(B, Sq, Hkv, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     if softcap:
@@ -44,4 +50,238 @@ def attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
     p = torch.exp(s - m)
     denom = p.sum(-1, keepdim=True).clamp(min=DENOM_FLOOR)
     out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / denom
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype), m, denom
+
+
+def attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                  scale=None, q_offset: int = 0):
+    """Causal GQA attention, model layout: q (B, Sq, H, D); k, v
+    (B, Skv, Hkv, D) with H % Hkv == 0, q head h reading kv head h // G.
+    Query row i sits at position ``q_offset + i``, keys at 0..Skv-1
+    (``q_offset + Sq <= Skv``; Sq = Skv at offset 0 is the whole causal
+    pass). Returns (B, Sq, H, D)."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    return _attend(q, k, v, window, softcap, scale, q_offset)[0]
+
+
+def attention_lse_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                      scale=None, q_offset: int = 0):
+    """:func:`attention_ref` and each row's logsumexp of its scores,
+    ``m + log(denom)``, as float32 (B, H, Sq), computed ``Q_CHUNK`` query
+    rows at a time: the largest tensor holds (B, H, Q_CHUNK, Skv) scores.
+    Up to ``Q_CHUNK`` rows it runs :func:`attention_ref`'s ops as they are,
+    so its output has their bits; the output is contiguous, as the
+    backward takes it."""
+    B, Sq, H, D = q.shape
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    outs, lses = [], []
+    for c0 in range(0, max(Sq, 1), Q_CHUNK):      # one (empty) chunk at Sq 0
+        out, m, denom = _attend(q[:, c0:c0 + Q_CHUNK], k, v, window,
+                                softcap, scale, q_offset + c0)
+        outs.append(out)
+        lses.append((m + torch.log(denom)).reshape(B, H, out.shape[1]))
+    if len(outs) == 1:
+        return outs[0].contiguous(), lses[0]
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def _chunk_keys(lo: int, hi: int, window: int):
+    """The keys that query positions lo .. hi - 1 see: [k0, hi)."""
+    return (max(0, lo - window + 1) if window else 0), hi
+
+
+def attention_backward_ref(q, k, v, out, dout, lse, *, window: int = 0,
+                           softcap: float = 0.0, scale=None,
+                           q_offset: int = 0):
+    """The gradient (dq, dk, dv) of :func:`attention_ref` at ``dout``, from
+    its output ``out`` and its logsumexp ``lse`` ((B, H, Sq) float32, as
+    :func:`attention_lse_ref` or the kernel's ``lse`` gives it), in
+    ``Q_CHUNK`` query rows at a time against the keys each chunk sees. Per
+    chunk, in float32: s = scale q k^T (softcapped as the forward),
+    p = exp(s - lse) on the mask and 0 off it, dp = dout v^T,
+    ds = p (dp - delta) with delta = sum_d dout out, times 1 - (s / cap)^2
+    under a softcap; dv += p^T dout and dk += ds^T (scale q) accumulate in
+    float32, the chunk's dq = scale ds k. Each is rounded once to its
+    input's dtype. The largest tensor holds (B, H, Q_CHUNK, Skv) scores."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = (q.float() * scale).reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, Sq, Hkv, G, D)
+    delta = (dout.float() * out.float()).sum(-1)                # (B, Sq, H)
+    delta = delta.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)
+    lse = lse.reshape(B, Hkv, G, Sq)
+    dq = torch.empty((B, Sq, Hkv, G, D), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((B, Skv, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for c0 in range(0, Sq, Q_CHUNK):
+        c1 = min(Sq, c0 + Q_CHUNK)
+        lo, hi = q_offset + c0, q_offset + c1
+        k0, k1 = _chunk_keys(lo, hi, window)
+        qc, doc = qf[:, c0:c1], dof[:, c0:c1]
+        kc, vc = kf[:, k0:k1], vf[:, k0:k1]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc)
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        i = torch.arange(lo, hi, device=q.device)[:, None]
+        j = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = i >= j
+        if window:
+            mask &= (i - j) < window
+        p = torch.where(mask, torch.exp(s - lse[..., c0:c1, None]), 0.0)
+        del s
+        ds = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
+        ds = p * (ds - delta[..., c0:c1, None])
+        if softcap:
+            ds = ds * (1.0 - t * t)
+            del t
+        dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+        del p
+        dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc)
+        dq[:, c0:c1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kc)
+        del ds
+    dq = (dq * scale).reshape(B, Sq, H, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
+                         softcap: float = 0.0, scale=None, q_offset: int = 0,
+                         same_stats: bool = False, ref=None):
+    """Elementwise bounds (dq, dk, dv), float64, on |a - b| for two float32
+    computations a and b of this gradient from the same inputs, derived
+    from the float32 unit roundoff u = 2^-24 and gamma(n) = n u / (1 - n u),
+    the worst-case relative error of an n-term sum or dot product. Each
+    side is bounded against the exact value, in float64 from the same
+    inputs, and the bound is the sum of both sides' (2x one side's):
+
+    * s = scale q.k over D terms: |ds| <= gamma(D + 2) (|scale q|.|k|)
+      + 4u |s| (the softcap's tanh has slope <= 1 and rounds a few times);
+    * with ``same_stats`` both sides read the same ``lse`` and ``out`` (the
+      kernel against the plain chunked version) and compute p = exp(s -
+      lse): relative error e_p = |ds| + u (|s| + |lse|) + 2u. Otherwise one
+      side recomputes its statistics (autograd through
+      :func:`attention_ref`: m, l = sum over the row's keys, p = exp(s -
+      m) / l), so e_p gains the logsumexp's error: 2 max_row |ds| +
+      u (max |s| + |m|) + gamma(Skv + 4) + u (|log l| + |lse|) + 2u;
+    * dp = dout.v over D terms: gamma(D + 2) |dout|.|v|; delta = sum_d
+      dout out over D terms: gamma(D + 2) |dout|.|out|, plus, without
+      ``same_stats``, |dout|.|out - O| for the exact O = P v: a 16-bit
+      ``out`` is rounded (its unit u_in |O|), and the forward's own error
+      is (max e_p + gamma(Skv + 2) + u_in^2) P |v| plus half the type's
+      subnormal spacing times the sum of |v| over the row's keys (the
+      16-bit wgmma kernel feeds p to P V as two halves of the type, hi and
+      lo: relative error u_in^2, or that absolute where lo is subnormal);
+    * ds = p (dp - delta) (1 - t^2): p (e_p |dp - delta| + |d dp| +
+      |d delta|) (1 + 4u), plus, under a softcap, p |dp - delta| (2 |ds| /
+      cap + 6u) for 1 - t^2;
+    * dv = sum over the G Sq rows of p dout: sum p |dout| (e_p +
+      gamma(G Sq + 2)); dk = sum of ds (scale q): sum (|d ds| +
+      gamma(G Sq + 2) |ds|) |scale q|; dq = scale sum over keys of ds k:
+      scale sum (|d ds| + gamma(Skv + 2) |ds|) |k| (1 + u).
+
+    In a 16-bit type both sides round their float32 result once, which
+    adds 2 u_in (|ref| + the float32 bound) and twice half the spacing of
+    the type's subnormals; ``ref`` is the side held to the other (its
+    rounded (dq, dk, dv)), required then. The bound is worst case: the
+    sums' rounding errors are not taken to cancel."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    u = 2.0 ** -24
+
+    def gamma(n):
+        return n * u / (1 - n * u)
+
+    f64 = torch.float64
+    qd = (q.to(f64) * scale).reshape(B, Sq, Hkv, G, D)
+    kd, vd = k.to(f64), v.to(f64)
+    dod = dout.to(f64).reshape(B, Sq, Hkv, G, D)
+    od = out.to(f64).reshape(B, Sq, Hkv, G, D)
+    lsed = lse.to(f64).reshape(B, Hkv, G, Sq)
+    u_in = 0.0 if out.dtype == torch.float32 else (
+        torch.finfo(out.dtype).eps / 2)
+    sub = torch.finfo(out.dtype).smallest_normal * u_in   # half a subnormal
+    bq = torch.zeros((B, Sq, Hkv, G, D), dtype=f64, device=q.device)
+    bk = torch.zeros((B, Skv, Hkv, D), dtype=f64, device=q.device)
+    bv = torch.zeros_like(bk)
+    g_rows, g_keys, g_d = gamma(G * Sq + 2), gamma(Skv + 2), gamma(D + 2)
+    for c0 in range(0, Sq, Q_CHUNK):
+        c1 = min(Sq, c0 + Q_CHUNK)
+        lo, hi = q_offset + c0, q_offset + c1
+        k0, k1 = _chunk_keys(lo, hi, window)
+        qc, doc, oc = qd[:, c0:c1], dod[:, c0:c1], od[:, c0:c1]
+        kc, vc = kd[:, k0:k1], vd[:, k0:k1]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc)
+        err_s = g_d * torch.einsum("bqhgd,bkhd->bhgqk", qc.abs(), kc.abs())
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        err_s += 4 * u * s.abs()
+        i = torch.arange(lo, hi, device=q.device)[:, None]
+        j = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = i >= j
+        if window:
+            mask &= (i - j) < window
+        sm = torch.where(mask, s, -math.inf)
+        m = sm.amax(-1, keepdim=True)
+        l_ = torch.exp(sm - m).sum(-1, keepdim=True)
+        lse_x = m + torch.log(l_)                       # the exact lse
+        P = torch.exp(sm - lse_x)                        # 0 off the mask
+        l_c = lsed[..., c0:c1, None]
+        if same_stats:
+            # both sides exponentiate against the given lse
+            P = torch.exp(sm - l_c)
+            e_p = err_s + u * (s.abs() + l_c.abs()) + 2 * u
+        else:
+            e_lse = (2 * torch.where(mask, err_s, 0.0).amax(-1, keepdim=True)
+                     + u * (torch.where(mask, s.abs(), 0.0)
+                            .amax(-1, keepdim=True) + m.abs())
+                     + gamma(Skv + 4) + u * (torch.log(l_).abs()
+                                            + lse_x.abs()) + 2 * u)
+            e_p = err_s + e_lse + u * (s.abs() + lse_x.abs()) + 2 * u
+        del sm
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
+        err_dp = g_d * torch.einsum("bqhgd,bkhd->bhgqk", doc.abs(),
+                                    vc.abs())
+        delta = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
+        err_delta = g_d * (doc.abs() * oc.abs()).sum(-1)
+        if not same_stats:
+            e_fwd = (torch.where(mask, e_p, 0.0).amax(-1) + g_keys
+                     + u_in ** 2)
+            pv = torch.einsum("bhgqk,bkhd->bqhgd", P, vc.abs())
+            err_o = (u_in * oc.abs()
+                     + e_fwd.permute(0, 3, 1, 2)[..., None] * pv
+                     + sub * torch.einsum("qk,bkhd->bqhd", mask.to(f64),
+                                          vc.abs())[:, :, :, None])
+            err_delta = err_delta + (doc.abs() * err_o).sum(-1)
+            del pv, err_o
+        err_delta = err_delta.permute(0, 2, 3, 1)[..., None]
+        resid = (dp - delta).abs()
+        ds_abs = P * resid
+        err_ds = P * (e_p * resid + err_dp + err_delta) * (1 + 4 * u)
+        if softcap:
+            ds_abs = ds_abs * (1 - t * t).abs()
+            err_ds = err_ds + P * resid * (2 * err_s / softcap + 6 * u)
+            del t
+        del dp, err_dp, resid
+        bv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", P * (e_p + g_rows),
+                                     doc.abs())
+        w = err_ds + g_rows * ds_abs
+        bk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", w, qc.abs())
+        w = err_ds + g_keys * ds_abs
+        bq[:, c0:c1] = scale * (1 + u) * torch.einsum(
+            "bhgqk,bkhd->bqhgd", w, kc.abs())
+        del P, e_p, err_s, err_ds, ds_abs, w
+    bounds = [2 * bq.reshape(B, Sq, H, D), 2 * bk, 2 * bv]
+    if u_in:
+        if ref is None:
+            raise ValueError("backward_error_bound: a 16-bit gradient needs "
+                             "ref, the side it is held to")
+        bounds = [b + 2 * u_in * (r.to(f64).abs() + b) + 2 * sub
+                  for b, r in zip(bounds, ref)]
+    return tuple(bounds)

@@ -16,10 +16,11 @@ laid out (kv_head, q_per_kv) along its flat head axis, so q head
 h = kv * G + g reads kv head h // G.
 
 Training: ``blockwise_attention`` goes through :class:`FlashAttentionFn`,
-whose forward is the kernel (the plain version on the CPU) and whose
-backward recomputes the plain version under autograd: no backward kernel
-exists in either package (the reference trains through jnp attention and
-its Pallas kernel has no ``custom_vjp``). :func:`chunked_cross_entropy`
+whose forward is the kernel with each row's logsumexp and whose backward is
+the hand-written gradient kernel (on the CPU, their chunked plain
+versions): like the reference's ``blockwise_attention``, whose gradient
+JAX takes with each chunk's scores recomputed, it never holds an (S, S)
+buffer. :func:`chunked_cross_entropy`
 is the reference's loss over sequence chunks, each checkpointed, so the
 (B, S, V) logits never exist.
 """
@@ -32,7 +33,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.param import ParamDef
 
 NEG_INF = -1e30
@@ -91,33 +91,36 @@ def _softcap(scores, cap: float):
 
 class FlashAttentionFn(torch.autograd.Function):
     """Causal GQA attention with the flash-attention kernel as its forward
-    (``fa_ops.flash_attention``: the kernel on a CUDA tensor, the plain
-    version on a CPU one) and, as its backward, autograd through the plain
-    version (``attention_ref``) recomputed from the saved (q, k, v) at the
-    same ``q_offset``. The recompute holds the (B, H, Sq, Skv) float32
-    scores of one layer for the length of its backward. ``scale`` is 1.0
-    here: callers scale q first. Under ``torch.no_grad`` (serving)
-    ``apply`` is the forward alone, so serving keeps its bits and its
-    launch counts."""
+    and the flash-attention gradient kernel as its backward
+    (``fa_ops.flash_attention`` and ``fa_ops.flash_attention_backward``:
+    the kernels on a CUDA tensor, the chunked plain versions on a CPU one).
+    Where an input needs a gradient, the forward also asks the kernel for
+    each row's logsumexp and saves (q, k, v, out, lse); the backward
+    recomputes the scores tile by tile from them at the same ``q_offset``,
+    so no (Sq, Skv) tensor is held. ``scale`` is 1.0 here: callers scale q
+    first. Where no input needs a gradient (serving: frozen weights, or
+    ``torch.no_grad``) ``apply`` is the forward alone, with no logsumexp:
+    serving keeps its bits and its launch counts."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, softcap: float,
                 q_offset: int = 0):
-        ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.softcap, ctx.q_offset = window, softcap, q_offset
-        return fa_ops.flash_attention(q, k, v, window=window,
-                                      softcap=softcap, scale=1.0,
-                                      q_offset=q_offset)
+        kw = dict(window=window, softcap=softcap, scale=1.0,
+                  q_offset=q_offset)
+        if not any(ctx.needs_input_grad[:3]):
+            return fa_ops.flash_attention(q, k, v, **kw)
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out = fa_ops.flash_attention(q, k, v, lse=lse, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = attention_ref(*qkv, window=ctx.window,
-                                softcap=ctx.softcap, scale=1.0,
-                                q_offset=ctx.q_offset)
-            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa_ops.flash_attention_backward(
+            q, k, v, out, dout.contiguous(), lse, **ctx.kw)
         return dq, dk, dv, None, None, None
 
 

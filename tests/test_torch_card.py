@@ -74,12 +74,21 @@ params 1e-5, the CPU test's bounds) and twice bit for bit;
 ``moe_apply_sharded`` on the card against the CPU's shards (rtol = atol =
 1e-5); the owner-local ``write_token`` against the unsharded write, bit for
 bit.
+Flash attention's gradient: the three kernels (delta, dK/dV, dQ; every
+dtype, head dims 20 to 320, windows, softcaps, offsets on and off the
+64-row blocks) against the chunked plain backward from the same out and
+lse, within ``ref.backward_error_bound(same_stats=True)`` (the derived
+worst-case float32 bound of two orders of the same sums, plus one
+rounding each to a 16-bit type), two calls bit for bit; both forward
+kernels' logsumexp against the plain one within its derived bound, the
+output's bytes unchanged by asking for it; and qwen3's heads at 32,768
+tokens in bfloat16 under 1 GiB above the inputs.
 LM training's autograd Functions on the card: ``FlashAttentionFn``'s
 forward is the kernel (the flash bounds above against ``attention_ref``)
-and its (dq, dk, dv) autograd through ``attention_ref`` recomputed on the
-card, which must equal autograd through ``attention_ref`` called directly
-within 1e-6 of each gradient's largest magnitude (the same ops on the
-same inputs); ``RGLRUScanFn``'s forward bit for bit against the plain
+and its (dq, dk, dv) the gradient kernels, within
+``ref.backward_error_bound`` of autograd through ``attention_ref`` (the
+plain version recomputes its own statistics, and the wgmma forward's p
+split and 16-bit output enter the bound); ``RGLRUScanFn``'s forward bit for bit against the plain
 loop and its (da, db, dh0), one reversed launch of the kernel, against
 autograd through the plain loop within 1e-6 of each gradient's largest
 magnitude (the kernel adds g_t = dh_t + a_{t+1} g_{t+1} in the order
@@ -100,6 +109,7 @@ from repro_torch.core.frame import RawWindow, make_raw_window
 from repro_torch.core.harmonize import exact_div
 from repro_torch.core.reward import energy_reward_spec
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.harmonize import ops as hz_ops
 from repro_torch.kernels.harmonize.ref import harmonize_ref
@@ -451,6 +461,136 @@ def test_flash_offset_rows_equal_full_launch_on_card(card, rng, dtype, D,
         assert torch.equal(part, want)
     else:
         _flash_close(part, want, dtype)
+
+
+# Flash attention's gradient: B, Sq, Skv, q_offset, H, Hkv, D, window,
+# softcap. Head dims 64, 96, 128, 256 and one off a multiple of 8 (36; 20
+# in float32), GQA and not, windows, softcaps, and offsets on and off the
+# kernels' 64-row blocks (a context-parallel shard's rows against every
+# key), with ragged Sq and Skv
+FA_BWD_CASES = [(2, 300, 300, 0, 4, 2, 64, 0, 0.0),
+                (1, 257, 257, 0, 4, 4, 96, 0, 30.0),
+                (1, 520, 520, 0, 16, 8, 128, 0, 0.0),
+                (2, 200, 200, 0, 4, 2, 128, 64, 0.0),
+                (1, 200, 600, 256, 4, 2, 128, 0, 0.0),
+                (1, 130, 520, 390, 4, 2, 256, 100, 50.0),
+                (1, 300, 300, 0, 10, 1, 256, 128, 0.0),
+                (2, 150, 150, 0, 4, 2, 36, 0, 50.0),
+                (1, 97, 140, 40, 4, 1, 20, 16, 0.0),
+                (1, 70, 70, 0, 2, 1, 320, 0, 0.0)]
+
+
+def _bwd_inputs(rng, card, dtype, B, Sq, Skv, off, H, Hkv, D, window,
+                softcap):
+    """q, k, v, dout and the forward's out and lse from the kernel."""
+    q, k, v = _flash_case(rng, card, dtype, B, Sq, Skv, H, Hkv, D, softcap)
+    dout = torch.from_numpy(rng.normal(0, 1, q.shape).astype(
+        np.float32)).to(card, dtype)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=card)
+    out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap,
+                                 q_offset=off, lse=lse)
+    return q, k, v, dout, out, lse
+
+
+def _bwd_launched(before):
+    """``before`` (a copy of ``LAUNCHES_BWD_BY_KERNEL``) after one backward
+    call: each of its four kernels once."""
+    return {n: c + 1 for n, c in before.items()}
+
+
+def _within(got, want, bounds):
+    for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.double() - w.double()).abs()
+        assert bool((err <= b).all()), (name, float((err - b).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,Sq,Skv,off,H,Hkv,D,window,softcap",
+                         FA_BWD_CASES)
+def test_flash_backward_matches_plain_on_card(card, rng, dtype, B, Sq, Skv,
+                                              off, H, Hkv, D, window,
+                                              softcap):
+    """The gradient kernels (four launches, counted per kernel) against the
+    chunked plain backward on the same card tensors, the same out and lse:
+    within ``ref.backward_error_bound(same_stats=True)`` (both read the
+    forward's statistics; they differ in the order of each sum), and two
+    calls bit for bit (no atomics)."""
+    q, k, v, dout, out, lse = _bwd_inputs(rng, card, dtype, B, Sq, Skv, off,
+                                          H, Hkv, D, window, softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    before = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
+    got = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(before)
+    want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
+    _within(got, want, fa_ref.backward_error_bound(
+        q, k, v, out, dout, lse, **kw, same_stats=True, ref=want))
+    again = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,window,softcap,off",
+                         [(torch.bfloat16, 128, 0, 0.0, 0),
+                          (torch.float16, 256, 100, 50.0, 0),
+                          (torch.float32, 64, 0, 30.0, 70),
+                          (torch.bfloat16, 36, 16, 0.0, 64)])
+def test_flash_forward_lse_on_card(card, rng, dtype, D, window, softcap,
+                                   off):
+    """Both forward kernels' logsumexp against ``attention_lse_ref``'s on
+    the card, within twice one side's error: |d lse| <= gamma(D + 2)
+    max |scale q|.|k| (the scores) + gamma(Skv + 4) (the row sum) + 4u
+    (max |s| + |lse|) (u = 2^-24, gamma(n) = n u / (1 - n u)); and the
+    output's bytes with an lse asked for equal those without (serving)."""
+    B, Sq, H, Hkv = 2, 300, 4, 2
+    Skv = Sq + off
+    q, k, v = _flash_case(rng, card, dtype, B, Sq, Skv, H, Hkv, D, softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=card)
+    out = fa_ops.flash_attention(q, k, v, lse=lse, **kw)
+    plain = fa_ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(out.view(torch.uint8), plain.view(torch.uint8))
+    _, want = fa_ref.attention_lse_ref(q, k, v, **kw)
+    u = 2.0 ** -24
+    gamma = lambda n: n * u / (1 - n * u)
+    G = H // Hkv
+    qs = q.double().abs().reshape(B, Sq, Hkv, G, D) / D ** 0.5
+    a = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.double().abs())
+    s_max = a.amax(-1).reshape(B, H, Sq)
+    tol = 2 * (gamma(D + 2) * s_max + gamma(Skv + 4)
+               + 4 * u * (s_max + want.double().abs()))
+    assert bool(((lse.double() - want.double()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_flash_backward_at_32k_tokens_on_card(card):
+    """qwen3's heads (16 q / 8 kv, D = 128) at its 32,768-token context,
+    bfloat16: the gradient kernels run with under 1 GiB of device memory
+    above their inputs (dq, dk, dv, delta: ~0.27 GB; autograd through
+    ``attention_ref`` would need 68.7 GB for one score tensor) and match
+    the chunked plain backward within the bound of the test above."""
+    S, H, Hkv, D = 32768, 16, 8, 128
+    g = torch.Generator(device=card).manual_seed(5)
+    q = (torch.randn((1, S, H, D), generator=g, device=card)
+         * D ** -0.5).to(torch.bfloat16)
+    k, v = (torch.randn((1, S, Hkv, D), generator=g, device=card)
+            .to(torch.bfloat16) for _ in range(2))
+    dout = torch.randn((1, S, H, D), generator=g, device=card).to(
+        torch.bfloat16)
+    lse = torch.empty((1, H, S), dtype=torch.float32, device=card)
+    out = fa_ops.flash_attention(q, k, v, scale=1.0, lse=lse)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 1 << 30
+    want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, scale=1.0)
+    _within(got, want, fa_ref.backward_error_bound(
+        q, k, v, out, dout, lse, scale=1.0, same_stats=True, ref=want))
 
 
 @pytest.mark.cuda
@@ -1377,11 +1517,17 @@ def test_flash_attention_fn_forward_backward_on_card(card, dtype, D, impl):
         assert bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all())
     else:
         assert float(err.max()) <= 2e-3
+    bwd = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
     got = torch.autograd.grad(out, (q, k, v), dout)
     want = torch.autograd.grad(ref, (q, k, v), dout)
     assert fa_ops.LAUNCHES_BY_IMPL[impl] == before[impl] + 1
+    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(bwd)
     assert all(x.dtype == dtype for x in got)
-    assert _max_rel(got, want) <= 1e-6
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    lse = torch.empty((2, 8, 256), dtype=torch.float32, device=card)
+    fa_ops.flash_attention(qd, kd, vd, scale=1.0, lse=lse)
+    _within(got, want, fa_ref.backward_error_bound(
+        qd, kd, vd, out.detach(), dout, lse, scale=1.0, ref=want))
 
 
 @pytest.mark.cuda

@@ -349,3 +349,19 @@ def test_make_raw_window_defaults_to_the_card(rng):
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make_raw_window(v, ts, ok)
+
+
+@pytest.mark.parametrize("combine", [None, ((1.0, 0.5), (0.0, 2.0))])
+def test_pipeline_weights_default_to_the_card(combine):
+    """``PipelineConfig.weights`` resolves ``device=None`` to the card like
+    the other constructors: where there is no card it raises
+    ``resolve_device``'s error rather than build the weights on the CPU;
+    ``device="cpu"`` builds them there (identity, or the config's rows)."""
+    cfg = PipelineConfig(n_envs=2, n_streams=2, combine_weights=combine)
+    w = cfg.weights("cpu")
+    want = torch.eye(2) if combine is None else torch.tensor(combine)
+    assert w.device.type == "cpu" and torch.equal(w, want)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cfg.weights()

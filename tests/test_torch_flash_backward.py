@@ -1,0 +1,352 @@
+"""The flash-attention gradient on the CPU: the chunked plain versions
+(``attention_lse_ref``, ``attention_backward_ref``) that the gradient
+kernel is held to on the card, against autograd through ``attention_ref``
+and against the JAX package's ``blockwise_attention`` differentiated by
+JAX; and the contract that ``FlashAttentionFn.backward`` never makes an
+(Sq, Skv) tensor.
+
+Bounds:
+  * the plain backward against autograd through ``attention_ref``, which
+    recomputes its own softmax statistics: elementwise within
+    ``ref.backward_error_bound(..., same_stats=False)``, derived in its
+    docstring from float32's unit roundoff u = 2^-24 and gamma(n) =
+    n u / (1 - n u) over each sum and dot product: the D-term scores,
+    the Skv-term row sums behind the logsumexp that the plain version's
+    p = exp(s - lse) rewrite reads instead of exp(s - m) / l (its error
+    enters p relatively), the D-term dp and delta (delta reads the
+    forward's output, rounded to a 16-bit input type: u_in |out|), the
+    G Sq-term sums of dv and dk and the Skv-term sum of dq; both sides
+    are bounded against the exact value and the bound is their sum. A
+    16-bit gradient is rounded once on each side: 2 u_in (|ref| + the
+    float32 bound), plus twice half the type's subnormal spacing. The bound
+    is worst case (no cancellation of rounding errors is assumed); in
+    float32 it stays under 1e-2 of each gradient's largest magnitude at
+    these sizes, far below what a dropped tile or a wrong mask moves;
+  * against the JAX package (float32 both sides, another order of sums:
+    XLA's online softmax over kv chunks against the plain version's
+    chunks): ``GRAD_REL`` = 1e-4 of each gradient's largest magnitude,
+    ``tests/test_torch_lm_train.py``'s bound for the port's gradients
+    against JAX's;
+  * the chunked forward up to ``Q_CHUNK`` rows runs ``attention_ref``'s
+    ops and equals it bit for bit; above, each chunk is those ops on its
+    rows, within 1e-6 (max abs) of the whole pass (torch's CPU matmul may
+    block a longer product otherwise); its logsumexp within 1e-5 of
+    ``torch.logsumexp`` over the masked float32 scores.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from repro.models.layers import blockwise_attention as jax_blockwise
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models.layers import FlashAttentionFn, blockwise_attention
+
+GRAD_REL = 1e-4
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def _inputs(rng, B, Sq, Skv, H, Hkv, D, dtype, softcap=0.0):
+    mk = lambda *shape: torch.from_numpy(
+        rng.normal(0, 1, shape).astype(np.float32))
+    q, k, v = mk(B, Sq, H, D), mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, D)
+    if softcap:
+        q = q * 4          # scores in the tens: the cap changes them
+    dout = mk(B, Sq, H, D)
+    return tuple(t.to(dtype) for t in (q, k, v, dout))
+
+
+def _autograd_ref(q, k, v, dout, **kw):
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa_ref.attention_ref(qa, ka, va, **kw)
+    return torch.autograd.grad(out, (qa, ka, va), dout)
+
+
+# B, Sq, Skv, H, Hkv, D, window, softcap, q_offset, dtype: below and above
+# Q_CHUNK = 512 (two chunks, the second short), GQA and not, offsets
+CASES = [
+    (2, 40, 40, 4, 2, 16, 0, 0.0, 0, "float32"),
+    (2, 40, 40, 4, 4, 16, 9, 0.0, 0, "float32"),
+    (1, 30, 70, 4, 2, 16, 0, 5.0, 40, "float32"),
+    (1, 600, 600, 4, 2, 16, 0, 0.0, 0, "float32"),
+    (1, 600, 700, 2, 2, 24, 37, 3.0, 100, "float32"),
+    (1, 530, 530, 4, 1, 20, 200, 0.0, 0, "float32"),
+    (2, 40, 40, 4, 2, 16, 0, 0.0, 0, "bfloat16"),
+    (1, 600, 600, 4, 1, 16, 0, 5.0, 0, "bfloat16"),
+    (1, 300, 650, 4, 2, 8, 100, 0.0, 350, "float16"),
+    (1, 600, 600, 2, 2, 32, 0, 0.0, 0, "float16"),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window,softcap,off,dt", CASES)
+def test_plain_backward_against_autograd_through_plain(
+        rng, B, Sq, Skv, H, Hkv, D, window, softcap, off, dt):
+    dtype = DTYPES[dt]
+    q, k, v, dout = _inputs(rng, B, Sq, Skv, H, Hkv, D, dtype, softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    got = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
+    want = _autograd_ref(q, k, v, dout, **kw)
+    bounds = fa_ref.backward_error_bound(q, k, v, out, dout, lse, **kw,
+                                         ref=want)
+    for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.double() - w.double()).abs()
+        assert bool((err <= b).all()), (
+            f"{name}: {float((err - b).max())} over the bound")
+        if dtype == torch.float32:
+            assert float(b.max()) < 1e-2 * float(w.abs().max()), name
+
+
+def test_plain_backward_sees_a_dropped_key(rng):
+    """The bound is tight enough to catch one key's term dropped from dv."""
+    q, k, v, dout = _inputs(rng, 1, 64, 64, 2, 1, 16, torch.float32)
+    out, lse = fa_ref.attention_lse_ref(q, k, v)
+    _, _, dv = fa_ref.attention_backward_ref(q, k, v, out, dout, lse)
+    want = _autograd_ref(q, k, v, dout)
+    bound = fa_ref.backward_error_bound(q, k, v, out, dout, lse)[2]
+    broken = dv.clone()
+    broken[0, 40] = 0.0
+    err = (broken.double() - want[2].double()).abs()
+    assert not bool((err <= bound).all())
+
+
+@pytest.mark.parametrize("Sq,Skv,off,window,softcap", [
+    (24, 24, 0, 0, 0.0), (20, 33, 13, 7, 0.0), (12, 12, 0, 0, 3.0)])
+def test_plain_backward_against_jax_blockwise_attention(rng, Sq, Skv, off,
+                                                        window, softcap):
+    """The port's ``blockwise_attention`` (``FlashAttentionFn``: on the CPU
+    the chunked plain forward and backward) against ``jax.vjp`` of the
+    reference's ``blockwise_attention``, float32, GQA with 2 q heads a kv
+    head, at a query offset and with small chunks on the JAX side."""
+    B, Hkv, G, D = 2, 2, 2, 16
+    mk = lambda *shape: rng.normal(0, 1, shape).astype(np.float32)
+    q, k, v = mk(B, Sq, Hkv, G, D), mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, D)
+    if softcap:
+        q = q * 4
+    dout = mk(B, Sq, Hkv, G, D)
+    qpos = np.broadcast_to(off + np.arange(Sq), (B, Sq))
+    kpos = np.broadcast_to(np.arange(Skv), (B, Skv))
+
+    def jfn(q, k, v):
+        return jax_blockwise(q, k, v, q_positions=jnp.asarray(qpos),
+                             kv_positions=jnp.asarray(kpos),
+                             kv_valid=jnp.ones((B, Skv), bool), window=window,
+                             softcap=softcap, q_chunk=8, kv_chunk=16)
+
+    jout, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = blockwise_attention(tq, tk, tv, window=window, softcap=softcap,
+                              q_offset=off)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=0, atol=1e-5)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    for name, g, w in zip(("dq", "dk", "dv"), grads, jgrads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=GRAD_REL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("Sq,off,window,softcap",
+                         [(40, 0, 0, 0.0), (1100, 0, 0, 0.0),
+                          (700, 200, 150, 4.0)])
+def test_lse_forward_against_whole_pass(rng, Sq, off, window, softcap):
+    Skv = Sq + off
+    q, k, v, _ = _inputs(rng, 1, Sq, Skv, 4, 2, 16, torch.float32, softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    whole = fa_ref.attention_ref(q, k, v, **kw)
+    assert out.is_contiguous() and lse.shape == (1, 4, Sq)
+    if Sq <= fa_ref.Q_CHUNK:
+        assert torch.equal(out, whole)
+    else:
+        assert float((out - whole).abs().max()) <= 1e-6
+    s = torch.einsum("bqhd,bkhd->bhqk", q / 4.0,
+                     k.repeat_interleave(2, dim=2))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    i = off + torch.arange(Sq)[:, None]
+    j = torch.arange(Skv)[None, :]
+    mask = (i >= j) & ((i - j < window) if window else True)
+    want = torch.logsumexp(s.masked_fill(~mask, -torch.inf), -1)
+    assert float((lse - want).abs().max()) <= 1e-5
+
+
+def test_wrapper_takes_lse_and_refuses_bad_shapes():
+    q = torch.zeros((1, 8, 2, 16))
+    lse = torch.full((1, 2, 8), float("nan"))
+    out = fa_ops.flash_attention(q, q, q, lse=lse)
+    assert torch.equal(out, fa_ops.flash_attention(q, q, q))
+    assert bool(torch.isfinite(lse).all())
+    with pytest.raises(ValueError, match="lse"):
+        fa_ops.flash_attention(q, q, q, lse=torch.zeros((1, 8, 2)))
+    with pytest.raises(TypeError, match="lse"):
+        fa_ops.flash_attention(q, q, q, lse=lse.double())
+    grads = fa_ops.flash_attention_backward(q, q, q, out, q, lse)
+    assert [g.shape for g in grads] == [q.shape] * 3
+    with pytest.raises(ValueError, match="dout"):
+        fa_ops.flash_attention_backward(q, q, q, out, q[:, :4], lse)
+    with pytest.raises(ValueError, match="offset"):
+        fa_ops.flash_attention_backward(q, q, q, out, q, lse, q_offset=1)
+
+
+def test_flash_fn_with_no_query_rows():
+    """A context-parallel shard with no rows (S < the model axis): the
+    forward and the gradient take Sq = 0, the keys' gradients zero."""
+    q = torch.zeros((1, 0, 2, 8), requires_grad=True)
+    k, v = (torch.randn((1, 4, 1, 8)).requires_grad_() for _ in range(2))
+    out = FlashAttentionFn.apply(q, k, v, 0, 0.0, 4)
+    dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
+    assert out.shape == q.shape and dq.shape == q.shape
+    assert not dk.any() and not dv.any()
+
+
+class _Made(TorchDispatchMode):
+    """Every tensor an op makes: (op, shape, elements)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.made += [(str(func), tuple(t.shape), t.numel())
+                      for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        return out
+
+
+def test_backward_holds_no_score_matrix(rng, monkeypatch):
+    """``FlashAttentionFn.backward`` at (1, 2048, 4 q / 2 kv heads, 16)
+    with 256-row chunks: no tensor it makes has Sq * Skv elements per
+    (batch row, q head), the size of one head's score matrix; the largest
+    is one chunk's scores. (Autograd through ``attention_ref``, the
+    backward before the chunked one, makes (1, 2, 2, 2048, 2048) scores.)"""
+    monkeypatch.setattr(fa_ref, "Q_CHUNK", 256, raising=False)
+    B, S, H, Hkv, D = 1, 2048, 4, 2, 16
+    q, k, v, dout = _inputs(rng, B, S, S, H, Hkv, D, torch.float32)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = FlashAttentionFn.apply(q, k, v, 0, 0.0)
+    with _Made() as rec:
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert all(g.shape == t.shape for g, t in zip(grads, (q, k, v)))
+    assert rec.made, "the dispatch mode saw no op of the backward"
+    per_head = [(op, shape, n / (B * H)) for op, shape, n in rec.made]
+    over = [x for x in per_head if x[2] >= S * S]
+    assert not over, f"tensors of a whole score matrix per head: {over}"
+    assert max(n for _, _, n in per_head) == 256 * S
+
+
+def _emulate_kernels(q, k, v, out, dout, lse, *, window, softcap, q_offset):
+    """The gradient kernels' tile loops (csrc/flash_attention_bwd.cu) in
+    float64 numpy: the dK/dV blocks (a q head, 64 keys, a group of 64 or
+    128 output columns) over the q blocks of 64 rows from the first that
+    sees the keys to the last a window lets see them, each q head's share
+    of dK and dV then summed over its kv head's q heads in order, the
+    dQ blocks (64 rows) over the key blocks their rows see, each tile's
+    mask and P = exp(S - lse), dS = P (dP - delta) (1 - t^2); rows past Sq
+    and keys past Skv staged as zeros and never stored."""
+    q, k, v, out, dout = (t.double().numpy() for t in (q, k, v, out, dout))
+    lse = lse.double().numpy()
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(D)
+    kb = 64
+    DW = 64 if D <= 64 else 128
+    delta = (dout * out).sum(-1).transpose(0, 2, 1)        # (B, H, Sq)
+    Dp = -(-D // DW) * DW          # columns past D read as zeros
+    q, k, v, dout = (np.pad(x, [(0, 0)] * 3 + [(0, Dp - D)])
+                     for x in (q, k, v, dout))
+
+    def pad(x, r0, n):
+        t = np.zeros((kb,) + x.shape[1:])
+        t[:max(0, min(kb, n - r0))] = x[r0:r0 + kb]
+        return t
+
+    def tile(b, h, r0, k0):
+        hk = h // G
+        Q = pad(q[b, :, h], r0, Sq) * scale
+        K, V = pad(k[b, :, hk], k0, Skv), pad(v[b, :, hk], k0, Skv)
+        dO = pad(dout[b, :, h], r0, Sq)
+        s, dp = Q @ K.T, dO @ V.T
+        dcap = 1.0
+        if softcap:
+            t = np.tanh(s / softcap)
+            s, dcap = t * softcap, 1 - t * t
+        row = r0 + np.arange(kb)[:, None]
+        pos, kpos = q_offset + row, k0 + np.arange(kb)[None, :]
+        ok = (row < Sq) & (kpos < Skv) & (kpos <= pos)
+        if window:
+            ok &= pos - kpos < window
+        lrow, drow = pad(lse[b, h, :, None], r0, Sq), pad(
+            delta[b, h, :, None], r0, Sq)
+        p = np.where(ok, np.exp(np.where(ok, s - lrow, 0.0)), 0.0)
+        return Q, K, dO, p, p * (dp - drow) * dcap
+
+    dq = np.zeros(q.shape[:3] + (D,))
+    part_k, part_v = (np.zeros((B, Skv, H, D)) for _ in range(2))
+    for b in range(B):
+        for h in range(H):
+            for c in range(0, D, DW):
+                for k0 in range(0, Skv, kb):
+                    k_last = min(k0 + kb, Skv) - 1
+                    r_first = max(0, k0 - q_offset) // kb * kb
+                    r_end = (min(Sq, k_last + window - q_offset) if window
+                             else Sq)
+                    akk, avv = np.zeros((kb, DW)), np.zeros((kb, DW))
+                    for r0 in range(r_first, r_end, kb):
+                        Q, _, dO, p, ds = tile(b, h, r0, k0)
+                        avv += p.T @ dO[:, c:c + DW]
+                        akk += ds.T @ Q[:, c:c + DW]
+                    n = min(kb, Skv - k0)
+                    w = min(DW, D - c)
+                    part_k[b, k0:k0 + n, h, c:c + w] = akk[:n, :w]
+                    part_v[b, k0:k0 + n, h, c:c + w] = avv[:n, :w]
+        for h in range(H):
+            for c in range(0, D, DW):
+                for r0 in range(0, Sq, kb):
+                    p0 = q_offset + r0
+                    q_last = q_offset + min(r0 + kb, Sq) - 1
+                    k_begin = (max(0, p0 - window + 1) // kb * kb if window
+                               else 0)
+                    acc = np.zeros((kb, DW))
+                    for k0 in range(k_begin, q_last + 1, kb):
+                        _, K, _, _, ds = tile(b, h, r0, k0)
+                        acc += ds @ K[:, c:c + DW]
+                    n, w = min(kb, Sq - r0), min(DW, D - c)
+                    dq[b, r0:r0 + n, h, c:c + w] = acc[:n, :w] * scale
+    dk, dv = (x.reshape(B, Skv, Hkv, G, D).sum(3) for x in (part_k, part_v))
+    return tuple(torch.from_numpy(x) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window,softcap,off", [
+    (1, 150, 150, 4, 2, 20, 0, 0.0, 0),
+    (2, 70, 200, 2, 1, 64, 50, 3.0, 130),
+    (1, 100, 300, 4, 4, 130, 0, 0.0, 200),
+    (1, 200, 200, 2, 1, 36, 64, 0.0, 0),
+    (1, 60, 130, 4, 2, 8, 20, 5.0, 64)])
+def test_kernel_tile_order_emulated(rng, B, Sq, Skv, H, Hkv, D, window,
+                                    softcap, off):
+    """The gradient kernels' block and tile ranges, masks and column groups,
+    emulated in float64 (``_emulate_kernels``), against the chunked plain
+    backward within ``backward_error_bound(same_stats=True)``: a tile the
+    loops skipped or a row they counted twice moves a gradient by whole
+    terms, far past the bound."""
+    q, k, v, dout = _inputs(rng, B, Sq, Skv, H, Hkv, D, torch.float32,
+                            softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    got = _emulate_kernels(q, k, v, out, dout, lse, **kw)
+    want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
+    bounds = fa_ref.backward_error_bound(q, k, v, out, dout, lse, **kw,
+                                         same_stats=True)
+    for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
+        err = (g - w.double()).abs()
+        assert bool((err <= b).all()), (name, float((err - b).max()))

@@ -4,9 +4,17 @@ the heads do not divide ``model``), ``heads`` mode with heads that do not
 divide, ``seq_parallel``, the RWKV-6 block and the ``embeddings`` and
 ``vlm`` frontends with ``model`` > 1.
 
-Against the reference: one module-scoped subprocess runs the JAX
+The tests are split over three files so that a run with one worker a
+file spreads them: this one (qwen3's reference cells, the options against
+the same mesh, ctx's edge cases, the flash offsets), ``..._cells.py`` (the
+other families' reference cells, prefill and decode against
+``mesh=None``) and ``..._twins.py`` (train steps against ``mesh=None``);
+the cells, the JAX script and the shared helpers live here.
+
+Against the reference: a module-scoped subprocess per file runs the JAX
 package's own steps (``launch.steps.build_step``) on 8 forced CPU devices
-(``--xla_force_host_platform_device_count=8``) for ten cells, executing
+(``--xla_force_host_platform_device_count=8``) for that file's cells
+(``CELLS``: ten in all), executing
 them: qwen3-0.6b train on (2, 4) with ``ctx``, with ``seq_parallel`` and
 on (1, 8) with ``heads`` (4 heads over 8); recurrentgemma-2b on (1, 8),
 ``auto`` picking ``ctx``, train and decode; rwkv6-1.6b on (2, 4), train
@@ -27,8 +35,8 @@ Against itself: each option on (2, 4) and (1, 8) against ``mesh=None``
 ``SERVE_ATOL``), ``ctx`` with S % m != 0 (S = 30 on m = 4) and with
 S < m (S = 3 on m = 4: shards with no rows launch nothing); the flash
 kernel's plain version at a query offset against the rows of the whole
-pass, and ``FlashAttentionFn``'s gradients at an offset against autograd
-through the whole plain pass; ``all_to_all`` and its backward against
+pass, and ``FlashAttentionFn``'s gradients (the chunked plain backward on
+the CPU) at an offset against autograd through the whole plain pass; ``all_to_all`` and its backward against
 their definition.
 """
 import os
@@ -194,18 +202,30 @@ JAX_CELLS = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def jax_cells(tmp_path_factory):
+def run_jax_cells(tmp_path_factory, keys):
+    """The reference's outputs for the cells named in ``keys``, from one
+    JAX subprocess on 8 forced CPU devices (each file of these tests runs
+    only its own cells)."""
     path = str(tmp_path_factory.mktemp("jax_more") / "cells.npz")
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     code = JAX_CELLS.format(src=os.path.abspath(src), path=path, B=B, S=S,
                             DEC_B=DEC_B, DEC_S=DEC_S, PROMPT=PROMPT,
-                            DEC_STEPS=DEC_STEPS, cells=CELLS)
+                            DEC_STEPS=DEC_STEPS,
+                            cells=[c for c in CELLS if c[0] in keys])
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=JAX_TIMEOUT_S, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
     return dict(np.load(path))
+
+
+# this file's reference cells: qwen3-0.6b's options
+QWEN_CELLS = ("qwen3-ctx", "qwen3-heads", "qwen3-sp")
+
+
+@pytest.fixture(scope="module")
+def jax_cells(tmp_path_factory):
+    return run_jax_cells(tmp_path_factory, QWEN_CELLS)
 
 
 @pytest.fixture
@@ -232,8 +252,8 @@ def _npz_batch(jax_cells, key):
             if k.startswith(pre)}
 
 
-@pytest.mark.parametrize("key", [c[0] for c in CELLS if c[3] == "train"])
-def test_train_cell_matches_reference(jax_cells, logical, key):
+def check_train_cell(jax_cells, logical, key):
+    """A train cell's step on 8 logical shards against the reference's."""
     _, arch, shape, _, opts = _cell(key)
     pcfg = preg.get_config(arch + ":smoke")
     _, jp = _jax_params(jax_cells, key, arch)
@@ -299,8 +319,9 @@ def _check_cache(jax_cells, prefix, jc_like, pcfg, cs, spec, mesh):
                   kind="cache")
 
 
-@pytest.mark.parametrize("key", [c[0] for c in CELLS if c[3] == "decode"])
-def test_decode_cell_matches_reference(jax_cells, logical, key):
+def check_decode_cell(jax_cells, logical, key):
+    """A decode cell's 4 steps on 8 logical shards against the
+    reference's."""
     _, arch, shape, _, opts = _cell(key)
     pcfg = preg.get_config(arch + ":smoke")
     jm, jp = _jax_params(jax_cells, key, arch)
@@ -325,8 +346,8 @@ def test_decode_cell_matches_reference(jax_cells, logical, key):
                  mesh)
 
 
-def test_prefill_cell_matches_reference(jax_cells, logical):
-    key = "vlm-prefill"
+def check_prefill_cell(jax_cells, logical, key):
+    """A prefill cell on 8 logical shards against the reference's."""
     _, arch, shape, _, opts = _cell(key)
     pcfg = preg.get_config(arch + ":smoke")
     jm, jp = _jax_params(jax_cells, key, arch)
@@ -342,6 +363,11 @@ def test_prefill_cell_matches_reference(jax_cells, logical):
     _check_logits(jax_cells, f"{key}/logits", lgs, lay["logits"], mesh)
     _check_cache(jax_cells, f"{key}/cache", jm.cache_specs(B, S), pcfg, cs,
                  lay["cache"], mesh)
+
+
+@pytest.mark.parametrize("key", QWEN_CELLS)
+def test_train_cell_matches_reference(jax_cells, logical, key):
+    check_train_cell(jax_cells, logical, key)
 
 
 # --------------------------------------------------------------------------
@@ -385,79 +411,6 @@ TWINS = {
     "embeddings": ("musicgen-medium", {}),
     "vlm": ("internvl2-26b", {}),
 }
-
-
-@pytest.mark.parametrize("shape", [(2, 4), (1, 8)], ids=["2x4", "1x8"])
-@pytest.mark.parametrize("what", list(TWINS))
-def test_train_step_against_unsharded(logical, what, shape):
-    arch, opts = TWINS[what]
-    cfg = preg.get_config(arch + ":smoke")
-    params = _params(cfg)
-    b = _inputs(cfg, B, S)
-    mesh = logical(shape)
-    step, _ = psteps.build_train_step(cfg, ShapeConfig("t", S, B, "train"),
-                                      TCFG, mesh=mesh,
-                                      perf=ShardingConfig(**opts))
-    lay = step.layouts
-    new_p, new_o, met = step(shd.place_tree(params, lay["params"], mesh),
-                             psteps.init_opt_state(params, mesh, lay),
-                             shd.place_tree(b, lay["batch"](b), mesh))
-    plain, _ = psteps.build_train_step(
-        cfg, ShapeConfig("t", S, B, "train"), TCFG, "cpu",
-        model=LM(cfg, device="cpu", params=params,
-                 rwkv_chunk=opts.get("rwkv_chunk", 0)))
-    want = plain(params, popt.init(params), b)
-    for k in ("loss", "ce", "aux", "lr"):
-        assert_allclose(float(met[k]), float(want[2][k]), **LOSS_TOL)
-    assert_allclose(float(met["grad_norm"]), float(want[2]["grad_norm"]),
-                    rtol=1e-4)
-    got_p = shd.gather_tree(new_p, lay["params"], mesh)
-    got_o = shd.gather_tree(new_o, lay["opt"], mesh)
-    for a, c in zip(tr.leaves(got_o["m"]), tr.leaves(want[1]["m"])):
-        assert_allclose(a.numpy(), c.numpy(), rtol=0,
-                        atol=GRAD_REL * max(float(c.abs().max()), 1e-30))
-    _close_trees(got_p, want[0], PARAM_ATOL)
-    assert adam_bound_ok(got_p, want[0], params, got_o, want[1],
-                         float(want[2]["lr"]))
-
-
-@pytest.mark.parametrize("shape", [(2, 4), (1, 8)], ids=["2x4", "1x8"])
-@pytest.mark.parametrize("what", list(TWINS))
-def test_prefill_and_decode_against_unsharded(logical, what, shape):
-    """A 24-position prefill into a 32-slot cache (``vlm``: 8 patches
-    and 24 tokens into 40), then 4 decode steps: every step's logits and
-    the final cache within ``SERVE_ATOL`` of the unsharded model's."""
-    arch, opts = TWINS[what]
-    cfg = preg.get_config(arch + ":smoke")
-    params = _params(cfg)
-    extra = cfg.n_patches if cfg.frontend == "vlm" else 0
-    b = _inputs(cfg, 4, 28 + extra)
-    head = {k: v if k == "patches" else v[:, :24]
-            for k, v in b.items() if k != "targets"}
-    steps_in = [{k: v[:, t:t + 1]} for t in range(24, 28)
-                for k, v in b.items() if k in ("tokens", "frames")]
-    size = 32 + extra
-    chunk = opts.get("rwkv_chunk", 0)
-    plain = LM(cfg, device="cpu", params=params, rwkv_chunk=chunk)
-    mesh = logical(shape)
-    step, model = psteps.build_decode_step(
-        cfg, ShapeConfig("d", size, 4, "decode"), mesh,
-        ShardingConfig(**opts))
-    model.load_params(params)
-    lay = step.layouts
-    ps = shd.place_tree(params, lay["params"], mesh)
-    lg_a, c_a = plain.prefill(head, max_seq=size)
-    lg_b, c_b = model.prefill(shd.place_tree(head, lay["batch"](head), mesh),
-                              max_seq=size, params=ps)
-    for inp in steps_in + [None]:
-        got = shd.gather_tree(lg_b, [lay["logits"]], mesh)
-        assert_allclose(got.numpy(), lg_a.numpy(), rtol=0, atol=SERVE_ATOL)
-        if inp is None:
-            break
-        lg_a, c_a = plain.decode_step(inp, c_a)
-        lg_b, c_b = step(ps, shd.place_tree(inp, lay["batch"](inp), mesh),
-                         c_b)
-    _close_trees(shd.gather_tree(c_b, lay["cache"], mesh), c_a, SERVE_ATOL)
 
 
 @pytest.mark.parametrize("arch,shape,size", [
@@ -664,7 +617,7 @@ def test_attention_ref_at_offset_is_rows_of_the_whole(rng, off, Sq, window,
 @pytest.mark.parametrize("off,Sq", [(0, 24), (9, 15), (16, 8)])
 def test_flash_fn_gradients_at_offset(rng, off, Sq):
     """``FlashAttentionFn`` at ``q_offset`` (forward: the plain version on
-    the CPU; backward: autograd through it recomputed at the offset)
+    the CPU; backward: the chunked plain backward at the offset)
     against autograd through the whole pass restricted to those rows."""
     Skv, window = 24, 11
     mk = lambda *shape: torch.from_numpy(

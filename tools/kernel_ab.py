@@ -21,7 +21,13 @@ scan batch's device activities. ``--shapes``
 keeps only the named cases: a tree older than this one's cases raises on
 the inputs it did not take yet (earlier trees refuse float16 and other
 head dims in flash_attention, and more than 19,000 ticks in harmonize).
-Needs one NVIDIA card.
+The flash gradient is the kernel ``flash_attention_bwd`` (its cases
+``path`` and ``train_rg``, ``chip_smoke.flash_bwd_cases``, and ``32k``,
+``chip_smoke.FLASH_BWD_AB_SPECS``; each timed with the case's own
+``reps`` calls, 3, where the others take 20); a tree before it has no
+gradient kernel, so time it against a tree that has one (this tree
+itself, ``.``, gives four turns of the same code), and leave it out of
+``--kernels`` against an older tree. Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -51,7 +57,9 @@ def worker(tree: Path, names: list[str], shapes) -> None:
     dev = torch.device("cuda")
     _build.build()
     g = torch.Generator(device=dev).manual_seed(0)
-    for case in cs.kernel_cases(dev, g):
+    bwd = ("flash_attention_bwd" in names) and (cs.FLASH_BWD_SPECS
+                                                 + cs.FLASH_BWD_AB_SPECS)
+    for case in cs.kernel_cases(dev, g, bwd_specs=bwd or ()):
         if case["name"] not in names or (shapes and
                                          case["shape"] not in shapes):
             continue
@@ -60,9 +68,10 @@ def worker(tree: Path, names: list[str], shapes) -> None:
         for t in (out if isinstance(out, tuple) else (out,)):
             digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
                           .tobytes())
-        ms = [cs.device_ms(case["kernel"]) for _ in range(2)]
-        call = cs.call_ms(case["kernel"], reps=20)
-        warm = cs.device_ms(case["kernel"])
+        reps = case.get("reps", 20)
+        ms = [cs.device_ms(case["kernel"], reps=reps) for _ in range(2)]
+        call = cs.call_ms(case["kernel"], reps=reps)
+        warm = cs.device_ms(case["kernel"], reps=reps)
         cs.emit({"tree": str(tree), "kernel": case["name"],
                  "shape": case["shape"], **case["dims"],
                  "sha256": digest.hexdigest(),
