@@ -23,10 +23,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      (``ctx_shard*``, context parallelism's shard shapes, each counted in
      ``LAUNCHES_BY_OFFSET`` under its instance and offset); harmonize
      over a week of 30 s ticks (``long``, T = 20,160). The flash
-     gradient (``flash_attention_bwd``: three kernels, delta, dK/dV and
-     dQ) at qwen3-0.6b's training microbatch (``path``) and
-     recurrentgemma-2b's (``train_rg``) against the chunked plain backward
-     from the same forward, its library yardstick autograd's backward of
+     gradient (``flash_attention_bwd``: four launches, delta, dK/dV, their
+     sum over a kv head's q heads, dQ; its ``wgmma`` instance on the
+     tensor cores for bfloat16 and float16 at head dims that are
+     multiples of 8 up to 256, ``fma`` otherwise, named by
+     ``ops.bwd_impl_for``) at qwen3-0.6b's training microbatch (``path``)
+     and recurrentgemma-2b's (``train_rg``), wgmma, and at a float32 case
+     (``path_f32``), FMA, against the chunked plain backward from the same
+     forward, its library yardstick autograd's backward of
      ``scaled_dot_product_attention``.
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
@@ -138,10 +142,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      backward) against autograd through ``attention_ref`` at the
      microbatch's shape within ``ref.backward_error_bound``; the step's
      flash launches (28 a microbatch, twice under the remat) and gradient
-     launches (28 a microbatch of each of its three kernels), named in a
-     trace; two steps from one state bit for bit; the loss falling over 5
-     steps; a profiled step. Step ms, tokens/s, idle share, peak memory
-     (beside the step's before the gradient kernel) and the model-FLOP share
+     launches (28 a microbatch of each of its wgmma instance's four
+     kernels), named in a trace; two steps from one state bit for bit;
+     the loss falling over 5 steps; a profiled step. Step ms, tokens/s,
+     idle share, peak memory (beside the step's before the gradient
+     kernel) and the model-FLOP share
      of the bf16 peak. Before it, ``flash_bwd_32k``: the gradient kernels
      at qwen3's heads and a 32,768-token context (batch 1, bfloat16),
      under 1 GiB above their inputs, timed, against the chunked plain
@@ -163,7 +168,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   Phase 8 runs in a child process of the script (``--families``), and
   phases 9 to 12 in another (``--train``); the script waits for each
   (see ``in_child``). Phases 11 and 12's train steps run the gradient
-  kernels too (qwen3's sharded step checks their launches).
+  kernels too (qwen3's sharded step checks the wgmma instance's launches,
+  its float32 twin's step the FMA instance's).
 The line before the last holds one JSON object with every kernel's
 numbers (``launches`` summed over the paths and instances,
 ``launches_by_path`` each path's, ``at_lm_shape`` the times at the LM
@@ -171,7 +177,8 @@ prefill shape; the flash gradient's ``flash_attention_bwd`` entry at
 qwen3's training microbatch, with ``at_train_rg`` and the reference
 gradient it replaces), then one entry per instance that this script counts on a
 path of its own (INSTANCE_ENTRIES: flash_attention's float16 wgmma and
-its scalar instance, harmonize's tiled); the last line
+its scalar instance, the gradient's FMA instance, harmonize's tiled); the
+last line
 is ``{"ok": true, "device": {...}}``. Without a
 card the script exits non-zero and prints no result.
 """
@@ -721,15 +728,22 @@ FA_KERNELS = {
     "scalar": ("src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu", "flash_attention_kernel"),
 }
-# the gradient's source and its device kernels (delta, each q head's share
-# of dK/dV, their sum over a kv head's q heads, dQ), by the name its
-# wrapper counts them under (ops.LAUNCHES_BWD_BY_KERNEL)
-FA_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
-                 "flash_attention_bwd.cu")
+# the gradient's sources by instance (its dK/dV and dQ kernels; both
+# instances launch the FMA source's delta and sum kernels) and its device
+# kernels (delta, each q head's share of dK/dV, their sum over a kv head's
+# q heads, dQ), by the name its wrapper counts them under
+# (ops.LAUNCHES_BWD_BY_KERNEL; ops.BWD_KERNELS names each instance's four)
+FA_BWD_SOURCES = {
+    "wgmma": ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd_sm90.cu"),
+    "fma": ("src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd.cu")}
 FA_BWD_KERNELS = {"dot": "flash_bwd_dot_kernel",
                   "dkdv": "flash_bwd_dkdv_kernel",
                   "dq": "flash_bwd_dq_kernel",
-                  "dkdv_sum": "flash_bwd_dkdv_sum_kernel"}
+                  "dkdv_sum": "flash_bwd_dkdv_sum_kernel",
+                  "dkdv_wgmma": "flash_bwd_dkdv_wgmma_kernel",
+                  "dq_wgmma": "flash_bwd_dq_wgmma_kernel"}
 
 
 def _flash_bound_check(label, out, ref, dtype, info):
@@ -979,50 +993,65 @@ def _bwd_ratio(got, want, bounds):
     return worst
 
 
-def bwd_expected(calls=1):
-    """The gradient's launches per kernel in ``calls`` backward calls: each
-    of its four kernels once a call."""
-    return dict.fromkeys(FA_BWD_KERNELS, calls)
-
-
-def bwd_launches_check(label, before):
-    """Each gradient kernel launched once more than in ``before`` (a copy
-    of ``ops.LAUNCHES_BWD_BY_KERNEL``); returns their device names."""
+def bwd_expected(calls=1, impl="wgmma"):
+    """The gradient's launches per kernel in ``calls`` backward calls of
+    instance ``impl``: each of its four kernels once a call, the other
+    instance's none."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    want = {k: n + 1 for k, n in before.items()}
+    return {k: calls if k in fa_ops.BWD_KERNELS[impl] else 0
+            for k in FA_BWD_KERNELS}
+
+
+def bwd_launches_check(label, before, impl="wgmma"):
+    """Each of instance ``impl``'s gradient kernels launched once more than
+    in ``before`` (a copy of ``ops.LAUNCHES_BWD_BY_KERNEL``), no other;
+    returns their device names."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    want = {k: n + bwd_expected(1, impl)[k] for k, n in before.items()}
     check(fa_ops.LAUNCHES_BWD_BY_KERNEL == want,
           f"{label}: gradient launches {fa_ops.LAUNCHES_BWD_BY_KERNEL}, "
-          f"expected {want}")
-    return list(FA_BWD_KERNELS.values())
+          f"expected {want} ({impl})")
+    return [FA_BWD_KERNELS[k] for k in fa_ops.BWD_KERNELS[impl]]
 
 
-# the flash gradient's cases (phase 3): label, (B, S, H, Hkv, D, window)
-# in bfloat16, q pre-scaled and scale 1 as the model calls it; "path" is
-# qwen3-0.6b's training microbatch (TRAIN: 2 x 4096), "train_rg"
-# recurrentgemma-2b's (TRAIN_RG: 2 x 2048, 10 q heads over 1 kv head,
-# head dim 256, window 2048)
-FLASH_BWD_SPECS = (("path", (2, 4096, 16, 8, 128, 0)),
-                   ("train_rg", (2, 2048, 10, 1, 256, 2048)))
+# the flash gradient's cases (phase 3): label, dtype, the instance
+# (ops.bwd_impl_for), (B, S, H, Hkv, D, window), q pre-scaled and scale 1
+# as the model calls it; "path" is qwen3-0.6b's training microbatch
+# (TRAIN: 2 x 4096), "train_rg" recurrentgemma-2b's (TRAIN_RG: 2 x 2048,
+# 10 q heads over 1 kv head, head dim 256, window 2048), both bfloat16 on
+# the wgmma instance; "path_f32" qwen3's heads at 1 x 2048 in float32, the
+# FMA instance (a float32 model's, as the sharded phases' twins)
+FLASH_BWD_SPECS = (
+    ("path", torch.bfloat16, "wgmma", (2, 4096, 16, 8, 128, 0)),
+    ("train_rg", torch.bfloat16, "wgmma", (2, 2048, 10, 1, 256, 2048)),
+    ("path_f32", torch.float32, "fma", (1, 2048, 16, 8, 128, 0)))
 # tools/kernel_ab.py's further case: the gradient at BWD_32K (phase 3 does
 # not time it; phase flash_bwd_32k drives it once)
-FLASH_BWD_AB_SPECS = (("32k", (1, 32768, 16, 8, 128, 0)),)
+FLASH_BWD_AB_SPECS = (("32k", torch.bfloat16, "wgmma",
+                       (1, 32768, 16, 8, 128, 0)),)
 
 
 def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
-    """The gradient kernels at ``specs`` (the two training shapes) against
-    the chunked plain backward from the same forward (the kernel's out and
-    lse), within ``ref.backward_error_bound(same_stats=True)`` (the
-    derived float32 bound of two orders of the same sums, plus one
-    bfloat16 rounding each), each of its four kernels launched once a call
-    and named in a trace, two calls bit for bit. The bound: 2.5x the
+    """The gradient at ``specs`` (the two training shapes on the wgmma
+    instance, a float32 case on the FMA one) against the chunked plain
+    backward from the same forward (the kernel's out and lse), within
+    ``ref.backward_error_bound(same_stats=True)`` (the derived float32
+    bound of two orders of the same sums, plus one 16-bit rounding each;
+    ``split=True`` for the wgmma instance, whose P and dS enter its
+    products as hi and lo halves of the input type), the instance
+    ``ops.bwd_impl_for`` names, each of its four kernels launched once a
+    call and named in a trace, two calls bit for bit. The bound: 2.5x the
     forward's causal FLOPs (the recompute of S and dP and the three
-    products dV, dK, dQ) at the card's bfloat16 peak, against the bytes of
-    q, k, v, out, dout, lse read and dq, dk, dv written;
-    ``fma_ceiling_us`` is the same FLOPs at the float32 FMA peak, the
-    ceiling of this kernel's design, which computes on the FMA units. The
-    library call: autograd's backward of ``scaled_dot_product_attention``
-    (causal, GQA) at the same shape, its forward taken once outside the
-    timing."""
+    products dV, dK, dQ) at the card's peak for the dtype (bfloat16's
+    989 TFLOP/s on the tensor cores, float32's 67 outside them), against
+    the bytes of q, k, v, out, dout, lse read and dq, dk, dv written;
+    ``bf16_bound_us`` the same FLOPs at the bfloat16 peak whatever the
+    dtype, and ``ceiling_us`` the instance's own: the wgmma design's 20 D
+    FLOPs per scored (row, key) pair (S and dP in both kernels, the three
+    products twice for the hi and lo halves) at the bfloat16 peak, the
+    FMA design's 10 D at the float32 FMA peak. The library call:
+    autograd's backward of ``scaled_dot_product_attention`` (causal, GQA)
+    at the same shape, its forward taken once outside the timing."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1031,13 +1060,12 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
     from repro_torch.launch import roofline
 
     cases = []
-    for label, (B, S, H, HKV, D, window) in specs:
+    for label, dtype, impl, (B, S, H, HKV, D, window) in specs:
         q = (torch.randn((B, S, H, D), generator=g, device=dev)
-             * D ** -0.5).to(torch.bfloat16)
+             * D ** -0.5).to(dtype)
         k, v = (torch.randn((B, S, HKV, D), generator=g, device=dev)
-                .to(torch.bfloat16) for _ in range(2))
-        dout = torch.randn((B, S, H, D), generator=g, device=dev).to(
-            torch.bfloat16)
+                .to(dtype) for _ in range(2))
+        dout = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
         lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         kw = dict(window=window, scale=1.0)
         out = fa_ops.flash_attention(q, k, v, lse=lse, **kw)
@@ -1045,13 +1073,21 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
         w = window or S
         pairs = sum(min(i + 1, w) for i in range(S))
         flops = 2.5 * 4 * B * H * D * pairs
-        info = {"fma_ceiling_us": flops / roofline.F32_FLOPS * 1e6}
+        info = {"impl": impl,
+                "bf16_bound_us": flops / roofline.BF16_FLOPS * 1e6,
+                "ceiling_us": (2 * flops / roofline.BF16_FLOPS if impl ==
+                               "wgmma" else flops / roofline.F32_FLOPS)
+                * 1e6}
 
-        def cmp(args=args, kw=kw, label=label, info=info):
+        def cmp(args=args, kw=kw, label=label, info=info, impl=impl):
+            dtype, D = args[0].dtype, args[0].shape[-1]
+            check(fa_ops.bwd_impl_for(dtype, D) == impl,
+                  f"flash_attention_bwd {label}: bwd_impl_for gives "
+                  f"{fa_ops.bwd_impl_for(dtype, D)}, expected {impl}")
             before = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
             got = fa_ops.flash_attention_backward(*args, **kw)
             names = bwd_launches_check(f"flash_attention_bwd {label}",
-                                       before)
+                                       before, impl)
             ran = traced_kernels(
                 lambda: fa_ops.flash_attention_backward(*args, **kw),
                 TRACE_NAME["flash_attention_bwd"])
@@ -1065,11 +1101,12 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
             del again
             want = attention_backward_ref(*args, **kw)
             bounds = backward_error_bound(*args, **kw, same_stats=True,
-                                          ref=want)
+                                          split=impl == "wgmma", ref=want)
             ratio = _bwd_ratio(got, want, bounds)
             err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(got, want))
-            info.update(tol="backward_error_bound(same_stats=True)",
+            info.update(tol="backward_error_bound(same_stats=True, "
+                        f"split={impl == 'wgmma'})",
                         err_over_tol=ratio, traced_kernels=ran,
                         bit_equal_twice=True)
             check(ratio <= 1.0, f"flash_attention_bwd {label}: error "
@@ -1084,17 +1121,18 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
         dout_t = dout.transpose(1, 2)
         cases.append(dict(
             name="flash_attention_bwd", shape=label,
-            dims=dict(B=B, S=S, H=H, Hkv=HKV, D=D, dtype="bfloat16",
+            dims=dict(B=B, S=S, H=H, Hkv=HKV, D=D, dtype=str(dtype)[6:],
                       window=window, softcap=0.0),
             kernel=lambda args=args, kw=kw: fa_ops.flash_attention_backward(
                 *args, **kw),
             plain=lambda args=args, kw=kw: attention_backward_ref(*args, **kw),
             compare=cmp, info=info,
-            # tens of ms a call: 3 calls a timing
+            # milliseconds a call: 3 calls a timing
             reps=3,
             bytes=(4 * B * S * (H + HKV) * D * q.element_size()
                    + 4 * B * H * S),
-            ops=flops, ops_rate=roofline.BF16_FLOPS,
+            ops=flops, ops_rate=(roofline.F32_FLOPS if dtype == torch.float32
+                                 else roofline.BF16_FLOPS),
             library=lambda o=lib_out, d=dout_t, x=(qt, kt, vt):
                 torch.autograd.grad(o, x, d, retain_graph=True)))
     return cases
@@ -1112,8 +1150,9 @@ KERNEL_META = {
     "flash_attention": (FA_KERNELS["wgmma"][0],
                         "src/repro/kernels/flash_attention/kernel.py:71"),
     # no Pallas counterpart: the reference's gradient is JAX's of
-    # blockwise_attention, which this replaces
-    "flash_attention_bwd": (FA_BWD_SOURCE,
+    # blockwise_attention, which this replaces; the main paths run its
+    # wgmma instance
+    "flash_attention_bwd": (FA_BWD_SOURCES["wgmma"],
                             "src/repro/models/layers.py:76"),
 }
 
@@ -1126,6 +1165,8 @@ INSTANCE_ENTRIES = {
                             FA_KERNELS["wgmma"][0]),
     "flash_attention_scalar": ("flash_attention", "path_f32", "scalar",
                                FA_KERNELS["scalar"][0]),
+    "flash_attention_bwd_fma": ("flash_attention_bwd", "path_f32", "fma",
+                                FA_BWD_SOURCES["fma"]),
     "harmonize_tiled": ("harmonize", "long", "tiled",
                         KERNEL_META["harmonize"][0]),
 }
@@ -1158,12 +1199,16 @@ def phase_kernels(dev):
         bound_ms, bound_by = bound(case["bytes"], case["ops"],
                                    case.get("ops_rate"))
         us = lambda x: None if x is None else x * 1e3
+        # the gradient's readings as shares of its bounds' pace
+        shares = {f"{k[:-3]}_share": case["info"][k] / us(ms)
+                  for k in ("bf16_bound_us", "ceiling_us")
+                  if k in case.get("info", {}) and ms}
         emit(dict(kernel=case["name"], shape=case["shape"], **case["dims"],
                   at_s=time.perf_counter() - T_START,
                   parity="ok", max_abs_err=err, **case.get("info", {}),
                   timer=timer, **records, us=us(ms),
                   plain_us=us(plain_ms), library_us=us(lib_ms),
-                  bound_us=us(bound_ms), bound_by=bound_by,
+                  bound_us=us(bound_ms), bound_by=bound_by, **shares,
                   call_us=us(calls["kernel"]),
                   plain_call_us=us(calls["plain"]),
                   library_call_us=us(calls.get("library"))))
@@ -3262,13 +3307,14 @@ def phase_lm_train(dev):
     """qwen3-0.6b training at full width (TRAIN): (a) FlashAttentionFn at
     the microbatch's shape against autograd through ``attention_ref`` on
     the card, forward within the one-ulp bound and (dq, dk, dv), the
-    gradient kernels' (one launch of each, ``bwd_expected``), within
-    ``ref.backward_error_bound`` (the plain side recomputes its own
-    softmax statistics); then the train step: its flash-attention launches
-    counted (28 a microbatch, and 28 again for the full remat's
-    recompute) and its gradient launches (28 a microbatch of each of its
-    four kernels), (b) a second step from the same state and batch bit
-    for bit, (c) the loss falling over TRAIN["steps"] steps on the batch,
+    gradient's wgmma instance (one launch of each of its kernels,
+    ``bwd_expected``), within ``ref.backward_error_bound(split=True)``
+    (the plain side recomputes its own softmax statistics); then the train
+    step: its flash-attention launches counted (28 a microbatch, and 28
+    again for the full remat's recompute) and its gradient launches (28 a
+    microbatch of each of the wgmma instance's four kernels), (b) a second
+    step from the same state and batch bit for bit, (c) the loss falling
+    over TRAIN["steps"] steps on the batch,
     (d) a profiled step whose trace names the forward and the four
     gradient kernels as often as counted. Readings: step ms, tokens/s,
     device busy ms and idle share, peak memory (beside the step's before
@@ -3321,7 +3367,7 @@ def phase_lm_train(dev):
                       device=dev)
     fa_ops.flash_attention(qd, kd, vd, scale=1.0, lse=lse)
     bounds = backward_error_bound(qd, kd, vd, out.detach(), dout, lse,
-                                  scale=1.0, ref=want)
+                                  scale=1.0, split=True, ref=want)
     grad_ratio = _bwd_ratio(got, want, bounds)
     grad_rel = _max_rel(got, want)
     check(fwd <= 1.0, f"{tag}: FlashAttentionFn forward {fwd} x the "
@@ -3332,7 +3378,8 @@ def phase_lm_train(dev):
     emit({"phase": tag, "step": "flash_attention_fn", "shape": list(q.shape),
           "kv_heads": HKV, "forward_err_over_one_ulp": fwd,
           "grad_err_over_bound": grad_ratio,
-          "grad_bound": "backward_error_bound(same_stats=False)",
+          "grad_bound": "backward_error_bound(same_stats=False, "
+                        "split=True)",
           "grad_max_rel_err": grad_rel,
           "grad_max_abs_err": max((a.float() - b.float()).abs().max().item()
                                   for a, b in zip(got, want))})
@@ -3804,7 +3851,13 @@ def _shard_qwen(dev, readings):
            for k, v in batch.items()}
     step, _, lay, ps, os_, bs = _sharded_train(cfg32, shape32, tcfg32, mesh,
                                             p32, b32)
+    _zero_counts()
     got = step(ps, os_, bs)
+    counts32 = _read_counts()
+    want_fma = bwd_expected(n_sh * cfg32.n_layers, "fma")
+    check(counts32["flash_bwd"] == want_fma,
+          f"{tag}: float32 gradient launches {counts32['flash_bwd']} in a "
+          f"step on {n_sh} shards, expected {want_fma} (fma)")
     got_p = shd.gather_tree(got[0], lay["params"], mesh)
     got_o = shd.gather_tree(got[1], lay["opt"], mesh)
     got_loss = got[2]["loss"].item()
@@ -3880,6 +3933,7 @@ def _shard_qwen(dev, readings):
           "f32_adam_worst": adam_worst,
           "f32_m_max_rel_err": grad_rel, "f32_v_max_rel_err": v_rel,
           "f32_m_bound": SHARD_GRAD_REL,
+          "f32_launches": {"flash_attention_bwd": counts32["flash_bwd"]},
           "prefill_launches": {"flash_attention": pcounts["flash_attention"]},
           "prefill_collective_calls": pcounts["collectives"],
           "prefill_ms": pre_ms, "unsharded_prefill_ms": plain_pre_ms,
@@ -3894,7 +3948,10 @@ def _shard_qwen(dev, readings):
         f"sharded_train_{spec['arch']}": counts["flash_attention"],
         f"sharded_prefill_{spec['arch']}": pcounts["flash_attention"]},
         "flash_attention_bwd": {f"sharded_train_{spec['arch']}":
-                                sum(counts["flash_bwd"].values())}}
+                                sum(counts["flash_bwd"].values())},
+        "flash_attention_bwd_fma": {
+            f"sharded_train_{spec['arch']}_float32":
+                sum(counts32["flash_bwd"].values())}}
 
 
 def _aux_free(m):
@@ -4644,12 +4701,12 @@ BWD_32K_PEAK = 1 << 30
 
 
 def phase_flash_bwd_32k(dev):
-    """The gradient kernels at BWD_32K: device memory above the inputs
-    (under BWD_32K_PEAK), their time (a CUDA event pair around the one
-    call: the kernels are built, and at ~0.7 s a call launch overhead is
-    nothing), the chunked plain backward's time (one call, host clock)
-    and peak, and the kernels' gradients held to the plain one within
-    ``ref.backward_error_bound(same_stats=True)``."""
+    """The gradient's wgmma instance at BWD_32K: device memory above the
+    inputs (under BWD_32K_PEAK), its time (a CUDA event pair around the
+    one call: the kernels are built, and at tens of ms a call launch
+    overhead is nothing), the chunked plain backward's time (one call,
+    host clock) and peak, and the kernels' gradients held to the plain one
+    within ``ref.backward_error_bound(same_stats=True, split=True)``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_ref, backward_error_bound)
@@ -4687,7 +4744,7 @@ def phase_flash_bwd_32k(dev):
         lambda: attention_backward_ref(*args, scale=1.0))
     plain_peak = torch.cuda.max_memory_allocated() - base
     bounds = backward_error_bound(*args, scale=1.0, same_stats=True,
-                                  ref=want)
+                                  split=True, ref=want)
     ratio = _bwd_ratio(got, want, bounds)
     del bounds
     check(ratio <= 1.0, f"{tag}: gradients {ratio} x the bound from the "
@@ -4703,7 +4760,7 @@ def phase_flash_bwd_32k(dev):
           "err_over_bound": ratio,
           "max_abs_err": max((a.float() - b.float()).abs().max().item()
                              for a, b in zip(got, want)),
-          "achieved_tflops_f32": 2.5 * 4 * H * D * pairs / (ms * 1e-3)
+          "achieved_tflops": 2.5 * 4 * H * D * pairs / (ms * 1e-3)
           / 1e12})
     del q, k, v, dout, lse, out, args, got, want
     gc.collect()
@@ -4842,6 +4899,8 @@ def main() -> int:
     for flag in CHILD_PHASES:
         for name, paths in in_child(flag).items():
             by_path.setdefault(name, {}).update(paths)
+    by_instance["flash_attention_bwd_fma"] = by_path.pop(
+        "flash_attention_bwd_fma")
     emit({"phase": "children_done"})
 
     def entry(name, t, source, replaces, paths, **extra):

@@ -66,6 +66,14 @@ SIGNATURES = {
     "flash_bwd_dkdv_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, ctypes.c_float,
                               ctypes.c_float, _I, _P],
+    # the tensor-core instance of the dK/dV and dQ launches: the same
+    # arguments as flash_bwd_dkdv_launch and flash_bwd_dq_launch
+    "flash_bwd_dkdv_wgmma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, ctypes.c_float,
+                                    ctypes.c_float, _I, _P],
+    "flash_bwd_dq_wgmma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, ctypes.c_float,
+                                  ctypes.c_float, _I, _P],
     # part, dk, dv, n, G, D, dtype, stream
     "flash_bwd_dkdv_sum_launch": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I,
                                   _P],

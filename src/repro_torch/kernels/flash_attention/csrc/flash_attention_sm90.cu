@@ -71,12 +71,17 @@
 //     the caller passes an lse pointer, each row's m + log(max(l, 1e-30))
 //     too (the backward's input), after the main loop, so the loop's
 //     registers and the output's arithmetic are those of a null pointer.
+// The PTX helpers (mbarriers, TMA, the wgmma forms and descriptors, the
+// register pins, pack2) are kernels/sm90.cuh's, shared with the gradient's
+// tensor-core kernels (flash_attention_bwd_sm90.cu).
 #include <cstdint>
 #include <type_traits>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "../../sm90.cuh"
 
 namespace {
 
@@ -101,306 +106,6 @@ struct Tiles {
   // + barriers, + slack to align the base to 1024 bytes (the swizzle atom)
   static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
 };
-
-// ------------------------------------------------------------------ PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 (B128) in bits 62-63
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// pins registers an async wgmma reads or writes at this point of the
-// program, so the compiler neither reads an accumulator before the wait nor
-// reuses an operand's register while the wgmma may still read it
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// D(64 x N, f32) (+)= A(64 x 16) B(16 x N): A and B from shared memory, both
-// K-major; scale_d = 0 overwrites D. E (bf16 or f16) is the inputs' type.
-template <int N, typename E>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
-                         int scale_d);
-// D(64 x N, f32) += A(64 x 16, E in registers) B(16 x N): B from shared
-// memory, MN-major (transposed)
-template <int N, typename E>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                         uint64_t b);
-
-// The instructions name every accumulator register, so the operand lists
-// are spelled out per width, once for both types: TY is the instruction's
-// type suffix ("bf16" or "f16").
-#define WGMMA_SS_64(TY)                                                                \
-  asm volatile(                                                                        \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                     \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                     \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                               \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-        "+f"(d[30]), "+f"(d[31])                                                       \
-      : "l"(a), "l"(b), "r"(scale_d))
-template <>
-__device__ __forceinline__ void wgmma_ss<64, __nv_bfloat16>(
-    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  WGMMA_SS_64("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<64, __half>(
-    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  WGMMA_SS_64("f16");
-}
-
-#define WGMMA_SS_128(TY)                                                                 \
-  asm volatile(                                                                          \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                       \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                      \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                                 \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                               \
-      : "l"(a), "l"(b), "r"(scale_d))
-template <>
-__device__ __forceinline__ void wgmma_ss<128, __nv_bfloat16>(
-    float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  WGMMA_SS_128("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<128, __half>(
-    float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  WGMMA_SS_128("f16");
-}
-
-#define WGMMA_RS_64(TY)                                                                \
-  asm volatile(                                                                        \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                     \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                     \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                 \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-        "+f"(d[30]), "+f"(d[31])                                                       \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
-template <>
-__device__ __forceinline__ void wgmma_rs<64, __nv_bfloat16>(
-    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  WGMMA_RS_64("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64, __half>(
-    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  WGMMA_RS_64("f16");
-}
-
-#define WGMMA_RS_128(TY)                                                                 \
-  asm volatile(                                                                          \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                       \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                      \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                   \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),        \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),    \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),    \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),    \
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),    \
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                               \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
-template <>
-__device__ __forceinline__ void wgmma_rs<128, __nv_bfloat16>(
-    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  WGMMA_RS_128("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128, __half>(
-    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  WGMMA_RS_128("f16");
-}
-
-#define WGMMA_RS_256(TY)                                                                               \
-  asm volatile(                                                                                        \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                    \
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                                    \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                         \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "               \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "               \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "               \
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "               \
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "               \
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "   \
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                            \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),                        \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                      \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),                  \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                  \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),                  \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                  \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),                  \
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                  \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),                  \
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                  \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),                  \
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),                  \
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),                  \
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),                  \
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),                  \
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),                  \
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),                \
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),            \
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),            \
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),            \
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),            \
-        "+f"(d[126]), "+f"(d[127])                                                                     \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
-template <>
-__device__ __forceinline__ void wgmma_rs<256, __nv_bfloat16>(
-    float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  WGMMA_RS_256("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<256, __half>(
-    float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  WGMMA_RS_256("f16");
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// x0 and x1 rounded to E and packed low to high as one 32-bit register;
-// r0 and r1 receive the rounded values
-template <typename E>
-__device__ __forceinline__ uint32_t pack2(float x0, float x1, float& r0,
-                                          float& r1);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x0, float x1,
-                                                         float& r0,
-                                                         float& r1) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(x0, x1);
-  r0 = __low2float(x);
-  r1 = __high2float(x);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float x0, float x1,
-                                                  float& r0, float& r1) {
-  __half2 x = __floats2half2_rn(x0, x1);
-  r0 = __low2float(x);
-  r1 = __high2float(x);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 // Accumulator fragment of wgmma m64nN (f32): in each warpgroup, register i of
 // thread (warp w, lane) holds row 16 w + lane / 4 + 8 ((i / 2) % 2) and
@@ -642,48 +347,6 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// links the runtime alone
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (D, heads, S, B) 16-bit tensor (bf16 or f16, `type`) in the model
-// layout, boxes of 64 columns x `rows` rows of one head and one batch row,
-// 128-byte swizzle; reads past D or S give zeros, stores past D or S are
-// dropped
-bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
-              const void* ptr, int D, int heads, int S, int B, int rows) {
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(D) * 2,
-                                 cuuint64_t(heads) * D * 2,
-                                 cuuint64_t(S) * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, type, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename E, int DW, int BN>

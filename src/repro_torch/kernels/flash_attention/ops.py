@@ -31,13 +31,23 @@ Both also write each row's logsumexp of its scores when
 :func:`flash_attention` is given an ``lse`` tensor (training asks for it);
 without one they store nothing else and the output keeps its bits.
 
-The gradient, :func:`flash_attention_backward`, is four launches of
-``csrc/flash_attention_bwd.cu`` on the float32 FMA units (``"dot"``: delta
-= sum dout * out per row; ``"dkdv"``: each q head's float32 share of dK
-and dV per 64-key block; ``"dkdv_sum"``: dK and dV, the sum of a kv head's
-shares in head order; ``"dq"``: dQ per 64-row block), every (dtype, D) the
-forward takes, no float atomics, and no (Sq, Skv) buffer: it recomputes
-the scores tile by tile from the forward's logsumexp.
+The gradient, :func:`flash_attention_backward`, is four launches, no
+float atomics and no (Sq, Skv) buffer: it recomputes the scores tile by
+tile from the forward's logsumexp. Two instances, chosen by
+:func:`bwd_impl_for` as statically as the forward's (``BWD_KERNELS`` names
+each one's launches):
+
+- ``"wgmma"``: bfloat16 and float16 at D % 8 == 0 and D <= 256 (the
+  forward's wgmma domain). ``"dot"`` (delta = sum dout * out per row,
+  ``csrc/flash_attention_bwd.cu``); ``"dkdv_wgmma"`` (each q head's
+  float32 share of dK and dV per 128-key block, on the tensor cores,
+  ``csrc/flash_attention_bwd_sm90.cu``); ``"dkdv_sum"`` (dK and dV, the
+  sum of a kv head's shares in head order); ``"dq_wgmma"`` (dQ per 128-row
+  block, on the tensor cores). P and dS enter their products as hi and lo
+  halves of the input type.
+- ``"fma"``: every other (dtype, D), float32 at every D: ``"dot"``,
+  ``"dkdv"`` (per 64-key block), ``"dkdv_sum"`` and ``"dq"`` (per 64-row
+  block), all in ``csrc/flash_attention_bwd.cu`` on the float32 FMA units.
 
 A CPU tensor takes the plain versions in ``ref.py``. ``LAUNCHES`` counts
 forward kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel, and
@@ -64,8 +74,12 @@ WGMMA_WIDTHS = (64, 128, 256)        # the wgmma kernel's instance widths
 # full launch's bit for bit when the offset is a multiple of it
 Q_BLOCK = {"wgmma": 128, "scalar": 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the gradient's four launches in order, per instance (bwd_impl_for)
+BWD_KERNELS = {"wgmma": ("dot", "dkdv_wgmma", "dkdv_sum", "dq_wgmma"),
+               "fma": ("dot", "dkdv", "dkdv_sum", "dq")}
 LAUNCHES_BWD = 0
-LAUNCHES_BWD_BY_KERNEL = {"dot": 0, "dkdv": 0, "dq": 0, "dkdv_sum": 0}
+LAUNCHES_BWD_BY_KERNEL = dict.fromkeys(
+    BWD_KERNELS["wgmma"] + BWD_KERNELS["fma"], 0)
 
 
 def impl_for(dtype, D: int) -> str:
@@ -76,6 +90,14 @@ def impl_for(dtype, D: int) -> str:
             and D <= WGMMA_WIDTHS[-1]):
         return "wgmma"
     return "scalar"
+
+
+def bwd_impl_for(dtype, D: int) -> str:
+    """The gradient's instance for this dtype and head dim: ``"wgmma"``
+    where the forward runs on the tensor cores (bfloat16 and float16 at D %
+    8 == 0 and D <= 256), ``"fma"`` for the rest. A static choice, never
+    made by a failure."""
+    return "wgmma" if impl_for(dtype, D) == "wgmma" else "fma"
 
 
 def _check(name, q, k, v, window, softcap, q_offset):
@@ -159,9 +181,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, window: int = 0,
     from its inputs, its output ``out`` and its ``lse`` (float32 (B, H,
     Sq)), with the forward's ``window``, ``softcap``, ``scale`` and
     ``q_offset``; each gradient in its input's dtype and shape. On the card
-    four launches (delta, each q head's share of dK/dV, their sum, dQ) and
-    a float32 (2, B, Skv, H, D) buffer of the shares; a CPU tensor takes
-    ``attention_backward_ref``."""
+    four launches of the instance :func:`bwd_impl_for` names (delta, each q
+    head's share of dK/dV, their sum, dQ) and a float32 (2, B, Skv, H, D)
+    buffer of the shares; a CPU tensor takes ``attention_backward_ref``."""
     global LAUNCHES_BWD
     q_offset = int(q_offset)
     B, Sq, H, D, Skv, Hkv = _check("flash_attention_backward", q, k, v,
@@ -185,11 +207,12 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, window: int = 0,
     shape = (B, Sq, Skv, q_offset, H, Hkv, D, int(window), float(softcap),
              scale)
     ptr = lambda *ts: tuple(t.data_ptr() for t in ts)
+    dot, dkdv, dkdv_sum, dq_kernel = BWD_KERNELS[bwd_impl_for(q.dtype, D)]
     launches = [
-        ("dot", (*ptr(out, dout, delta), B, Sq, H, D, dtype)),
-        ("dkdv", (*ptr(q, k, v, dout, lse, delta, part), *shape, dtype)),
-        ("dkdv_sum", (*ptr(part, dk, dv), dk.numel(), H // Hkv, D, dtype)),
-        ("dq", (*ptr(q, k, v, dout, lse, delta, dq), *shape, dtype))]
+        (dot, (*ptr(out, dout, delta), B, Sq, H, D, dtype)),
+        (dkdv, (*ptr(q, k, v, dout, lse, delta, part), *shape, dtype)),
+        (dkdv_sum, (*ptr(part, dk, dv), dk.numel(), H // Hkv, D, dtype)),
+        (dq_kernel, (*ptr(q, k, v, dout, lse, delta, dq), *shape, dtype))]
     with _build.on_device(dev):
         stream = _build.stream_ptr(dev)
         for kernel, args in launches:

@@ -150,7 +150,8 @@ def attention_backward_ref(q, k, v, out, dout, lse, *, window: int = 0,
 
 def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
                          softcap: float = 0.0, scale=None, q_offset: int = 0,
-                         same_stats: bool = False, ref=None):
+                         same_stats: bool = False, split: bool = False,
+                         ref=None):
     """Elementwise bounds (dq, dk, dv), float64, on |a - b| for two float32
     computations a and b of this gradient from the same inputs, derived
     from the float32 unit roundoff u = 2^-24 and gamma(n) = n u / (1 - n u),
@@ -183,6 +184,22 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
       gamma(G Sq + 2) |ds|) |scale q|; dq = scale sum over keys of ds k:
       scale sum (|d ds| + gamma(Skv + 2) |ds|) |k| (1 + u).
 
+    With ``split`` one side (the gradient's tensor-core instance) feeds its
+    float32 p and ds to the dv, dk and dq products as two halves of the
+    16-bit input type, hi = E(x) and lo = E(x - hi). x - hi is exact in
+    float32 (hi is x's nearest neighbour in E, which holds fewer bits), and
+    |x - hi| <= u_in |x|, so |x - (hi + lo)| = |(x - hi) - E(x - hi)| <=
+    u_in |x - hi| <= u_in^2 |x| where x - hi is in E's normal range, and at
+    most half E's subnormal spacing where it is not (where x itself is
+    below the normal range, hi and lo each land on the subnormal grid and
+    the pair is off by that half spacing). So that side's e_p and ds's
+    relative error gain u_in^2, plus that absolute on every term the mask
+    keeps (a masked p is 0 and splits exactly), and each of its sums adds
+    twice the terms (a hi and a lo product each): gamma(2 G Sq + 2) over
+    rows, gamma(2 Skv + 2) over keys. The bound is then that side's plus the
+    other side's, which stays float32 arithmetic. The tensor cores' float32
+    sums are taken to round as a float32 add does.
+
     In a 16-bit type both sides round their float32 result once, which
     adds 2 u_in (|ref| + the float32 bound) and twice half the spacing of
     the type's subnormals; ``ref`` is the side held to the other (its
@@ -206,10 +223,21 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
     u_in = 0.0 if out.dtype == torch.float32 else (
         torch.finfo(out.dtype).eps / 2)
     sub = torch.finfo(out.dtype).smallest_normal * u_in   # half a subnormal
-    bq = torch.zeros((B, Sq, Hkv, G, D), dtype=f64, device=q.device)
-    bk = torch.zeros((B, Skv, Hkv, D), dtype=f64, device=q.device)
+    if split and not u_in:
+        raise ValueError("backward_error_bound: split halves need a 16-bit "
+                         "input type")
+    g_d = gamma(D + 2)
+    # per side: (gamma over rows, gamma over keys, relative split error,
+    # absolute split error per kept term); the first side is float32
+    sides = [(gamma(G * Sq + 2), gamma(Skv + 2), 0.0, 0.0)]
+    if split:
+        sides.append((gamma(2 * G * Sq + 2), gamma(2 * Skv + 2), u_in ** 2,
+                      sub))
+    bq = torch.zeros((len(sides), B, Sq, Hkv, G, D), dtype=f64,
+                     device=q.device)
+    bk = torch.zeros((len(sides), B, Skv, Hkv, D), dtype=f64,
+                     device=q.device)
     bv = torch.zeros_like(bk)
-    g_rows, g_keys, g_d = gamma(G * Sq + 2), gamma(Skv + 2), gamma(D + 2)
     for c0 in range(0, Sq, Q_CHUNK):
         c1 = min(Sq, c0 + Q_CHUNK)
         lo, hi = q_offset + c0, q_offset + c1
@@ -251,7 +279,7 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
         delta = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
         err_delta = g_d * (doc.abs() * oc.abs()).sum(-1)
         if not same_stats:
-            e_fwd = (torch.where(mask, e_p, 0.0).amax(-1) + g_keys
+            e_fwd = (torch.where(mask, e_p, 0.0).amax(-1) + sides[0][1]
                      + u_in ** 2)
             pv = torch.einsum("bhgqk,bkhd->bqhgd", P, vc.abs())
             err_o = (u_in * oc.abs()
@@ -269,15 +297,22 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
             err_ds = err_ds + P * resid * (2 * err_s / softcap + 6 * u)
             del t
         del dp, err_dp, resid
-        bv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", P * (e_p + g_rows),
-                                     doc.abs())
-        w = err_ds + g_rows * ds_abs
-        bk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", w, qc.abs())
-        w = err_ds + g_keys * ds_abs
-        bq[:, c0:c1] = scale * (1 + u) * torch.einsum(
-            "bhgqk,bkhd->bqhgd", w, kc.abs())
+        for i, (g_rows, g_keys, e_h, s_h) in enumerate(sides):
+            s_h = s_h * mask.to(f64)
+            bv[i, :, k0:k1] += torch.einsum(
+                "bhgqk,bqhgd->bkhd", P * (e_p + g_rows + e_h) + s_h,
+                doc.abs())
+            w = err_ds + (g_rows + e_h) * ds_abs + s_h
+            bk[i, :, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", w,
+                                            qc.abs())
+            w = err_ds + (g_keys + e_h) * ds_abs + s_h
+            bq[i, :, c0:c1] = scale * (1 + u) * torch.einsum(
+                "bhgqk,bkhd->bqhgd", w, kc.abs())
         del P, e_p, err_s, err_ds, ds_abs, w
-    bounds = [2 * bq.reshape(B, Sq, H, D), 2 * bk, 2 * bv]
+    # both sides: twice the float32 side's, or the float32 side's plus the
+    # split side's
+    bq, bk, bv = (x[0] + x[-1] for x in (bq, bk, bv))
+    bounds = [bq.reshape(B, Sq, H, D), bk, bv]
     if u_in:
         if ref is None:
             raise ValueError("backward_error_bound: a 16-bit gradient needs "

@@ -74,18 +74,22 @@ params 1e-5, the CPU test's bounds) and twice bit for bit;
 ``moe_apply_sharded`` on the card against the CPU's shards (rtol = atol =
 1e-5); the owner-local ``write_token`` against the unsharded write, bit for
 bit.
-Flash attention's gradient: the three kernels (delta, dK/dV, dQ; every
-dtype, head dims 20 to 320, windows, softcaps, offsets on and off the
-64-row blocks) against the chunked plain backward from the same out and
-lse, within ``ref.backward_error_bound(same_stats=True)`` (the derived
-worst-case float32 bound of two orders of the same sums, plus one
-rounding each to a 16-bit type), two calls bit for bit; both forward
+Flash attention's gradient: both instances of its four launches (wgmma:
+bfloat16 and float16 at D % 8 == 0 up to 256; FMA: float32 and the other
+head dims), every dtype, head dims 20 to 320, G = 1 to 10, windows,
+softcaps, offsets on and off the instances' blocks, against the chunked
+plain backward from the same out and lse, within
+``ref.backward_error_bound(same_stats=True)`` (the derived worst-case
+float32 bound of two orders of the same sums, plus one rounding each to a
+16-bit type; ``split=True`` for the wgmma instance, whose P and dS enter
+its products as hi and lo halves of the type), the instance
+``bwd_impl_for`` names counted, two calls bit for bit; both forward
 kernels' logsumexp against the plain one within its derived bound, the
 output's bytes unchanged by asking for it; and qwen3's heads at 32,768
 tokens in bfloat16 under 1 GiB above the inputs.
 LM training's autograd Functions on the card: ``FlashAttentionFn``'s
 forward is the kernel (the flash bounds above against ``attention_ref``)
-and its (dq, dk, dv) the gradient kernels, within
+and its (dq, dk, dv) the gradient kernels (either instance), within
 ``ref.backward_error_bound`` of autograd through ``attention_ref`` (the
 plain version recomputes its own statistics, and the wgmma forward's p
 split and 16-bit output enter the bound); ``RGLRUScanFn``'s forward bit for bit against the plain
@@ -464,10 +468,12 @@ def test_flash_offset_rows_equal_full_launch_on_card(card, rng, dtype, D,
 
 
 # Flash attention's gradient: B, Sq, Skv, q_offset, H, Hkv, D, window,
-# softcap. Head dims 64, 96, 128, 256 and one off a multiple of 8 (36; 20
-# in float32), GQA and not, windows, softcaps, and offsets on and off the
-# kernels' 64-row blocks (a context-parallel shard's rows against every
-# key), with ragged Sq and Skv
+# softcap. Head dims 48, 64, 80, 96, 128, 256 (the wgmma instance in
+# bfloat16 and float16, the FMA one in float32) and off it (36, 20, 320:
+# the FMA instance at every dtype), G = 1, 2, 3, 4 and 10, windows,
+# softcaps of 30 and 50, offsets on and off the instances' blocks (64 and
+# 128 rows; a context-parallel shard's rows against every key), with
+# ragged Sq and Skv
 FA_BWD_CASES = [(2, 300, 300, 0, 4, 2, 64, 0, 0.0),
                 (1, 257, 257, 0, 4, 4, 96, 0, 30.0),
                 (1, 520, 520, 0, 16, 8, 128, 0, 0.0),
@@ -477,7 +483,12 @@ FA_BWD_CASES = [(2, 300, 300, 0, 4, 2, 64, 0, 0.0),
                 (1, 300, 300, 0, 10, 1, 256, 128, 0.0),
                 (2, 150, 150, 0, 4, 2, 36, 0, 50.0),
                 (1, 97, 140, 40, 4, 1, 20, 16, 0.0),
-                (1, 70, 70, 0, 2, 1, 320, 0, 0.0)]
+                (1, 70, 70, 0, 2, 1, 320, 0, 0.0),
+                (1, 200, 333, 133, 4, 2, 48, 0, 50.0),
+                (2, 190, 190, 0, 6, 3, 80, 64, 0.0),
+                (1, 256, 640, 384, 4, 1, 64, 0, 50.0),
+                (1, 77, 1100, 1000, 10, 1, 256, 2048, 0.0),
+                (1, 333, 333, 0, 10, 1, 80, 0, 50.0)]
 
 
 def _bwd_inputs(rng, card, dtype, B, Sq, Skv, off, H, Hkv, D, window,
@@ -492,10 +503,11 @@ def _bwd_inputs(rng, card, dtype, B, Sq, Skv, off, H, Hkv, D, window,
     return q, k, v, dout, out, lse
 
 
-def _bwd_launched(before):
+def _bwd_launched(before, impl):
     """``before`` (a copy of ``LAUNCHES_BWD_BY_KERNEL``) after one backward
-    call: each of its four kernels once."""
-    return {n: c + 1 for n, c in before.items()}
+    call of instance ``impl``: each of its four kernels once, no other."""
+    return {n: c + (n in fa_ops.BWD_KERNELS[impl])
+            for n, c in before.items()}
 
 
 def _within(got, want, bounds):
@@ -513,21 +525,28 @@ def _within(got, want, bounds):
 def test_flash_backward_matches_plain_on_card(card, rng, dtype, B, Sq, Skv,
                                               off, H, Hkv, D, window,
                                               softcap):
-    """The gradient kernels (four launches, counted per kernel) against the
-    chunked plain backward on the same card tensors, the same out and lse:
-    within ``ref.backward_error_bound(same_stats=True)`` (both read the
-    forward's statistics; they differ in the order of each sum), and two
-    calls bit for bit (no atomics)."""
+    """The gradient's instance ``bwd_impl_for`` names (four launches,
+    counted per kernel: wgmma in bfloat16 and float16 at D % 8 == 0 up to
+    256, FMA otherwise) against the chunked plain backward on the same card
+    tensors, the same out and lse: within
+    ``ref.backward_error_bound(same_stats=True)`` (both read the forward's
+    statistics; they differ in the order of each sum), with ``split`` for
+    the wgmma instance (its P and dS enter the products as 16-bit hi and lo
+    halves), and two calls bit for bit (no atomics)."""
     q, k, v, dout, out, lse = _bwd_inputs(rng, card, dtype, B, Sq, Skv, off,
                                           H, Hkv, D, window, softcap)
     kw = dict(window=window, softcap=softcap, q_offset=off)
+    impl = fa_ops.bwd_impl_for(dtype, D)
+    assert impl == ("wgmma" if dtype != torch.float32 and D % 8 == 0
+                    and D <= 256 else "fma")
     before = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
     got = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(before)
+    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(before, impl)
     want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
     _within(got, want, fa_ref.backward_error_bound(
-        q, k, v, out, dout, lse, **kw, same_stats=True, ref=want))
+        q, k, v, out, dout, lse, **kw, same_stats=True,
+        split=impl == "wgmma", ref=want))
     again = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -568,10 +587,11 @@ def test_flash_forward_lse_on_card(card, rng, dtype, D, window, softcap,
 @pytest.mark.cuda
 def test_flash_backward_at_32k_tokens_on_card(card):
     """qwen3's heads (16 q / 8 kv, D = 128) at its 32,768-token context,
-    bfloat16: the gradient kernels run with under 1 GiB of device memory
-    above their inputs (dq, dk, dv, delta: ~0.27 GB; autograd through
-    ``attention_ref`` would need 68.7 GB for one score tensor) and match
-    the chunked plain backward within the bound of the test above."""
+    bfloat16: the gradient's wgmma instance runs with under 1 GiB of device
+    memory above its inputs (dq, dk, dv, delta and the float32 shares:
+    ~0.81 GB; autograd through ``attention_ref`` would need 68.7 GB for one
+    score tensor) and matches the chunked plain backward within the bound
+    of the test above."""
     S, H, Hkv, D = 32768, 16, 8, 128
     g = torch.Generator(device=card).manual_seed(5)
     q = (torch.randn((1, S, H, D), generator=g, device=card)
@@ -585,12 +605,15 @@ def test_flash_backward_at_32k_tokens_on_card(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    before = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
     got = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, scale=1.0)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < 1 << 30
+    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(before, "wgmma")
     want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, scale=1.0)
     _within(got, want, fa_ref.backward_error_bound(
-        q, k, v, out, dout, lse, scale=1.0, same_stats=True, ref=want))
+        q, k, v, out, dout, lse, scale=1.0, same_stats=True, split=True,
+        ref=want))
 
 
 @pytest.mark.cuda
@@ -1501,6 +1524,8 @@ def _max_rel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,impl", [(torch.bfloat16, 128, "wgmma"),
+                                          (torch.float16, 80, "wgmma"),
+                                          (torch.bfloat16, 36, "scalar"),
                                           (torch.float32, 64, "scalar")])
 def test_flash_attention_fn_forward_backward_on_card(card, dtype, D, impl):
     from repro_torch.models.layers import FlashAttentionFn
@@ -1512,22 +1537,21 @@ def test_flash_attention_fn_forward_backward_on_card(card, dtype, D, impl):
     out = FlashAttentionFn.apply(q, k, v, 0, 0.0)
     assert fa_ops.LAUNCHES_BY_IMPL[impl] == before[impl] + 1
     ref = attention_ref(q, k, v, scale=1.0)
-    err = (out.float() - ref.float()).abs().detach()
-    if dtype == torch.bfloat16:
-        assert bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all())
-    else:
-        assert float(err.max()) <= 2e-3
+    _flash_close(out.detach(), ref.detach(), dtype)
     bwd = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
     got = torch.autograd.grad(out, (q, k, v), dout)
     want = torch.autograd.grad(ref, (q, k, v), dout)
+    bwd_impl = fa_ops.bwd_impl_for(dtype, D)
+    assert bwd_impl == ("wgmma" if impl == "wgmma" else "fma")
     assert fa_ops.LAUNCHES_BY_IMPL[impl] == before[impl] + 1
-    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(bwd)
+    assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(bwd, bwd_impl)
     assert all(x.dtype == dtype for x in got)
     qd, kd, vd = (t.detach() for t in (q, k, v))
     lse = torch.empty((2, 8, 256), dtype=torch.float32, device=card)
     fa_ops.flash_attention(qd, kd, vd, scale=1.0, lse=lse)
     _within(got, want, fa_ref.backward_error_bound(
-        qd, kd, vd, out.detach(), dout, lse, scale=1.0, ref=want))
+        qd, kd, vd, out.detach(), dout, lse, scale=1.0,
+        split=bwd_impl == "wgmma", ref=want))
 
 
 @pytest.mark.cuda

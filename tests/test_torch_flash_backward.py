@@ -350,3 +350,194 @@ def test_kernel_tile_order_emulated(rng, B, Sq, Skv, H, Hkv, D, window,
     for name, g, w, b in zip(("dq", "dk", "dv"), got, want, bounds):
         err = (g - w.double()).abs()
         assert bool((err <= b).all()), (name, float((err - b).max()))
+
+
+def _halves(x, dtype, halves=True):
+    """float64 x as the wgmma instance feeds it to a product: rounded to
+    float32 (its p and ds are float32), then as hi = E(x) and lo = E(x - hi)
+    in the 16-bit type E, returned as hi + lo in float64 (``halves=False``:
+    hi alone, x rounded once to E)."""
+    x32 = torch.from_numpy(x.astype(np.float32))
+    hi = x32.to(dtype)
+    if not halves:
+        return hi.double().numpy()
+    lo = (x32 - hi.float()).to(dtype)
+    return hi.double().numpy() + lo.double().numpy()
+
+
+def _emulate_wgmma(q, k, v, out, dout, lse, *, window, softcap, q_offset,
+                   halves=True):
+    """The gradient's wgmma instance (csrc/flash_attention_bwd_sm90.cu) in
+    float64 numpy: the narrowest instance width DW (64, 128 or 256) that
+    holds D, columns past D zero; the dK/dV CTAs (a q head, 128 keys as two
+    warpgroups of 64, a group of 128 output columns at DW = 256) over q
+    tiles of 64 rows (32 at DW 128 and 256) from the first that sees the
+    block's keys to the last a window lets see them, a warpgroup skipping
+    the tiles its keys cannot see; the dQ CTAs (128 rows as two warpgroups)
+    over key tiles of 64 (32 at DW 256) from the window's first to the
+    rows' last; per tile S = Q K^T times the scale, the softcap, the mask,
+    P = exp(S - lse), dS = P (dP - delta) (1 - t^2); P and dS enter the
+    products as float32 split into 16-bit hi and lo halves (``_halves``);
+    dK times the scale in each q head's float32 share, the shares summed
+    over a kv head's q heads in order, dQ times the scale once. Returns
+    float64 (dq, dk, dv), unrounded."""
+    dtype = q.dtype
+    q, k, v, out, dout = (t.double().numpy() for t in (q, k, v, out, dout))
+    lse = lse.double().numpy()
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(D)
+    DW = next(w for w in (64, 128, 256) if D <= w)
+    DO = min(DW, 128)
+    bs_kv, bs_q = (32 if DW >= 128 else 64), (32 if DW == 256 else 64)
+    delta = (dout * out).sum(-1).transpose(0, 2, 1)        # (B, H, Sq)
+    q, k, v, dout = (np.pad(x, [(0, 0)] * 3 + [(0, DW - D)])
+                     for x in (q, k, v, dout))
+
+    def rows_of(x, idx, n):
+        """rows idx of x, zeros at and past n (TMA's fill)"""
+        return np.where((idx < n)[:, None], x[np.minimum(idx, n - 1)], 0.0)
+
+    def tile(b, h, rows, keys):
+        hk = h // G
+        Q, dO = rows_of(q[b, :, h], rows, Sq), rows_of(dout[b, :, h], rows, Sq)
+        K, V = rows_of(k[b, :, hk], keys, Skv), rows_of(v[b, :, hk], keys, Skv)
+        s, dcap = (Q @ K.T) * scale, 1.0
+        if softcap:
+            t = np.tanh(s / softcap)
+            s, dcap = t * softcap, 1 - t * t
+        pos, kpos = q_offset + rows[:, None], keys[None, :]
+        ok = (rows[:, None] < Sq) & (kpos < Skv) & (kpos <= pos)
+        if window:
+            ok &= pos - kpos < window
+        row_l = np.where(rows < Sq, lse[b, h, np.minimum(rows, Sq - 1)], 0.0)
+        row_d = np.where(rows < Sq, delta[b, h, np.minimum(rows, Sq - 1)],
+                         0.0)
+        p = np.where(ok, np.exp(np.where(ok, s - row_l[:, None], 0.0)), 0.0)
+        ds = p * (dO @ V.T - row_d[:, None]) * dcap
+        return Q, K, dO, _halves(p, dtype, halves), _halves(ds, dtype, halves)
+
+    dq = np.zeros((B, Sq, H, D))
+    part_k, part_v = np.zeros((B, Skv, H, D)), np.zeros((B, Skv, H, D))
+    for b in range(B):
+        for h in range(H):
+            for k0 in range(0, Skv, 128):
+                k_last = min(k0 + 128, Skv) - 1
+                r_first = max(0, k0 - q_offset) // bs_kv * bs_kv
+                r_end = (min(Sq, k_last + window - q_offset) if window
+                         else Sq)
+                for c in range(0, DW, DO):
+                    for wk in (k0, k0 + 64):               # warpgroups
+                        keys = wk + np.arange(64)
+                        akk, avv = np.zeros((64, DO)), np.zeros((64, DO))
+                        for r0 in range(r_first, r_end, bs_kv):
+                            lo, hi = q_offset + r0, q_offset + r0 + bs_kv - 1
+                            if hi < wk or (window and lo - (wk + 63)
+                                           >= window):
+                                continue
+                            Q, _, dO, p, ds = tile(b, h, r0 + np.arange(
+                                bs_kv), keys)
+                            avv += p.T @ dO[:, c:c + DO]
+                            akk += ds.T @ Q[:, c:c + DO]
+                        n = max(0, min(64, Skv - wk))
+                        w = max(0, min(DO, D - c))
+                        part_k[b, wk:wk + n, h, c:c + w] = scale * akk[:n, :w]
+                        part_v[b, wk:wk + n, h, c:c + w] = avv[:n, :w]
+            for q0 in range(0, Sq, 128):
+                p0 = q_offset + q0
+                q_last = q_offset + min(q0 + 128, Sq) - 1
+                k_begin = (max(0, p0 - window + 1) // bs_q * bs_q if window
+                           else 0)
+                for wr in (q0, q0 + 64):                   # warpgroups
+                    lo = q_offset + wr
+                    acc = np.zeros((64, DW))
+                    for k0 in range(k_begin, q_last + 1, bs_q):
+                        if k0 > lo + 63 or (window and k0 + bs_q
+                                            <= lo - window + 1):
+                            continue
+                        _, K, _, _, ds = tile(b, h, wr + np.arange(64),
+                                              k0 + np.arange(bs_q))
+                        acc += ds @ K
+                    n = max(0, min(64, Sq - wr))
+                    dq[b, wr:wr + n, h] = scale * acc[:n, :D]
+    dk, dv = (x.reshape(B, Skv, Hkv, G, D).sum(3) for x in (part_k, part_v))
+    return tuple(torch.from_numpy(x) for x in (dq, dk, dv))
+
+
+def _wgmma_over_bound(rng, B, Sq, Skv, H, Hkv, D, window, softcap, off,
+                      dt, halves=True):
+    """The emulated wgmma instance against the chunked plain backward: the
+    largest |error| over ``backward_error_bound(same_stats=True,
+    split=True)`` over dq, dk and dv."""
+    q, k, v, dout = _inputs(rng, B, Sq, Skv, H, Hkv, D, DTYPES[dt], softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    got = _emulate_wgmma(q, k, v, out, dout, lse, halves=halves, **kw)
+    want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
+    bounds = fa_ref.backward_error_bound(q, k, v, out, dout, lse, **kw,
+                                         same_stats=True, split=True,
+                                         ref=want)
+    return max(float(((g - w.double()).abs() / b).max())
+               for g, w, b in zip(got, want, bounds))
+
+
+# test_kernel_tile_order_emulated's cases in 16 bits, D = 256 (two dK/dV
+# column groups) and offsets off the 128-row blocks
+WGMMA_CASES = [
+    (1, 150, 150, 4, 2, 20, 0, 0.0, 0, "bfloat16"),
+    (2, 70, 200, 2, 1, 64, 50, 3.0, 130, "bfloat16"),
+    (1, 100, 300, 4, 4, 130, 0, 0.0, 200, "float16"),
+    (1, 200, 200, 2, 1, 36, 64, 0.0, 0, "bfloat16"),
+    (1, 60, 130, 4, 2, 8, 20, 5.0, 64, "float16"),
+    (1, 140, 330, 2, 1, 256, 0, 3.0, 190, "bfloat16"),
+    (1, 260, 260, 4, 1, 128, 100, 0.0, 0, "float16")]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window,softcap,off,dt",
+                         WGMMA_CASES)
+def test_wgmma_instance_emulated(rng, B, Sq, Skv, H, Hkv, D, window,
+                                 softcap, off, dt):
+    """The wgmma instance's block and tile ranges, warpgroup skips, column
+    groups, hi/lo splits and scale placement, emulated in float64
+    (``_emulate_wgmma``), within ``backward_error_bound(same_stats=True,
+    split=True)`` of the chunked plain backward: a tile dropped or counted
+    twice moves a gradient by whole terms, far past the bound."""
+    assert _wgmma_over_bound(rng, B, Sq, Skv, H, Hkv, D, window, softcap,
+                             off, dt) <= 1.0
+
+
+def test_wgmma_split_is_needed(rng):
+    """The negative control of the hi/lo split: at (1, 64, 64, 2 q / 1 kv
+    heads, D 16) in bfloat16, P and dS each rounded once to bfloat16 put
+    the emulated instance past the bound (the bound allows the halves'
+    u_in^2 = 2^-16, a single rounding moves each term by up to 2^-9)."""
+    case = (1, 64, 64, 2, 1, 16, 0, 0.0, 0, "bfloat16")
+    assert _wgmma_over_bound(rng, *case) <= 1.0
+    assert _wgmma_over_bound(rng, *case, halves=False) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [1, 8, 36, 48, 64, 80, 96, 128, 200, 256, 320,
+                               1000])
+def test_backward_impl_for_every_dtype_and_head_dim(dtype, D):
+    """The gradient's static instance: wgmma exactly where the forward runs
+    on the tensor cores (bfloat16 and float16 at D % 8 == 0 up to 256),
+    the FMA kernels for every other (dtype, D); each instance names four
+    launches, the delta and sum kernels shared."""
+    want = ("wgmma" if dtype != torch.float32 and D % 8 == 0 and D <= 256
+            else "fma")
+    assert fa_ops.bwd_impl_for(dtype, D) == want
+    assert (fa_ops.impl_for(dtype, D) == "wgmma") == (want == "wgmma")
+    kernels = fa_ops.BWD_KERNELS[want]
+    assert len(kernels) == 4 and kernels[0] == "dot"
+    assert kernels[2] == "dkdv_sum"
+    assert set(kernels) <= set(fa_ops.LAUNCHES_BWD_BY_KERNEL)
+
+
+def test_split_bound_needs_a_16_bit_type(rng):
+    q, k, v, dout = _inputs(rng, 1, 8, 8, 2, 1, 8, torch.float32)
+    out, lse = fa_ref.attention_lse_ref(q, k, v)
+    with pytest.raises(ValueError, match="16-bit"):
+        fa_ref.backward_error_bound(q, k, v, out, dout, lse, split=True)

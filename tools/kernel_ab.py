@@ -22,9 +22,12 @@ keeps only the named cases: a tree older than this one's cases raises on
 the inputs it did not take yet (earlier trees refuse float16 and other
 head dims in flash_attention, and more than 19,000 ticks in harmonize).
 The flash gradient is the kernel ``flash_attention_bwd`` (its cases
-``path`` and ``train_rg``, ``chip_smoke.flash_bwd_cases``, and ``32k``,
-``chip_smoke.FLASH_BWD_AB_SPECS``; each timed with the case's own
-``reps`` calls, 3, where the others take 20); a tree before it has no
+``path`` and ``train_rg`` in bfloat16 and ``path_f32`` in float32,
+``chip_smoke.flash_bwd_cases``, and ``32k``,
+``chip_smoke.FLASH_BWD_AB_SPECS``; each tree runs the instance its
+``ops`` picks for the case, so a tree before the wgmma instance times
+its FMA kernels in bfloat16; each timed with the case's own ``reps``
+calls, 3, where the others take 20); a tree before it has no
 gradient kernel, so time it against a tree that has one (this tree
 itself, ``.``, gives four turns of the same code), and leave it out of
 ``--kernels`` against an older tree. Needs one NVIDIA card.
