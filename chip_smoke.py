@@ -26,12 +26,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
      gradient (``flash_attention_bwd``: four launches, delta, dK/dV, their
      sum over a kv head's q heads, dQ; its ``wgmma`` instance on the
      tensor cores for bfloat16 and float16 at head dims that are
-     multiples of 8 up to 256, ``fma`` otherwise, named by
-     ``ops.bwd_impl_for``) at qwen3-0.6b's training microbatch (``path``)
-     and recurrentgemma-2b's (``train_rg``), wgmma, and at a float32 case
-     (``path_f32``), FMA, against the chunked plain backward from the same
-     forward, its library yardstick autograd's backward of
-     ``scaled_dot_product_attention``.
+     multiples of 8 up to 256, ``tf32`` (three TF32 products a product,
+     after a split pass that also computes delta) for the rest up to 128,
+     ``fma`` above, named by ``ops.bwd_impl_for``) at qwen3-0.6b's
+     training microbatch (``path``) and recurrentgemma-2b's
+     (``train_rg``), wgmma, at qwen3's heads in float32 (``path_f32``)
+     and at D 36 in bfloat16 (``d36``), tf32, and at recurrentgemma-2b's
+     heads in float32 (``rg_f32``, D 256), FMA, against the chunked plain
+     backward from the same forward, its library yardstick autograd's
+     backward of ``scaled_dot_product_attention``.
   4. scan    — the port's PerceptaSystem in ``scan`` mode at E=256 envs,
      S=8 sources, K=32 windows per batch, replay capacity 4096, the rglru
      policy: 3 batches (96 windows) timed, with every kernel launch
@@ -169,7 +172,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
   phases 9 to 12 in another (``--train``); the script waits for each
   (see ``in_child``). Phases 11 and 12's train steps run the gradient
   kernels too (qwen3's sharded step checks the wgmma instance's launches,
-  its float32 twin's step the FMA instance's).
+  its float32 twin's step the tf32 instance's, recurrentgemma-2b's float32
+  twin in phase 12 the FMA instance's).
 The line before the last holds one JSON object with every kernel's
 numbers (``launches`` summed over the paths and instances,
 ``launches_by_path`` each path's, ``at_lm_shape`` the times at the LM
@@ -177,7 +181,8 @@ prefill shape; the flash gradient's ``flash_attention_bwd`` entry at
 qwen3's training microbatch, with ``at_train_rg`` and the reference
 gradient it replaces), then one entry per instance that this script counts on a
 path of its own (INSTANCE_ENTRIES: flash_attention's float16 wgmma and
-its scalar instance, the gradient's FMA instance, harmonize's tiled); the
+its scalar instance, the gradient's tf32 and FMA instances, harmonize's
+tiled); the
 last line
 is ``{"ok": true, "device": {...}}``. Without a
 card the script exits non-zero and prints no result.
@@ -728,14 +733,17 @@ FA_KERNELS = {
     "scalar": ("src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu", "flash_attention_kernel"),
 }
-# the gradient's sources by instance (its dK/dV and dQ kernels; both
-# instances launch the FMA source's delta and sum kernels) and its device
+# the gradient's sources by instance (its dK/dV and dQ kernels, and the
+# tf32 instance's split pass; every instance launches the FMA source's sum
+# kernel, the wgmma and FMA instances its delta kernel) and its device
 # kernels (delta, each q head's share of dK/dV, their sum over a kv head's
 # q heads, dQ), by the name its wrapper counts them under
 # (ops.LAUNCHES_BWD_BY_KERNEL; ops.BWD_KERNELS names each instance's four)
 FA_BWD_SOURCES = {
     "wgmma": ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_bwd_sm90.cu"),
+    "tf32": ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd_tf32.cu"),
     "fma": ("src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention_bwd.cu")}
 FA_BWD_KERNELS = {"dot": "flash_bwd_dot_kernel",
@@ -743,7 +751,10 @@ FA_BWD_KERNELS = {"dot": "flash_bwd_dot_kernel",
                   "dq": "flash_bwd_dq_kernel",
                   "dkdv_sum": "flash_bwd_dkdv_sum_kernel",
                   "dkdv_wgmma": "flash_bwd_dkdv_wgmma_kernel",
-                  "dq_wgmma": "flash_bwd_dq_wgmma_kernel"}
+                  "dq_wgmma": "flash_bwd_dq_wgmma_kernel",
+                  "split_tf32": "flash_bwd_split_tf32_kernel",
+                  "dkdv_tf32": "flash_bwd_dkdv_tf32_kernel",
+                  "dq_tf32": "flash_bwd_dq_tf32_kernel"}
 
 
 def _flash_bound_check(label, out, ref, dtype, info):
@@ -1019,12 +1030,17 @@ def bwd_launches_check(label, before, impl="wgmma"):
 # as the model calls it; "path" is qwen3-0.6b's training microbatch
 # (TRAIN: 2 x 4096), "train_rg" recurrentgemma-2b's (TRAIN_RG: 2 x 2048,
 # 10 q heads over 1 kv head, head dim 256, window 2048), both bfloat16 on
-# the wgmma instance; "path_f32" qwen3's heads at 1 x 2048 in float32, the
-# FMA instance (a float32 model's, as the sharded phases' twins)
+# the wgmma instance; "path_f32" qwen3's heads at 1 x 2048 in float32 (a
+# float32 model's, as the sharded phases' twins) and "d36" the same heads
+# at D 36 in bfloat16 (off the wgmma instance's head dims), the tf32
+# instance; "rg_f32" recurrentgemma-2b's heads at 1 x 2048 in float32 (D
+# 256, above the tf32 instance's widest), the FMA instance
 FLASH_BWD_SPECS = (
     ("path", torch.bfloat16, "wgmma", (2, 4096, 16, 8, 128, 0)),
     ("train_rg", torch.bfloat16, "wgmma", (2, 2048, 10, 1, 256, 2048)),
-    ("path_f32", torch.float32, "fma", (1, 2048, 16, 8, 128, 0)))
+    ("path_f32", torch.float32, "tf32", (1, 2048, 16, 8, 128, 0)),
+    ("d36", torch.bfloat16, "tf32", (1, 2048, 16, 8, 36, 0)),
+    ("rg_f32", torch.float32, "fma", (1, 2048, 10, 1, 256, 2048)))
 # tools/kernel_ab.py's further case: the gradient at BWD_32K (phase 3 does
 # not time it; phase flash_bwd_32k drives it once)
 FLASH_BWD_AB_SPECS = (("32k", torch.bfloat16, "wgmma",
@@ -1033,23 +1049,30 @@ FLASH_BWD_AB_SPECS = (("32k", torch.bfloat16, "wgmma",
 
 def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
     """The gradient at ``specs`` (the two training shapes on the wgmma
-    instance, a float32 case on the FMA one) against the chunked plain
-    backward from the same forward (the kernel's out and lse), within
-    ``ref.backward_error_bound(same_stats=True)`` (the derived float32
-    bound of two orders of the same sums, plus one 16-bit rounding each;
-    ``split=True`` for the wgmma instance, whose P and dS enter its
-    products as hi and lo halves of the input type), the instance
+    instance, two on the tf32 one, a float32 case on the FMA one) against
+    the chunked plain backward from the same forward (the kernel's out and
+    lse), within ``ref.backward_error_bound(same_stats=True)`` (the
+    derived float32 bound of two orders of the same sums, plus one 16-bit
+    rounding each; the instance's ``split``, ``ops.BWD_SPLIT``: True for
+    the wgmma instance, whose P and dS enter its products as hi and lo
+    halves of the input type, "tf32" for the tf32 instance, whose every
+    operand enters as TF32 big and small halves), the instance
     ``ops.bwd_impl_for`` names, each of its four kernels launched once a
     call and named in a trace, two calls bit for bit. The bound: 2.5x the
     forward's causal FLOPs (the recompute of S and dP and the three
-    products dV, dK, dQ) at the card's peak for the dtype (bfloat16's
-    989 TFLOP/s on the tensor cores, float32's 67 outside them), against
-    the bytes of q, k, v, out, dout, lse read and dq, dk, dv written;
+    products dV, dK, dQ) at the card's peak for the units the instance
+    computes on (bfloat16's and float16's 989 TFLOP/s on the tensor cores
+    for a 16-bit case, TF32's 495 for a float32 case on the tf32
+    instance, float32's 67 outside the tensor cores for one on the FMA
+    instance), against the bytes of q, k, v, out, dout, lse read and dq,
+    dk, dv written;
     ``bf16_bound_us`` the same FLOPs at the bfloat16 peak whatever the
     dtype, and ``ceiling_us`` the instance's own: the wgmma design's 20 D
     FLOPs per scored (row, key) pair (S and dP in both kernels, the three
     products twice for the hi and lo halves) at the bfloat16 peak, the
-    FMA design's 10 D at the float32 FMA peak. The library call:
+    tf32 design's three TF32 passes of the 10 D at the TF32 peak (495
+    TFLOP/s), the FMA design's 10 D at the float32 FMA peak. The library
+    call:
     autograd's backward of ``scaled_dot_product_attention`` (causal, GQA)
     at the same shape, its forward taken once outside the timing."""
     import torch.nn.functional as F
@@ -1074,12 +1097,16 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
         pairs = sum(min(i + 1, w) for i in range(S))
         flops = 2.5 * 4 * B * H * D * pairs
         info = {"impl": impl,
-                "bf16_bound_us": flops / roofline.BF16_FLOPS * 1e6,
-                "ceiling_us": (2 * flops / roofline.BF16_FLOPS if impl ==
-                               "wgmma" else flops / roofline.F32_FLOPS)
-                * 1e6}
+                "bf16_bound_us": flops / roofline.BF16_FLOPS * 1e6}
 
-        def cmp(args=args, kw=kw, label=label, info=info, impl=impl):
+        def cmp(args=args, kw=kw, label=label, info=info, impl=impl,
+                flops=flops):
+            # the instance's ceiling (set here, not when the case is made:
+            # tools/kernel_ab.py makes these cases over older trees too)
+            info["ceiling_us"] = {
+                "wgmma": 2 * flops / roofline.BF16_FLOPS,
+                "tf32": 3 * flops / roofline.TF32_FLOPS,
+                "fma": flops / roofline.F32_FLOPS}[impl] * 1e6
             dtype, D = args[0].dtype, args[0].shape[-1]
             check(fa_ops.bwd_impl_for(dtype, D) == impl,
                   f"flash_attention_bwd {label}: bwd_impl_for gives "
@@ -1100,13 +1127,14 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
                   f"flash_attention_bwd {label}: two calls differ")
             del again
             want = attention_backward_ref(*args, **kw)
+            split = fa_ops.BWD_SPLIT[impl]
             bounds = backward_error_bound(*args, **kw, same_stats=True,
-                                          split=impl == "wgmma", ref=want)
+                                          split=split, ref=want)
             ratio = _bwd_ratio(got, want, bounds)
             err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(got, want))
             info.update(tol="backward_error_bound(same_stats=True, "
-                        f"split={impl == 'wgmma'})",
+                        f"split={split!r})",
                         err_over_tol=ratio, traced_kernels=ran,
                         bit_equal_twice=True)
             check(ratio <= 1.0, f"flash_attention_bwd {label}: error "
@@ -1131,8 +1159,13 @@ def flash_bwd_cases(dev, g, specs=FLASH_BWD_SPECS):
             reps=3,
             bytes=(4 * B * S * (H + HKV) * D * q.element_size()
                    + 4 * B * H * S),
-            ops=flops, ops_rate=(roofline.F32_FLOPS if dtype == torch.float32
-                                 else roofline.BF16_FLOPS),
+            # the peak of the units the instance computes on, read when
+            # the bound is (tools/kernel_ab.py makes these cases over older
+            # trees, whose roofline may lack TF32_FLOPS)
+            ops=flops, ops_rate=lambda dtype=dtype, impl=impl: (
+                roofline.BF16_FLOPS if dtype in FLASH_ULP
+                else roofline.TF32_FLOPS if impl == "tf32"
+                else roofline.F32_FLOPS),
             library=lambda o=lib_out, d=dout_t, x=(qt, kt, vt):
                 torch.autograd.grad(o, x, d, retain_graph=True)))
     return cases
@@ -1165,7 +1198,9 @@ INSTANCE_ENTRIES = {
                             FA_KERNELS["wgmma"][0]),
     "flash_attention_scalar": ("flash_attention", "path_f32", "scalar",
                                FA_KERNELS["scalar"][0]),
-    "flash_attention_bwd_fma": ("flash_attention_bwd", "path_f32", "fma",
+    "flash_attention_bwd_tf32": ("flash_attention_bwd", "path_f32", "tf32",
+                                 FA_BWD_SOURCES["tf32"]),
+    "flash_attention_bwd_fma": ("flash_attention_bwd", "rg_f32", "fma",
                                 FA_BWD_SOURCES["fma"]),
     "harmonize_tiled": ("harmonize", "long", "tiled",
                         KERNEL_META["harmonize"][0]),
@@ -1196,8 +1231,9 @@ def phase_kernels(dev):
                                   for v in dev_ms.values()) else "events"
         t = dev_ms if timer == "profiler" else calls
         ms, plain_ms, lib_ms = t["kernel"], t["plain"], t.get("library")
+        rate = case.get("ops_rate")
         bound_ms, bound_by = bound(case["bytes"], case["ops"],
-                                   case.get("ops_rate"))
+                                   rate() if callable(rate) else rate)
         us = lambda x: None if x is None else x * 1e3
         # the gradient's readings as shares of its bounds' pace
         shares = {f"{k[:-3]}_share": case["info"][k] / us(ms)
@@ -3757,6 +3793,7 @@ def _shard_qwen(dev, readings):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLMStream, to_device
     from repro_torch.distribution import sharding as shd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import roofline
     from repro_torch.launch.steps import build_prefill_step, make_model
     from repro_torch.models import LM
@@ -3854,10 +3891,11 @@ def _shard_qwen(dev, readings):
     _zero_counts()
     got = step(ps, os_, bs)
     counts32 = _read_counts()
-    want_fma = bwd_expected(n_sh * cfg32.n_layers, "fma")
-    check(counts32["flash_bwd"] == want_fma,
+    impl32 = fa_ops.bwd_impl_for(torch.float32, cfg32.resolved_head_dim)
+    want32 = bwd_expected(n_sh * cfg32.n_layers, impl32)
+    check(counts32["flash_bwd"] == want32,
           f"{tag}: float32 gradient launches {counts32['flash_bwd']} in a "
-          f"step on {n_sh} shards, expected {want_fma} (fma)")
+          f"step on {n_sh} shards, expected {want32} ({impl32})")
     got_p = shd.gather_tree(got[0], lay["params"], mesh)
     got_o = shd.gather_tree(got[1], lay["opt"], mesh)
     got_loss = got[2]["loss"].item()
@@ -3934,6 +3972,7 @@ def _shard_qwen(dev, readings):
           "f32_m_max_rel_err": grad_rel, "f32_v_max_rel_err": v_rel,
           "f32_m_bound": SHARD_GRAD_REL,
           "f32_launches": {"flash_attention_bwd": counts32["flash_bwd"]},
+          "f32_gradient_instance": impl32,
           "prefill_launches": {"flash_attention": pcounts["flash_attention"]},
           "prefill_collective_calls": pcounts["collectives"],
           "prefill_ms": pre_ms, "unsharded_prefill_ms": plain_pre_ms,
@@ -3949,7 +3988,7 @@ def _shard_qwen(dev, readings):
         f"sharded_prefill_{spec['arch']}": pcounts["flash_attention"]},
         "flash_attention_bwd": {f"sharded_train_{spec['arch']}":
                                 sum(counts["flash_bwd"].values())},
-        "flash_attention_bwd_fma": {
+        f"flash_attention_bwd_{impl32}": {
             f"sharded_train_{spec['arch']}_float32":
                 sum(counts32["flash_bwd"].values())}}
 
@@ -4337,6 +4376,7 @@ def _more_train(tag, cfg, spec, perf, dev, *, tcfg=None, f32=False,
                "flash_attention": counts["flash_attention"],
                "flash_by_impl": counts["flash_by_impl"],
                "flash_by_offset": counts["flash_by_offset"],
+               "flash_bwd": counts["flash_bwd"],
                "rglru_scan": counts["rglru_scan"]},
            "collective_calls_per_step": counts["collectives"],
            "peak_device_bytes": peak, "sharded": got_met,
@@ -4511,10 +4551,11 @@ def phase_lm_sharded_more(dev, readings):
     from repro_torch.configs.base import ShardingConfig, TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLMStream, to_device
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.model import attn_mode
 
     t0 = time.perf_counter()
-    fa, rg_paths = {}, {}
+    fa, rg_paths, bwd_fma = {}, {}, {}
     n_sh = 8
 
     def n_attn(cfg):
@@ -4568,6 +4609,14 @@ def phase_lm_sharded_more(dev, readings):
     tl = twin["launches_per_step"]
     check(tl["flash_by_impl"]["scalar"] == tl["flash_attention"] > 0,
           f"{tag}_f32: flash launches {tl}")
+    # its head dim (256) is above the tf32 instance's: the FMA kernels
+    n_bwd = tl["flash_bwd"]["dkdv_sum"]
+    check(fa_ops.bwd_impl_for(torch.float32, cfg32.resolved_head_dim)
+          == "fma" and n_bwd > 0
+          and tl["flash_bwd"] == bwd_expected(n_bwd, "fma"),
+          f"{tag}_f32: gradient launches {tl['flash_bwd']}, expected the "
+          "FMA instance's")
+    bwd_fma[f"sharded_more_train_{spec['arch']}_float32"] = 4 * n_bwd
     line(tag, "f32_twin", spec32, cfg32, n_layers=cfg32.n_layers,
          reduced=cut32, **twin)
 
@@ -4675,7 +4724,8 @@ def phase_lm_sharded_more(dev, readings):
           "seconds": time.perf_counter() - t0,
           "launches_by_path": {"flash_attention": fa,
                                "rglru_scan": rg_paths}})
-    return {"flash_attention": fa, "rglru_scan": rg_paths}
+    return {"flash_attention": fa, "rglru_scan": rg_paths,
+            "flash_attention_bwd_fma": bwd_fma}
 
 
 # The LM families' phases and the LM training phases each run in a child
@@ -4899,8 +4949,8 @@ def main() -> int:
     for flag in CHILD_PHASES:
         for name, paths in in_child(flag).items():
             by_path.setdefault(name, {}).update(paths)
-    by_instance["flash_attention_bwd_fma"] = by_path.pop(
-        "flash_attention_bwd_fma")
+    for name in ("flash_attention_bwd_tf32", "flash_attention_bwd_fma"):
+        by_instance[name] = by_path.pop(name)
     emit({"phase": "children_done"})
 
     def entry(name, t, source, replaces, paths, **extra):

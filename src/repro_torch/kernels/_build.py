@@ -74,6 +74,22 @@ SIGNATURES = {
     "flash_bwd_dq_wgmma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, ctypes.c_float,
                                   ctypes.c_float, _I, _P],
+    # the float32 tensor-core instance (3xTF32): B, Sq, Skv, H, Hkv, D ->
+    # the floats of its split planes' workspace (0: shapes refused)
+    "flash_bwd_tf32_workspace_floats": [_I, _I, _I, _I, _I, _I],
+    # q, k, v, out, dout, delta, workspace, B, Sq, Skv, H, Hkv, D, dtype,
+    # stream
+    "flash_bwd_split_tf32_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _P],
+    # workspace, lse, delta, part, B, Sq, Skv, q_offset, H, Hkv, D, window,
+    # softcap, scale, stream
+    "flash_bwd_dkdv_tf32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, ctypes.c_float, ctypes.c_float,
+                                   _P],
+    # workspace, lse, delta, dq, B, Sq, Skv, q_offset, H, Hkv, D, window,
+    # softcap, scale, dtype, stream
+    "flash_bwd_dq_tf32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, ctypes.c_float, ctypes.c_float, _I, _P],
     # part, dk, dv, n, G, D, dtype, stream
     "flash_bwd_dkdv_sum_launch": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I,
                                   _P],
@@ -87,6 +103,8 @@ SIGNATURES = {
     "harmonize_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
 }
+# the entry points that return something other than a cudaError_t code
+RESTYPES = {"flash_bwd_tf32_workspace_floats": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -170,7 +188,7 @@ def library():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 

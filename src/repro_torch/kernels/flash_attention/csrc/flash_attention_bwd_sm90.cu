@@ -20,7 +20,9 @@
 // backward, and the reference trains through src/repro/models/layers.py's
 // blockwise_attention, which JAX differentiates with its score chunks
 // recomputed. This is the tensor-core redesign of flash_attention_bwd.cu's
-// FMA kernels, which stay for float32 and the head dims wgmma does not take.
+// FMA kernels in 16 bits; flash_attention_bwd_tf32.cu is float32's (and the
+// 16-bit head dims this instance does not take, up to 128), and the FMA
+// kernels stay for the head dims above both.
 //
 // Query offset: q, dO and dQ are (B, Sq, H, D), k, v (B, Skv, Hkv, D); query
 // row i sits at position q_offset + i, keys at 0..Skv-1, with
@@ -187,23 +189,6 @@ __device__ __forceinline__ void scores(float (&s)[BS / 2], float (&dp)[BS / 2],
   wgmma_wait_all();
   pin(s);
   pin(dp);
-}
-
-// p and ds of one score x (the raw product) and its dp, in place: x becomes
-// p = exp(scale x - lse) (softcapped before the mask) or 0 off the mask,
-// dp becomes ds = p (dp - delta) (1 - t^2)
-__device__ __forceinline__ void p_ds(float& x, float& dp, bool ok, float lse,
-                                     float delta, float scale,
-                                     float softcap) {
-  float s = x * scale, dcap = 1.f;
-  if (softcap > 0.f) {
-    const float t = tanhf(s / softcap);
-    s = t * softcap;
-    dcap = 1.f - t * t;
-  }
-  const float p = ok ? expf(s - lse) : 0.f;
-  x = p;
-  dp = p * (dp - delta) * dcap;
 }
 
 // the f32 fragment x as hi and lo halves of E, the rs A fragments of its

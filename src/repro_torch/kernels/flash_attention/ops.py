@@ -33,7 +33,7 @@ without one they store nothing else and the output keeps its bits.
 
 The gradient, :func:`flash_attention_backward`, is four launches, no
 float atomics and no (Sq, Skv) buffer: it recomputes the scores tile by
-tile from the forward's logsumexp. Two instances, chosen by
+tile from the forward's logsumexp. Three instances, chosen by
 :func:`bwd_impl_for` as statically as the forward's (``BWD_KERNELS`` names
 each one's launches):
 
@@ -45,9 +45,28 @@ each one's launches):
   sum of a kv head's shares in head order); ``"dq_wgmma"`` (dQ per 128-row
   block, on the tensor cores). P and dS enter their products as hi and lo
   halves of the input type.
-- ``"fma"``: every other (dtype, D), float32 at every D: ``"dot"``,
-  ``"dkdv"`` (per 64-key block), ``"dkdv_sum"`` and ``"dq"`` (per 64-row
-  block), all in ``csrc/flash_attention_bwd.cu`` on the float32 FMA units.
+- ``"tf32"``: float32 at D <= 128, and bfloat16 and float16 at D % 8 != 0
+  and D <= 128 (their values are exact in TF32), on the tensor cores in
+  TF32 from big and small halves of every float32 operand (three products
+  a product, four for S and dP; ``csrc/flash_attention_bwd_tf32.cu``):
+  ``"split_tf32"`` (the split pass: delta as ``"dot"`` computes it, and Q,
+  dO, K and V as TF32 halves in the model layout padded to DW = 64 or 128
+  columns; K also transposed, and at DW = 64 Q and dO too, since wgmma
+  takes 32-bit operands K-major only; one float32 workspace freed after
+  the call, whose layout only the C side knows and whose size
+  ``flash_bwd_tf32_workspace_floats`` gives: 4 (B Sq H + B Skv Hkv) DW +
+  2 B Hkv DW Skv' floats (S' = S rounded up to 32), and 4 B H DW Sq' more
+  at DW = 64: 117.4 MB at qwen3's heads and 2048 tokens); ``"dkdv_tf32"`` (each q head's share
+  per 64-key block; at DW = 128 it transposes its streamed Q and dO in
+  shared memory itself), ``"dkdv_sum"``, ``"dq_tf32"`` (dQ per 64-row
+  block). It stops at 128 columns: a CTA keeps 64 resident rows of two
+  tensors in two 4-byte halves (128 KB at DW = 128) beside its ring of
+  streamed tiles in a block's 227 KB of shared memory, and 256 columns
+  would take all of it for the resident rows alone.
+- ``"fma"``: what is left, D > 128 in float32 and D > 128 at D % 8 != 0 or
+  D > 256 in 16 bits: ``"dot"``, ``"dkdv"`` (per 64-key block),
+  ``"dkdv_sum"`` and ``"dq"`` (per 64-row block), all in
+  ``csrc/flash_attention_bwd.cu`` on the float32 FMA units.
 
 A CPU tensor takes the plain versions in ``ref.py``. ``LAUNCHES`` counts
 forward kernel launches, ``LAUNCHES_BY_IMPL`` the same per kernel, and
@@ -76,10 +95,14 @@ Q_BLOCK = {"wgmma": 128, "scalar": 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the gradient's four launches in order, per instance (bwd_impl_for)
 BWD_KERNELS = {"wgmma": ("dot", "dkdv_wgmma", "dkdv_sum", "dq_wgmma"),
+               "tf32": ("split_tf32", "dkdv_tf32", "dkdv_sum", "dq_tf32"),
                "fma": ("dot", "dkdv", "dkdv_sum", "dq")}
+# each instance's ``split`` argument of ref.backward_error_bound
+BWD_SPLIT = {"wgmma": True, "tf32": "tf32", "fma": False}
+TF32_MAX_D = 128           # the tf32 instance's widest head dim
 LAUNCHES_BWD = 0
 LAUNCHES_BWD_BY_KERNEL = dict.fromkeys(
-    BWD_KERNELS["wgmma"] + BWD_KERNELS["fma"], 0)
+    [k for kernels in BWD_KERNELS.values() for k in kernels], 0)
 
 
 def impl_for(dtype, D: int) -> str:
@@ -95,9 +118,12 @@ def impl_for(dtype, D: int) -> str:
 def bwd_impl_for(dtype, D: int) -> str:
     """The gradient's instance for this dtype and head dim: ``"wgmma"``
     where the forward runs on the tensor cores (bfloat16 and float16 at D %
-    8 == 0 and D <= 256), ``"fma"`` for the rest. A static choice, never
-    made by a failure."""
-    return "wgmma" if impl_for(dtype, D) == "wgmma" else "fma"
+    8 == 0 and D <= 256), ``"tf32"`` for the rest up to D = 128 (float32 at
+    every such D), ``"fma"`` above. A static choice, never made by a
+    failure."""
+    if impl_for(dtype, D) == "wgmma":
+        return "wgmma"
+    return "tf32" if D <= TF32_MAX_D else "fma"
 
 
 def _check(name, q, k, v, window, softcap, q_offset):
@@ -200,19 +226,34 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, window: int = 0,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    part = torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    delta = torch.empty((B, H, Sq), **f32)
+    part = torch.empty((2, B, Skv, H, D), **f32)
     lib = _build.library()
     dtype = _DTYPES[q.dtype]
     shape = (B, Sq, Skv, q_offset, H, Hkv, D, int(window), float(softcap),
              scale)
     ptr = lambda *ts: tuple(t.data_ptr() for t in ts)
-    dot, dkdv, dkdv_sum, dq_kernel = BWD_KERNELS[bwd_impl_for(q.dtype, D)]
-    launches = [
-        (dot, (*ptr(out, dout, delta), B, Sq, H, D, dtype)),
-        (dkdv, (*ptr(q, k, v, dout, lse, delta, part), *shape, dtype)),
-        (dkdv_sum, (*ptr(part, dk, dv), dk.numel(), H // Hkv, D, dtype)),
-        (dq_kernel, (*ptr(q, k, v, dout, lse, delta, dq), *shape, dtype))]
+    impl = bwd_impl_for(q.dtype, D)
+    first, dkdv, dkdv_sum, dq_kernel = BWD_KERNELS[impl]
+    sum_args = (*ptr(part, dk, dv), dk.numel(), H // Hkv, D, dtype)
+    if impl == "tf32":
+        # the split planes' workspace (its layout is the C side's alone)
+        ws = torch.empty(lib.flash_bwd_tf32_workspace_floats(
+            B, Sq, Skv, H, Hkv, D), **f32)
+        launches = [
+            (first, (*ptr(q, k, v, out, dout, delta, ws), B, Sq, Skv, H, Hkv,
+                     D, dtype)),
+            (dkdv, (*ptr(ws, lse, delta, part), *shape)),
+            (dkdv_sum, sum_args),
+            (dq_kernel, (*ptr(ws, lse, delta, dq), *shape, dtype))]
+    else:
+        launches = [
+            (first, (*ptr(out, dout, delta), B, Sq, H, D, dtype)),
+            (dkdv, (*ptr(q, k, v, dout, lse, delta, part), *shape, dtype)),
+            (dkdv_sum, sum_args),
+            (dq_kernel, (*ptr(q, k, v, dout, lse, delta, dq), *shape,
+                         dtype))]
     with _build.on_device(dev):
         stream = _build.stream_ptr(dev)
         for kernel, args in launches:

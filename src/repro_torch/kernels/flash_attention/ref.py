@@ -204,7 +204,35 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
     adds 2 u_in (|ref| + the float32 bound) and twice half the spacing of
     the type's subnormals; ``ref`` is the side held to the other (its
     rounded (dq, dk, dv)), required then. The bound is worst case: the
-    sums' rounding errors are not taken to cancel."""
+    sums' rounding errors are not taken to cancel.
+
+    With ``split="tf32"`` one side (the gradient's float32 tensor-core
+    instance) takes every product a b of a sum (s = q.k, dp = dout.v and
+    the p dout, ds q and ds k terms of dv, dk and dq) as three TF32
+    products of the operands' halves, big = tf32(x) and small = tf32(x -
+    big), each rounded to nearest (TF32 keeps 10 fraction bits: unit u_t
+    = 2^-11, half its subnormal spacing sig_t = 2^-137): x - big is exact
+    in float32 and |x - big| <= u_t |x|, so x = big + small + e with |e|
+    <= u_t^2 |x| + sig_t, and |small| <= u_t (1 + u_t) |x| + sig_t. The
+    side computes big_a big_b + big_a small_b + small_a big_b = (a - e_a)
+    (b - e_b) - small_a small_b, off a b by at most e3 |a| |b| + 2 sig_t
+    (|a| + |b| + sig_t) with e3 = u_t^2 (3 + 2 u_t + 2 u_t^2) (e_a b, a e_b,
+    e_a e_b and the dropped small product). Each product is exact in
+    float32 (22 bits), and a sum of n terms adds 3n of them, whose
+    magnitudes add to at most (1 + 5 u_t) sum |a| |b|: gamma(3n + 2) (1 +
+    5 u_t) over |a|.|b|. (The instance takes s and dp as all four
+    products, (big_a + small_a) (big_b + small_b), in two chains of 2D
+    terms added once: off by 2 u_t^2 + u_t^4 < e3 a term, a sum tree of
+    depth 2D + 1, the same magnitudes: inside the same bound.) So that
+    side's s and dp take g3(D) = e3 + gamma(3 D + 2) (1 + 5 u_t) in place
+    of gamma(D + 2) (its e_p and ds follow from them as above), and its
+    sums of dv, dk and dq take
+    g3(G Sq) and g3(Skv) in place of gamma(G Sq + 2) and gamma(Skv + 2),
+    the absolute term on every kept term. delta stays float32 on both
+    sides. The tensor cores' float32 sums are taken to round as a float32
+    add does; the card test is what tests it. This is explicit arithmetic
+    held to the float32 bound, not TF32 mode: a single pass (big big
+    alone) is off by ~2^-11 a term and fails it."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -223,16 +251,28 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
     u_in = 0.0 if out.dtype == torch.float32 else (
         torch.finfo(out.dtype).eps / 2)
     sub = torch.finfo(out.dtype).smallest_normal * u_in   # half a subnormal
-    if split and not u_in:
+    tf32 = split == "tf32"
+    if split not in (False, True, "tf32"):
+        raise ValueError(f"backward_error_bound: split={split!r}")
+    if split is True and not u_in:
         raise ValueError("backward_error_bound: split halves need a 16-bit "
                          "input type")
+    u_t, sig_t = 2.0 ** -11, 2.0 ** -137       # TF32's unit, half subnormal
+    e3 = u_t ** 2 * (3 + 2 * u_t + 2 * u_t ** 2)
+
+    def g3(n):
+        return e3 + gamma(3 * n + 2) * (1 + 5 * u_t)
+
     g_d = gamma(D + 2)
     # per side: (gamma over rows, gamma over keys, relative split error,
-    # absolute split error per kept term); the first side is float32
-    sides = [(gamma(G * Sq + 2), gamma(Skv + 2), 0.0, 0.0)]
-    if split:
+    # absolute split error per kept term, TF32 products); the first side is
+    # float32
+    sides = [(gamma(G * Sq + 2), gamma(Skv + 2), 0.0, 0.0, False)]
+    if split is True:
         sides.append((gamma(2 * G * Sq + 2), gamma(2 * Skv + 2), u_in ** 2,
-                      sub))
+                      sub, False))
+    elif tf32:
+        sides.append((g3(G * Sq), g3(Skv), 0.0, 0.0, True))
     bq = torch.zeros((len(sides), B, Sq, Hkv, G, D), dtype=f64,
                      device=q.device)
     bk = torch.zeros((len(sides), B, Skv, Hkv, D), dtype=f64,
@@ -245,11 +285,20 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
         qc, doc, oc = qd[:, c0:c1], dod[:, c0:c1], od[:, c0:c1]
         kc, vc = kd[:, k0:k1], vd[:, k0:k1]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc)
-        err_s = g_d * torch.einsum("bqhgd,bkhd->bhgqk", qc.abs(), kc.abs())
+        qk_abs = torch.einsum("bqhgd,bkhd->bhgqk", qc.abs(), kc.abs())
+        err_s = g_d * qk_abs
         if softcap:
             t = torch.tanh(s / softcap)
             s = t * softcap
         err_s += 4 * u * s.abs()
+        if tf32:
+            # the TF32 side's scores: the scale multiplies the sum once
+            l1 = lambda x: x.abs().sum(-1)
+            err_s_t = (g3(D) * qk_abs + 4 * u * s.abs() + 2 * sig_t * (
+                l1(qc).permute(0, 2, 3, 1)[..., None]
+                + scale * l1(kc).permute(0, 2, 1)[:, :, None, None]
+                + D * sig_t * scale))
+        del qk_abs
         i = torch.arange(lo, hi, device=q.device)[:, None]
         j = torch.arange(k0, k1, device=q.device)[None, :]
         mask = i >= j
@@ -264,18 +313,25 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
         if same_stats:
             # both sides exponentiate against the given lse
             P = torch.exp(sm - l_c)
-            e_p = err_s + u * (s.abs() + l_c.abs()) + 2 * u
+            e_stat = u * (s.abs() + l_c.abs()) + 2 * u
         else:
             e_lse = (2 * torch.where(mask, err_s, 0.0).amax(-1, keepdim=True)
                      + u * (torch.where(mask, s.abs(), 0.0)
                             .amax(-1, keepdim=True) + m.abs())
                      + gamma(Skv + 4) + u * (torch.log(l_).abs()
                                             + lse_x.abs()) + 2 * u)
-            e_p = err_s + e_lse + u * (s.abs() + lse_x.abs()) + 2 * u
+            e_stat = e_lse + u * (s.abs() + lse_x.abs()) + 2 * u
+        e_p = err_s + e_stat
         del sm
         dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
-        err_dp = g_d * torch.einsum("bqhgd,bkhd->bhgqk", doc.abs(),
-                                    vc.abs())
+        dv_abs = torch.einsum("bqhgd,bkhd->bhgqk", doc.abs(), vc.abs())
+        err_dp = g_d * dv_abs
+        if tf32:
+            err_dp_t = g3(D) * dv_abs + 2 * sig_t * (
+                doc.abs().sum(-1).permute(0, 2, 3, 1)[..., None]
+                + vc.abs().sum(-1).permute(0, 2, 1)[:, :, None, None]
+                + D * sig_t)
+        del dv_abs
         delta = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
         err_delta = g_d * (doc.abs() * oc.abs()).sum(-1)
         if not same_stats:
@@ -291,24 +347,53 @@ def backward_error_bound(q, k, v, out, dout, lse, *, window: int = 0,
         err_delta = err_delta.permute(0, 2, 3, 1)[..., None]
         resid = (dp - delta).abs()
         ds_abs = P * resid
-        err_ds = P * (e_p * resid + err_dp + err_delta) * (1 + 4 * u)
         if softcap:
             ds_abs = ds_abs * (1 - t * t).abs()
-            err_ds = err_ds + P * resid * (2 * err_s / softcap + 6 * u)
-            del t
-        del dp, err_dp, resid
-        for i, (g_rows, g_keys, e_h, s_h) in enumerate(sides):
-            s_h = s_h * mask.to(f64)
+
+        def ds_error(e_s, e_dp):
+            err = P * ((e_s + e_stat) * resid + e_dp + err_delta) * (1 + 4 * u)
+            if softcap:
+                err = err + P * resid * (2 * e_s / softcap + 6 * u)
+            return err
+
+        err_ds = ds_error(err_s, err_dp)
+        mask64 = mask.to(f64)
+        for i, (g_rows, g_keys, e_h, s_h, side_tf32) in enumerate(sides):
+            s_h = s_h * mask64
+            ep, eds = e_p, err_ds
+            if side_tf32:
+                ep = err_s_t + e_stat
+                eds = ds_error(err_s_t, err_dp_t)
             bv[i, :, k0:k1] += torch.einsum(
-                "bhgqk,bqhgd->bkhd", P * (e_p + g_rows + e_h) + s_h,
+                "bhgqk,bqhgd->bkhd", P * (ep + g_rows + e_h) + s_h,
                 doc.abs())
-            w = err_ds + (g_rows + e_h) * ds_abs + s_h
+            w = eds + (g_rows + e_h) * ds_abs + s_h
             bk[i, :, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", w,
                                             qc.abs())
-            w = err_ds + (g_keys + e_h) * ds_abs + s_h
+            w = eds + (g_keys + e_h) * ds_abs + s_h
             bq[i, :, c0:c1] = scale * (1 + u) * torch.einsum(
                 "bhgqk,bkhd->bqhgd", w, kc.abs())
-        del P, e_p, err_s, err_ds, ds_abs, w
+            if side_tf32:
+                # the splits' absolute term on every kept term: 2 sig_t
+                # (|a| + |b| + sig_t) for the p dout, ds (scale q) and
+                # scale ds k products
+                a_p = mask64 * (P * (1 + ep) + sig_t)
+                a_ds = mask64 * (ds_abs + eds + sig_t)
+                ones = lambda x: torch.ones_like(x[..., :1])
+                bv[i, :, k0:k1] += 2 * sig_t * (
+                    torch.einsum("bhgqk,bqhgd->bkhd", a_p, ones(doc))
+                    + torch.einsum("qk,bqhgd->bkhd", mask64, doc.abs()))
+                bk[i, :, k0:k1] += 2 * sig_t * scale * (
+                    torch.einsum("bhgqk,bqhgd->bkhd", a_ds, ones(qc))
+                    + torch.einsum("qk,bqhgd->bkhd", mask64,
+                                   qc.abs() / scale))
+                bq[i, :, c0:c1] += 2 * sig_t * scale * (1 + u) * (
+                    torch.einsum("bhgqk,bkhd->bqhgd", a_ds, ones(kc))
+                    + torch.einsum("qk,bkhd->bqhd", mask64,
+                                   kc.abs())[:, :, :, None])
+        if softcap:
+            del t
+        del dp, err_dp, resid, P, e_p, err_s, err_ds, ds_abs, w
     # both sides: twice the float32 side's, or the float32 side's plus the
     # split side's
     bq, bk, bv = (x[0] + x[-1] for x in (bq, bk, bv))

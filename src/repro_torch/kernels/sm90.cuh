@@ -1,11 +1,15 @@
 // Hopper PTX pieces shared by the kernels that run on the tensor cores:
 // flash attention's forward (flash_attention/csrc/flash_attention_sm90.cu)
-// and its gradient (flash_attention/csrc/flash_attention_bwd_sm90.cu).
-// mbarriers, TMA loads and stores of 4-d tiles, the 128-byte-swizzle wgmma
-// shared-memory descriptor, wgmma m64nNk16 in its two forms (A and B from
-// shared memory, both K-major; A from registers, B MN-major), the register
-// pins around an async wgmma, quad shuffles, the 16-bit pair packing, and
-// on the host the tensor maps of the (D, heads, S, B) model layout.
+// and its gradient's two tensor-core instances
+// (flash_attention/csrc/flash_attention_bwd_sm90.cu in 16 bits,
+// flash_attention_bwd_tf32.cu in float32). mbarriers, TMA loads and stores
+// of 4-d tiles, the 128-byte-swizzle wgmma shared-memory descriptor (and
+// the 64-byte one of 32-bit K-major tiles), wgmma m64nNk16 in its two forms
+// (A and B from shared memory, both K-major; A from registers, B MN-major),
+// wgmma m64nNk8 in TF32 (the same two forms, every operand K-major), the
+// TF32 rounding, the register pins around an async wgmma, quad shuffles,
+// the 16-bit pair packing, the gradient's elementwise step, and on the
+// host the tensor maps of the (D, heads, S, B) model layout.
 // Compiled for sm_90a only (wgmma and setmaxnreg exist there alone).
 #pragma once
 
@@ -304,6 +308,141 @@ template <>
 __device__ __forceinline__ void wgmma_rs<256, __half>(
     float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
   WGMMA_RS_256("f16");
+}
+
+// ------------------------------------------------------------------ TF32
+// x rounded to TF32 (cvt.rna: to nearest, ties away from zero) as the
+// float32 bits the tensor cores read, its low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
+}
+
+// wgmma shared-memory descriptor of a K-major tile whose rows are
+// kSwizzle bytes (128 or 64) with the swizzle of that span: start address,
+// stride byte offset sbo between 8-row atoms, layout type B128 (1) or B64
+// (2) in bits 62-63
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t sbo) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64, "128- or 64-byte rows");
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(kSwizzle == 128 ? 1 : 2) << 62);
+}
+
+// D(64 x N, f32) (+)= A(64 x 8) B(8 x N) in TF32, A and B from shared
+// memory, both K-major (the only layout wgmma takes for 32-bit types);
+// scale_d = 0 overwrites D
+template <int N>
+__device__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b,
+                              int scale_d);
+// D(64 x N, f32) += A(64 x 8, TF32 in registers) B(8 x N), B K-major from
+// shared memory. Warp w's A registers hold rows 16 w + g and 16 w + g + 8
+// (g = lane / 4) at k = t and t + 4 (t = lane % 4): a0 (g, t), a1 (g + 8,
+// t), a2 (g, t + 4), a3 (g + 8, t + 4)
+template <int N>
+__device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                              uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// p and ds of one score x (the raw product) and its dp, in place: x becomes
+// p = exp(scale x - lse) (softcapped before the mask) or 0 off the mask,
+// dp becomes ds = p (dp - delta) (1 - t^2); the gradient's elementwise step
+// in both tensor-core instances
+__device__ __forceinline__ void p_ds(float& x, float& dp, bool ok, float lse,
+                                     float delta, float scale,
+                                     float softcap) {
+  float s = x * scale, dcap = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(s / softcap);
+    s = t * softcap;
+    dcap = 1.f - t * t;
+  }
+  const float p = ok ? expf(s - lse) : 0.f;
+  x = p;
+  dp = p * (dp - delta) * dcap;
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 BF16_FLOPS = 989e12      # bfloat16 (and float16) tensor cores, dense
 F32_FLOPS = 67e12        # float32 outside the tensor cores
+TF32_FLOPS = 495e12      # TF32 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 
 

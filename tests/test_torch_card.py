@@ -74,16 +74,21 @@ params 1e-5, the CPU test's bounds) and twice bit for bit;
 ``moe_apply_sharded`` on the card against the CPU's shards (rtol = atol =
 1e-5); the owner-local ``write_token`` against the unsharded write, bit for
 bit.
-Flash attention's gradient: both instances of its four launches (wgmma:
-bfloat16 and float16 at D % 8 == 0 up to 256; FMA: float32 and the other
-head dims), every dtype, head dims 20 to 320, G = 1 to 10, windows,
-softcaps, offsets on and off the instances' blocks, against the chunked
-plain backward from the same out and lse, within
+Flash attention's gradient: the three instances of its four launches
+(wgmma: bfloat16 and float16 at D % 8 == 0 up to 256; tf32: float32 and
+the other 16-bit head dims up to 128, three TF32 products a product; FMA:
+the head dims above), every dtype, head dims 20 to 320, G = 1 to 10,
+windows, softcaps, offsets on and off the instances' blocks, against the
+chunked plain backward from the same out and lse, within
 ``ref.backward_error_bound(same_stats=True)`` (the derived worst-case
 float32 bound of two orders of the same sums, plus one rounding each to a
 16-bit type; ``split=True`` for the wgmma instance, whose P and dS enter
-its products as hi and lo halves of the type), the instance
-``bwd_impl_for`` names counted, two calls bit for bit; both forward
+its products as hi and lo halves of the type; ``split="tf32"`` for the
+tf32 instance, whose every operand enters as TF32 big and small halves),
+the instance ``bwd_impl_for`` names counted, two calls bit for bit; the
+tf32 instance at the CPU emulation's shapes and at qwen3's heads in
+float32 (1 x 2048), and a float32 head dim above its width on the FMA
+kernels; both forward
 kernels' logsumexp against the plain one within its derived bound, the
 output's bytes unchanged by asking for it; and qwen3's heads at 32,768
 tokens in bfloat16 under 1 GiB above the inputs.
@@ -527,18 +532,32 @@ def test_flash_backward_matches_plain_on_card(card, rng, dtype, B, Sq, Skv,
                                               softcap):
     """The gradient's instance ``bwd_impl_for`` names (four launches,
     counted per kernel: wgmma in bfloat16 and float16 at D % 8 == 0 up to
-    256, FMA otherwise) against the chunked plain backward on the same card
-    tensors, the same out and lse: within
+    256, tf32 otherwise up to D = 128, FMA above) against the chunked plain
+    backward on the same card tensors, the same out and lse: within
     ``ref.backward_error_bound(same_stats=True)`` (both read the forward's
-    statistics; they differ in the order of each sum), with ``split`` for
-    the wgmma instance (its P and dS enter the products as 16-bit hi and lo
-    halves), and two calls bit for bit (no atomics)."""
+    statistics; they differ in the order of each sum), with the instance's
+    ``split`` (``ops.BWD_SPLIT``: the wgmma instance's P and dS enter the
+    products as 16-bit hi and lo halves, the tf32 instance's every operand
+    as TF32 halves), and two calls bit for bit (no atomics)."""
+    _bwd_case_on_card(card, rng, dtype, B, Sq, Skv, off, H, Hkv, D, window,
+                      softcap)
+
+
+def _want_bwd_impl(dtype, D):
+    if dtype != torch.float32 and D % 8 == 0 and D <= 256:
+        return "wgmma"
+    return "tf32" if D <= 128 else "fma"
+
+
+def _bwd_case_on_card(card, rng, dtype, B, Sq, Skv, off, H, Hkv, D, window,
+                      softcap):
+    """One backward case on the card against the plain backward (the test
+    above); returns the instance."""
     q, k, v, dout, out, lse = _bwd_inputs(rng, card, dtype, B, Sq, Skv, off,
                                           H, Hkv, D, window, softcap)
     kw = dict(window=window, softcap=softcap, q_offset=off)
     impl = fa_ops.bwd_impl_for(dtype, D)
-    assert impl == ("wgmma" if dtype != torch.float32 and D % 8 == 0
-                    and D <= 256 else "fma")
+    assert impl == _want_bwd_impl(dtype, D)
     before = dict(fa_ops.LAUNCHES_BWD_BY_KERNEL)
     got = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, **kw)
     torch.cuda.synchronize()
@@ -546,9 +565,47 @@ def test_flash_backward_matches_plain_on_card(card, rng, dtype, B, Sq, Skv,
     want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
     _within(got, want, fa_ref.backward_error_bound(
         q, k, v, out, dout, lse, **kw, same_stats=True,
-        split=impl == "wgmma", ref=want))
+        split=fa_ops.BWD_SPLIT[impl], ref=want))
     again = fa_ops.flash_attention_backward(q, k, v, out, dout, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return impl
+
+
+# tests/test_torch_flash_backward.py's TF32_CASES (the CPU emulation's
+# shapes), B, Sq, Skv, off, H, Hkv, D, window, softcap, dtype; then qwen3's
+# heads in float32 at 1 x 2048 (chip_smoke's path_f32)
+TF32_CARD_CASES = [
+    (1, 150, 150, 0, 4, 2, 20, 0, 0.0, torch.float32),
+    (2, 70, 200, 130, 2, 1, 64, 50, 3.0, torch.float32),
+    (1, 100, 300, 200, 4, 4, 100, 0, 0.0, torch.float32),
+    (1, 260, 260, 0, 4, 1, 128, 100, 0.0, torch.float32),
+    (1, 60, 130, 64, 4, 2, 8, 20, 5.0, torch.float32),
+    (1, 200, 200, 0, 2, 1, 36, 64, 0.0, torch.bfloat16),
+    (1, 97, 140, 40, 4, 1, 20, 16, 0.0, torch.float16),
+    (1, 2048, 2048, 0, 16, 8, 128, 0, 0.0, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,off,H,Hkv,D,window,softcap,dtype",
+                         TF32_CARD_CASES)
+def test_flash_backward_tf32_on_card(card, rng, B, Sq, Skv, off, H, Hkv, D,
+                                     window, softcap, dtype):
+    """The tf32 instance (split pass, dK/dV and dQ on the tensor cores in
+    three TF32 products a product) at the CPU emulation's shapes and at
+    qwen3's float32 heads: within ``backward_error_bound(same_stats=True,
+    split="tf32")`` of the plain backward, its four launches counted per
+    kernel, two calls bit for bit."""
+    assert _bwd_case_on_card(card, rng, dtype, B, Sq, Skv, off, H, Hkv, D,
+                             window, softcap) == "tf32"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [136, 200])
+def test_flash_backward_above_tf32_width_on_card(card, rng, D):
+    """A float32 head dim above the tf32 instance's widest (128) stays on
+    the FMA kernels and holds the float32 bound."""
+    assert _bwd_case_on_card(card, rng, torch.float32, 1, 150, 180, 30, 4,
+                             2, D, 0, 0.0) == "fma"
 
 
 @pytest.mark.cuda
@@ -1542,7 +1599,7 @@ def test_flash_attention_fn_forward_backward_on_card(card, dtype, D, impl):
     got = torch.autograd.grad(out, (q, k, v), dout)
     want = torch.autograd.grad(ref, (q, k, v), dout)
     bwd_impl = fa_ops.bwd_impl_for(dtype, D)
-    assert bwd_impl == ("wgmma" if impl == "wgmma" else "fma")
+    assert bwd_impl == ("wgmma" if impl == "wgmma" else "tf32")
     assert fa_ops.LAUNCHES_BY_IMPL[impl] == before[impl] + 1
     assert fa_ops.LAUNCHES_BWD_BY_KERNEL == _bwd_launched(bwd, bwd_impl)
     assert all(x.dtype == dtype for x in got)
@@ -1551,7 +1608,7 @@ def test_flash_attention_fn_forward_backward_on_card(card, dtype, D, impl):
     fa_ops.flash_attention(qd, kd, vd, scale=1.0, lse=lse)
     _within(got, want, fa_ref.backward_error_bound(
         qd, kd, vd, out.detach(), dout, lse, scale=1.0,
-        split=bwd_impl == "wgmma", ref=want))
+        split=fa_ops.BWD_SPLIT[bwd_impl], ref=want))
 
 
 @pytest.mark.cuda

@@ -26,7 +26,13 @@ Bounds:
     XLA's online softmax over kv chunks against the plain version's
     chunks): ``GRAD_REL`` = 1e-4 of each gradient's largest magnitude,
     ``tests/test_torch_lm_train.py``'s bound for the port's gradients
-    against JAX's;
+    against JAX's, also for the emulated tf32 instance;
+  * the emulated kernel instances against the chunked plain backward:
+    ``backward_error_bound(same_stats=True)`` with the instance's
+    ``split`` (True: the wgmma instance's 16-bit hi/lo halves of P and dS;
+    "tf32": the tf32 instance's TF32 halves of every operand, derived in
+    the bound's docstring), and a negative control for each split (one
+    16-bit rounding of P and dS; one TF32 pass) that exceeds it;
   * the chunked forward up to ``Q_CHUNK`` rows runs ``attention_ref``'s
     ops and equals it bit for bit; above, each chunk is those ops on its
     rows, within 1e-6 (max abs) of the whole pass (torch's CPU matmul may
@@ -524,16 +530,23 @@ def test_wgmma_split_is_needed(rng):
 def test_backward_impl_for_every_dtype_and_head_dim(dtype, D):
     """The gradient's static instance: wgmma exactly where the forward runs
     on the tensor cores (bfloat16 and float16 at D % 8 == 0 up to 256),
-    the FMA kernels for every other (dtype, D); each instance names four
-    launches, the delta and sum kernels shared."""
-    want = ("wgmma" if dtype != torch.float32 and D % 8 == 0 and D <= 256
-            else "fma")
+    tf32 for every other (dtype, D) up to D = 128 (float32 at every such
+    D), the FMA kernels above; each instance names four launches, the sum
+    kernel shared, the first the delta kernel (the tf32 instance's split
+    pass computes delta too)."""
+    if dtype != torch.float32 and D % 8 == 0 and D <= 256:
+        want = "wgmma"
+    else:
+        want = "tf32" if D <= 128 else "fma"
     assert fa_ops.bwd_impl_for(dtype, D) == want
     assert (fa_ops.impl_for(dtype, D) == "wgmma") == (want == "wgmma")
     kernels = fa_ops.BWD_KERNELS[want]
-    assert len(kernels) == 4 and kernels[0] == "dot"
+    assert len(kernels) == 4
+    assert kernels[0] == ("split_tf32" if want == "tf32" else "dot")
     assert kernels[2] == "dkdv_sum"
     assert set(kernels) <= set(fa_ops.LAUNCHES_BWD_BY_KERNEL)
+    assert fa_ops.BWD_SPLIT[want] == {"wgmma": True, "tf32": "tf32",
+                                      "fma": False}[want]
 
 
 def test_split_bound_needs_a_16_bit_type(rng):
@@ -541,3 +554,250 @@ def test_split_bound_needs_a_16_bit_type(rng):
     out, lse = fa_ref.attention_lse_ref(q, k, v)
     with pytest.raises(ValueError, match="16-bit"):
         fa_ref.backward_error_bound(q, k, v, out, dout, lse, split=True)
+
+
+def _rna(x32):
+    """float32 numpy values rounded to TF32 as ``cvt.rna`` rounds them (to
+    nearest, ties away from zero): 0x1000 added to the bits, the low 13
+    cleared."""
+    bits = np.ascontiguousarray(x32, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_split(x):
+    """float64 x as the tf32 instance holds it (float32) split into TF32
+    halves big = tf32(x) and small = tf32(x - big), as float64."""
+    x32 = np.asarray(x, dtype=np.float32)
+    big = _rna(x32)
+    small = _rna(x32 - big)               # x32 - big is exact in float32
+    return big.astype(np.float64), small.astype(np.float64)
+
+
+def _prod3(a, b, passes=3):
+    """a @ b of two split operands ((big, small) each) as the instance's
+    dV, dK and dQ products take it: big big + big small + small big
+    (``passes=1``: big big alone)."""
+    out = a[0] @ b[0]
+    if passes == 3:
+        out = out + a[0] @ b[1] + a[1] @ b[0]
+    return out
+
+
+def _prod4(a, b, passes=3):
+    """a @ b of two split operands as the instance's S and dP take it: all
+    four products of the halves, (big + small) (big + small) (``passes=1``:
+    big big alone)."""
+    if passes == 1:
+        return a[0] @ b[0]
+    return (a[0] + a[1]) @ (b[0] + b[1])
+
+
+def _emulate_tf32(q, k, v, out, dout, lse, *, window, softcap, q_offset,
+                  passes=3):
+    """The gradient's tf32 instance (csrc/flash_attention_bwd_tf32.cu) in
+    float64 numpy: the split pass (delta, and q, k, v, dout as float32 split
+    into TF32 halves by ``cvt.rna``, padded with zeros to the instance
+    width DW, 64 or 128, the narrowest that holds D); the dK/dV CTAs (a q
+    head, 64 keys, every output column) over q tiles of BS rows (32 at DW
+    64, 16 at DW 128) from the first that sees
+    the block's keys to the last a window lets see them, skipping the tiles
+    whose rows cannot see its keys, the tiles taken in turn by two
+    warpgroups whose sums are added at the end (the first's first); the dQ
+    CTAs (64 rows) over key tiles of BS from the window's first to the
+    rows' last, likewise; per tile S = Q K^T (all four TF32 products of the
+    halves) times the scale, the softcap, the mask, P = exp(S - lse), dP
+    likewise, dS = P (dP - delta) (1 - t^2); P and dS as float32 split into
+    TF32 halves for dV += P^T dO, dK += dS^T Q and dQ += dS K (three
+    products: big big, big small, small big); dK times the scale in
+    each q head's share, the shares summed over a kv head's q heads in
+    order, dQ times the scale once. ``passes=1`` takes every product as
+    big big alone. Returns float64 (dq, dk, dv), unrounded."""
+    q, k, v, out, dout = (t.double().numpy() for t in (q, k, v, out, dout))
+    lse = lse.double().numpy()
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(D)
+    DW = 64 if D <= 64 else 128          # the narrowest width holding D
+    BS = 32 if DW == 64 else 16
+    delta = (dout * out).sum(-1).transpose(0, 2, 1)        # (B, H, Sq)
+    pad = lambda x: np.pad(x, [(0, 0)] * 3 + [(0, DW - D)])
+    qs, ks, vs, dos = (_tf32_split(pad(x)) for x in (q, k, v, dout))
+
+    def rows_of(x, b, h, idx, n):
+        """rows idx of a split tensor's head h, zeros at and past n"""
+        return tuple(np.where((idx < n)[:, None],
+                              y[b, np.minimum(idx, n - 1), h], 0.0)
+                     for y in x)
+
+    def tile(b, h, rows, keys):
+        hk = h // G
+        Q, dO = rows_of(qs, b, h, rows, Sq), rows_of(dos, b, h, rows, Sq)
+        K, V = rows_of(ks, b, hk, keys, Skv), rows_of(vs, b, hk, keys, Skv)
+        T = lambda x: tuple(y.T for y in x)
+        s, dcap = _prod4(Q, T(K), passes) * scale, 1.0
+        if softcap:
+            t = np.tanh(s / softcap)
+            s, dcap = t * softcap, 1 - t * t
+        pos, kpos = q_offset + rows[:, None], keys[None, :]
+        ok = (rows[:, None] < Sq) & (kpos < Skv) & (kpos <= pos)
+        if window:
+            ok &= pos - kpos < window
+        inside = np.minimum(rows, Sq - 1)
+        row_l = np.where(rows < Sq, lse[b, h, inside], 0.0)
+        row_d = np.where(rows < Sq, delta[b, h, inside], 0.0)
+        p = np.where(ok, np.exp(np.where(ok, s - row_l[:, None], 0.0)), 0.0)
+        ds = p * (_prod4(dO, T(V), passes) - row_d[:, None]) * dcap
+        return Q, K, dO, _tf32_split(p), _tf32_split(ds)
+
+    def in_turns(tiles, step):
+        """the two warpgroups' sums over alternate tiles, the first's
+        first"""
+        acc = [0.0, 0.0]
+        for t, x in enumerate(tiles):
+            if x is not None:
+                acc[t % 2] = acc[t % 2] + step(x)
+        return acc[0] + acc[1]
+
+    dq = np.zeros((B, Sq, H, D))
+    part_k, part_v = np.zeros((B, Skv, H, D)), np.zeros((B, Skv, H, D))
+    for b in range(B):
+        for h in range(H):
+            for k0 in range(0, Skv, 64):
+                k_last = min(k0 + 64, Skv) - 1
+                r_first = max(0, k0 - q_offset) // BS * BS
+                r_end = (min(Sq, k_last + window - q_offset) if window
+                         else Sq)
+                keys = k0 + np.arange(64)
+                n = min(64, Skv - k0)
+                tiles = []
+                for r0 in range(r_first, r_end, BS):
+                    lo, hi = q_offset + r0, q_offset + r0 + BS - 1
+                    live = hi >= k0 and (not window
+                                         or lo - (k0 + 63) < window)
+                    tiles.append(tile(b, h, r0 + np.arange(BS), keys)
+                                 if live else None)
+                T = lambda x: tuple(y.T for y in x)
+                dv_ = in_turns(tiles, lambda x: _prod3(T(x[3]), x[2],
+                                                       passes))
+                dk_ = in_turns(tiles, lambda x: _prod3(T(x[4]), x[0],
+                                                       passes))
+                part_k[b, k0:k0 + n, h] = (
+                    scale * (dk_ + np.zeros((64, DW))))[:n, :D]
+                part_v[b, k0:k0 + n, h] = (dv_ + np.zeros((64, DW)))[:n, :D]
+            for q0 in range(0, Sq, 64):
+                p0 = q_offset + q0
+                q_last = q_offset + min(q0 + 64, Sq) - 1
+                k_begin = max(0, p0 - window + 1) // BS * BS if window else 0
+                rows = q0 + np.arange(64)
+                tiles = []
+                for k0 in range(k_begin, q_last + 1, BS):
+                    live = k0 <= p0 + 63 and (not window
+                                              or k0 + BS > p0 - window + 1)
+                    tiles.append(tile(b, h, rows, k0 + np.arange(BS))
+                                 if live else None)
+                acc = in_turns(tiles, lambda x: _prod3(x[4], x[1], passes))
+                n = min(64, Sq - q0)
+                dq[b, q0:q0 + n, h] = (scale * acc)[:n, :D]
+    dk, dv = (x.reshape(B, Skv, Hkv, G, D).sum(3) for x in (part_k, part_v))
+    return tuple(torch.from_numpy(x) for x in (dq, dk, dv))
+
+
+def _tf32_over_bound(rng, B, Sq, Skv, H, Hkv, D, window, softcap, off, dt,
+                     passes=3):
+    """The emulated tf32 instance against the chunked plain backward: the
+    largest |error| over ``backward_error_bound(same_stats=True,
+    split="tf32")`` over dq, dk and dv."""
+    q, k, v, dout = _inputs(rng, B, Sq, Skv, H, Hkv, D, DTYPES[dt], softcap)
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    got = _emulate_tf32(q, k, v, out, dout, lse, passes=passes, **kw)
+    want = fa_ref.attention_backward_ref(q, k, v, out, dout, lse, **kw)
+    bounds = fa_ref.backward_error_bound(q, k, v, out, dout, lse, **kw,
+                                         same_stats=True, split="tf32",
+                                         ref=want)
+    return max(float(((g - w.double()).abs() / b).max())
+               for g, w, b in zip(got, want, bounds))
+
+
+# float32 at D 20, 64, 100 and 128 (DW 64 and 128), windows, softcaps and
+# offsets off the 64-row blocks; 16-bit at head dims off the wgmma
+# instance's (D % 8 != 0)
+TF32_CASES = [
+    (1, 150, 150, 4, 2, 20, 0, 0.0, 0, "float32"),
+    (2, 70, 200, 2, 1, 64, 50, 3.0, 130, "float32"),
+    (1, 100, 300, 4, 4, 100, 0, 0.0, 200, "float32"),
+    (1, 260, 260, 4, 1, 128, 100, 0.0, 0, "float32"),
+    (1, 60, 130, 4, 2, 8, 20, 5.0, 64, "float32"),
+    (1, 200, 200, 2, 1, 36, 64, 0.0, 0, "bfloat16"),
+    (1, 97, 140, 4, 1, 20, 16, 0.0, 40, "float16")]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window,softcap,off,dt",
+                         TF32_CASES)
+def test_tf32_instance_emulated(rng, B, Sq, Skv, H, Hkv, D, window, softcap,
+                                off, dt):
+    """The tf32 instance's block and tile ranges, skips, the turns of its
+    two warpgroups, split pass and TF32 halves (``cvt.rna``)
+    of every operand, emulated in float64 (``_emulate_tf32``), within
+    ``backward_error_bound(same_stats=True, split="tf32")`` of the chunked
+    plain backward: a tile dropped or counted twice moves a gradient by
+    whole terms, far past the bound."""
+    assert _tf32_over_bound(rng, B, Sq, Skv, H, Hkv, D, window, softcap,
+                            off, dt) <= 1.0
+
+
+# the negative control's cases: a small one, and qwen3-0.6b's heads (16 q
+# over 8 kv, D 128) over 512 rows and keys, the path's float32 gradient
+# (chip_smoke's path_f32) at a quarter of its length, where the bound's
+# gamma(3 n) terms are wider
+TF32_CONTROL_CASES = [
+    (1, 64, 64, 2, 1, 16, 0, 0.0, 0, "float32"),
+    (1, 512, 512, 16, 8, 128, 0, 0.0, 0, "float32")]
+
+
+@pytest.mark.parametrize("case", TF32_CONTROL_CASES)
+def test_tf32_three_passes_are_needed(rng, case):
+    """The negative control of the three TF32 passes: in float32, every
+    product taken as big big alone (one TF32 pass, each operand rounded
+    once to TF32: ~2^-11 a term) puts the emulated instance past the
+    bound, which the three passes hold, at a small shape and at the
+    path's heads."""
+    assert _tf32_over_bound(rng, *case) <= 1.0
+    assert _tf32_over_bound(rng, *case, passes=1) > 1.0
+
+
+def test_tf32_instance_against_jax_blockwise_attention(rng):
+    """The emulated tf32 instance against ``jax.vjp`` of the reference's
+    ``blockwise_attention``, float32, GQA with 2 q heads a kv head, at a
+    query offset, a window and a softcap: within ``GRAD_REL`` of each
+    gradient's largest magnitude, the bound of the plain backward's JAX
+    test above."""
+    B, Hkv, G, D, Sq, Skv, off, window, softcap = 2, 2, 2, 16, 40, 60, 20, \
+        17, 3.0
+    mk = lambda *shape: rng.normal(0, 1, shape).astype(np.float32)
+    q, k, v = mk(B, Sq, Hkv, G, D) * 4, mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, D)
+    dout = mk(B, Sq, Hkv, G, D)
+    qpos = np.broadcast_to(off + np.arange(Sq), (B, Sq))
+    kpos = np.broadcast_to(np.arange(Skv), (B, Skv))
+
+    def jfn(q, k, v):
+        return jax_blockwise(q, k, v, q_positions=jnp.asarray(qpos),
+                             kv_positions=jnp.asarray(kpos),
+                             kv_valid=jnp.ones((B, Skv), bool), window=window,
+                             softcap=softcap, q_chunk=8, kv_chunk=16)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(dout))
+    tq = torch.from_numpy(q.reshape(B, Sq, Hkv * G, D))
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    tdo = torch.from_numpy(dout.reshape(B, Sq, Hkv * G, D))
+    kw = dict(window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_ref.attention_lse_ref(tq, tk, tv, **kw)
+    got = _emulate_tf32(tq, tk, tv, out, tdo, lse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, jgrads):
+        w = np.asarray(w).reshape(g.shape)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=GRAD_REL * np.abs(w).max(),
+                                   err_msg=name)

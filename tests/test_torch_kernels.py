@@ -22,6 +22,9 @@ output, |got - want| <= 2^-7 |want| + 1e-5: both sides compute in float32
 most one rounding step. Softcap cases scale q by 8, so that scores reach
 tens and a cap of 50 changes the output far beyond the tolerance.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from repro.kernels.harmonize.ops import harmonize as jax_harmonize
 from repro.kernels.locf.ops import locf as jax_locf
 from repro.kernels.rglru_scan.ops import rglru_scan as jax_rglru_scan
 from repro.kernels.window_agg.ops import window_agg as jax_window_agg
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.harmonize import ops as hz_ops
 from repro_torch.kernels.locf import ops as locf_ops
@@ -596,3 +600,34 @@ def test_cpu_path_counts_no_launch(rng):
     assert (locf_ops.LAUNCHES, wagg_ops.LAUNCHES, rglru_ops.LAUNCHES,
             hz_ops.LAUNCHES, fa_ops.LAUNCHES) == before
     assert hz_ops.LAUNCHES_BY_IMPL == by_impl
+
+
+# every `extern "C"` entry point of the kernel sources: (return type, name,
+# parameter list), read from the sources as they stand
+_ENTRY = re.compile(r'extern "C"\s+((?:\w+\s+)*?\w+)\s+(\w+)\s*\(([^)]*)\)')
+_ENTRY_POINTS = {name: (ret, params)
+                 for src in _build.sources()
+                 for ret, name, params in _ENTRY.findall(src.read_text())}
+_CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "long long": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_ctypes_signature_matches_the_source(name):
+    """``_build.SIGNATURES`` and ``RESTYPES`` declare each entry point as
+    its C source does (a pointer for every ``*`` parameter, else the
+    parameter's type), so a launch never passes an argument ctypes
+    converts to another width: a change on one side alone fails here, on
+    the CPU, not as a launch error on the card."""
+    ret, params = _ENTRY_POINTS[name]
+    want = [ctypes.c_void_p if "*" in p
+            else _CTYPES[p.rsplit(None, 1)[0].replace("const ", "").strip()]
+            for p in params.split(",") if p.strip()]
+    assert _build.SIGNATURES[name] == want
+    assert _build.RESTYPES.get(name, ctypes.c_int) is _CTYPES[ret]
+
+
+def test_every_ctypes_signature_has_an_entry_point():
+    """No declared signature outlives its C entry point."""
+    assert set(_build.SIGNATURES) == set(_ENTRY_POINTS)
+    assert set(_build.RESTYPES) <= set(_ENTRY_POINTS)
